@@ -1,0 +1,517 @@
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``,
+holds each one against its plain PyTorch version at the shapes the main
+path gives it, then drives the main path — staged exact top-k search,
+``WmdEngine.search(k=10, prune="rwmd")`` and ``query_batch`` — at the
+paper's full widths (V=100 000, w=300, N=5000, 10 queries of 19-43
+words, n_iter=15) and checks the result against the exhaustive top-k.
+Prints one JSON object per phase; the line before the last lists every
+kernel with its launches on the main path, error, time, plain time and
+bound; the last line is ``{"ok": true, "device": {...}}``. Any failed
+check raises, and the script exits non-zero without that last line. It
+needs a CUDA device and the CUDA toolkit (``nvcc``), and imports nothing
+of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs.paper_wmd import CONFIG  # noqa: E402
+from repro_torch.core.index import (WmdEngine, _compute_kq,  # noqa: E402
+                                    _gather_g, build_index)
+from repro_torch.core.sinkhorn import LamUnderflowError  # noqa: E402
+from repro_torch.data.corpus import make_corpus, paper_corpus  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 FFMA
+# rate outside the tensor cores, both at the full 700 W power limit
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
+
+# K2: the kernel sums the w-long dot product in another order than the
+# plain version's cuBLAS GEMM. The error sits in the squared distance
+# |a|^2+|b|^2-2a.b, at a few ulps of |a|^2+|b|^2 (~600 at w=300), so it is
+# held there: |got^2 - want^2| <= K2_SQ_RTOL * (|a_q|^2max + |b_v|^2).
+# On a distance of ~25 that is ~1e-4; where a query word is the vocabulary
+# word itself (d ~ 0) the sqrt turns the same residue into ~2e-2.
+K2_SQ_RTOL = 1e-5
+# K1: sums over v_r and L run in another order, and 15 iterations of
+# the scaling fixed point carry the ulp differences into the distance
+K1_RTOL, K1_ATOL = 1e-4, 1e-4
+# staged vs exhaustive distances: the same per-doc solve on other ELL
+# trims (pad slots are exactly inert), so agreement is at fp32 rounding
+E2E_RTOL = 1e-5
+# timed end-to-end calls per configuration (after one warm-up and the
+# counted run)
+E2E_REPS = 15
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median over ``reps`` launches, each between its own CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def wall_ms(fn, reps: int = E2E_REPS) -> dict:
+    """Host wall time of ``fn`` up to a device sync, over ``reps`` calls:
+    median, quartiles and every sample, in ms."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = np.percentile(times, [25, 50, 75])
+    return {"median": float(med), "q1": float(q1), "q3": float(q3),
+            "samples": times}
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    tb = n_bytes / PEAK_BYTES_PER_S * 1e3
+    tf = n_flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return (tf, "operations") if tf >= tb else (tb, "bytes")
+
+
+def compare(got: torch.Tensor, want: torch.Tensor, rtol: float,
+            atol: float, name: str) -> tuple[float, float]:
+    """Same inf/NaN pattern and finite entries within tolerance."""
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        raise AssertionError(f"{name}: inf/NaN pattern differs from the "
+                             "plain version")
+    fin = torch.isfinite(want)
+    if not fin.any():
+        raise AssertionError(f"{name}: no finite output to compare")
+    err = (got[fin] - want[fin]).abs()
+    rel = err / want[fin].abs().clamp(min=1e-30)
+    bad = err > atol + rtol * want[fin].abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} entries outside rtol={rtol} "
+            f"atol={atol}; max abs err {float(err.max())}")
+    return float(err.max()), float(rel.max())
+
+
+def phase_device() -> dict:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    # fp32 policy: every product of the port is full fp32 (see
+    # repro_torch.core.index); TF32 would move bounds and distances
+    assert torch.backends.cuda.matmul.allow_tf32 is False, \
+        "torch.backends.cuda.matmul.allow_tf32 must stay False"
+    info = {"phase": "device", "nvidia_smi": smi,
+            "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "python": sys.version.split()[0],
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    emit(info)
+    return info
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    lib, log = build.build()
+    secs = time.perf_counter() - t0
+    regs = [ln.split("info    : ")[-1] for ln in log.splitlines()
+            if "registers" in ln]
+    emit({"phase": "build", "seconds": secs, "library": lib.name,
+          "ptxas": regs})
+
+
+def paper_chunk(v: int, dev, width: int = 48, q: int = 4, seed: int = 0):
+    """A query chunk at the main path's widest paper shape: Q=4 queries of
+    ``width`` support rows drawn from the paper vocabulary, some rows
+    masked as the engine pads them."""
+    rng = np.random.default_rng(seed)
+    sup = np.stack([rng.choice(v, size=width, replace=False)
+                    for _ in range(q)])
+    live = [width, 43, 31, 19][:q]           # the paper's 19-43 words
+    mask = np.zeros((q, width), np.float32)
+    r = np.ones((q, width), np.float32)
+    for i, n in enumerate(live):
+        mask[i, :n] = 1.0
+        w = rng.random(n).astype(np.float64) + 0.1
+        r[i, :n] = (w / w.sum()).astype(np.float32)
+    return (torch.as_tensor(sup, dtype=torch.int64, device=dev),
+            torch.as_tensor(r, device=dev), torch.as_tensor(mask, device=dev))
+
+
+def main_path_chunk(corpus, index):
+    """The widest query chunk the engine stages for the paper queries: the
+    (sup, r, mask) the main path hands K2 and, through the K block, K1."""
+    eng = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter)
+    qs = list(corpus.queries)
+    _, chunks = eng._plan(qs)
+    chunk, width = max(chunks, key=lambda c: (c[1], len(c[0])))
+    return eng._prep_chunk([qs[qi] for qi in chunk], width)
+
+
+def phase_k2(index, sup, mask, label: str) -> dict:
+    a = index.vecs[sup]                                  # (Q, B, 300)
+    if label == "paper_max":
+        mask = mask.clone()
+        mask[-1] = 0.0                                   # all-masked row
+    b = index.vecs
+    got = ops.rwmd_min_cdist(a, mask, b)
+    torch.cuda.synchronize()
+    want = ref.rwmd_min_cdist_ref(a, mask, b)
+    dead = mask.sum(dim=1) == 0
+    if not torch.isinf(got[dead]).all():
+        raise AssertionError("K2: all-masked rows must come out +inf")
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        raise AssertionError("K2: inf/NaN pattern differs from the plain "
+                             "version")
+    fin = torch.isfinite(want)
+    a2max = torch.where(mask > 0, (a * a).sum(-1),
+                        torch.zeros_like(mask)).max(dim=1).values
+    scale = a2max[:, None] + (b * b).sum(-1)[None, :]
+    err_sq = (got * got - want * want).abs()
+    bad = fin & (err_sq > K2_SQ_RTOL * scale)
+    if bad.any():
+        raise AssertionError(
+            f"K2: {int(bad.sum())} entries outside the squared-distance "
+            f"tolerance; max |d^2 err| / scale "
+            f"{float((err_sq / scale)[fin].max())}")
+    err = (got[fin] - want[fin]).abs()
+    abs_err = float(err.max())
+    rel_err = float((err / want[fin].abs().clamp(min=1e-30)).max())
+    q, bq, w = a.shape
+    v = b.shape[0]
+    # the bound counts what this run's data needs: the live support rows
+    # of a (masked rows add nothing to the min), all of b, the output
+    live_rows = float(mask.sum())
+    n_bytes = 4.0 * (live_rows * w + mask.numel() + b.numel() + q * v)
+    n_flops = 2.0 * live_rows * w * v + 2.0 * (v + live_rows) * w
+    bms, by = bound_ms(n_bytes, n_flops)
+    rec = {"phase": "k2", "name": "rwmd_min_cdist", "inputs": label,
+           "shape": {"Q": q, "B": bq, "w": w, "V": v,
+                     "live_rows": int(live_rows),
+                     "masked_queries": int(dead.sum())},
+           "max_abs_err": abs_err, "max_rel_err": rel_err,
+           "max_sq_err_over_scale": float((err_sq / scale)[fin].max()),
+           "sq_rtol": K2_SQ_RTOL,
+           "ms": time_ms(lambda: ops.rwmd_min_cdist(a, mask, b)),
+           "plain_ms": time_ms(lambda: ref.rwmd_min_cdist_ref(a, mask, b),
+                               reps=5, warmup=1),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    emit(rec)
+    return rec
+
+
+def phase_k1(index, sup, r, mask, log_domain: bool, lam: float,
+             label: str) -> dict:
+    n_iter = CONFIG.n_iter
+    grp = index.subset(np.arange(index.n_docs, dtype=np.int32),
+                       storage=True)                     # N padded to 8192
+    kq = _compute_kq(sup, mask, index.vecs, index.vecs_sq, lam,
+                     log_domain=log_domain)
+    g = _gather_g(kq, grp.docs.idx)                      # (Q, v_r, N, L)
+    val = grp.docs.val
+    del kq
+
+    def kernel():
+        return ops.sinkhorn_fused_all_batched(g, val, r, lam, n_iter,
+                                              log_domain=log_domain)
+
+    def plain():
+        return ref.sinkhorn_fused_all_batched_ref(
+            g, val, r, lam, n_iter, log_domain=log_domain)[0]
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    abs_err, rel_err = compare(got, want, K1_RTOL, K1_ATOL,
+                               f"K1 log_domain={log_domain}")
+    q, v_r, n, length = g.shape
+    n_live_docs = int((val > 0).any(dim=1).sum())
+    live_slots = float((val > 0).sum())
+    live_rows = float(mask.sum())
+    # the bound counts what this run's data needs: G at live (query row,
+    # doc slot) pairs (pad rows, pad slots and pad docs add exact zeros),
+    # val at live slots, r, and the outputs
+    n_bytes = 4.0 * (live_rows * live_slots + live_slots + r.numel()
+                     + q * n + q * -(-n // 128))
+    # per live (query row, doc slot): 4 flops per iteration (SDDMM +
+    # SpMM multiply-adds), the last SDDMM and the distance line
+    n_flops = live_rows * live_slots * (4.0 * n_iter + 4.0)
+    bms, by = bound_ms(n_bytes, n_flops)
+    rec = {"phase": "k1", "name": "sinkhorn_fused_all_batched",
+           "inputs": label, "log_domain": log_domain, "lam": lam,
+           "n_iter": n_iter,
+           "shape": {"Q": q, "v_r": v_r, "N": n, "L": length,
+                     "live_docs": n_live_docs, "live_slots": int(live_slots),
+                     "live_rows": int(live_rows)},
+           "max_abs_err": abs_err, "max_rel_err": rel_err,
+           "rtol": K1_RTOL, "atol": K1_ATOL,
+           "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5,
+                                                      warmup=1),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    emit(rec)
+    del g
+    return rec
+
+
+def phase_k1_tiles(index, sup, r, mask) -> dict:
+    """K1's two variants on the main path's widest chunk: the tile in
+    registers (what ``tile="auto"`` picks there) against the tile in
+    shared memory, each held against the plain version and timed."""
+    grp = index.subset(np.arange(index.n_docs, dtype=np.int32),
+                       storage=True)
+    rec = {"phase": "k1_tiles"}
+    for log_domain, lam in ((True, CONFIG.lam), (False, 1.0)):
+        g = _gather_g(_compute_kq(sup, mask, index.vecs, index.vecs_sq, lam,
+                                  log_domain=log_domain), grp.docs.idx)
+        want = ref.sinkhorn_fused_all_batched_ref(
+            g, grp.docs.val, r, lam, CONFIG.n_iter, log_domain=log_domain)[0]
+        key = "log" if log_domain else "fp32"
+        rec[key] = {"shape": list(g.shape)}
+        for tile in ("registers", "shared"):
+            def run(tile=tile):
+                return ops.sinkhorn_fused_all_batched(
+                    g, grp.docs.val, r, lam, CONFIG.n_iter,
+                    log_domain=log_domain, tile=tile)
+            abs_err, _ = compare(run(), want, K1_RTOL, K1_ATOL,
+                                 f"K1 tile={tile} log_domain={log_domain}")
+            rec[key][tile] = {"ms": time_ms(run), "max_abs_err": abs_err}
+        del g
+    emit(rec)
+    return rec
+
+
+def phase_k1_wide(index, dev) -> None:
+    """K1's shared-memory variant, which serves tiles wider than 64 query
+    rows or doc slots (no paper shape is): held against the plain
+    version on 96-row queries."""
+    sup, r, mask = paper_chunk(index.vocab_size, dev, width=96, q=2, seed=1)
+    grp = index.subset(np.arange(1024, dtype=np.int32), storage=True)
+    for log_domain, lam in ((False, 1.0), (True, CONFIG.lam)):
+        g = _gather_g(_compute_kq(sup, mask, index.vecs, index.vecs_sq, lam,
+                                  log_domain=log_domain), grp.docs.idx)
+        got = ops.sinkhorn_fused_all_batched(g, grp.docs.val, r, lam,
+                                             CONFIG.n_iter,
+                                             log_domain=log_domain)
+        torch.cuda.synchronize()
+        want = ref.sinkhorn_fused_all_batched_ref(
+            g, grp.docs.val, r, lam, CONFIG.n_iter, log_domain=log_domain)[0]
+        abs_err, _ = compare(got, want, K1_RTOL, K1_ATOL,
+                             f"K1 wide log_domain={log_domain}")
+        emit({"phase": "k1_wide", "log_domain": log_domain,
+              "shape": list(g.shape), "max_abs_err": abs_err})
+
+
+def phase_small_parity(dev) -> None:
+    """The engine on the card against the same engine on the host (the
+    kernels' plain versions) on a small corpus."""
+    c = make_corpus(vocab_size=2048, embed_dim=64, n_docs=256, n_queries=6,
+                    seed=3)
+    qs = list(c.queries)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        eng = WmdEngine(build_index(c.docs, c.vecs, device=d), lam=1.0,
+                        n_iter=15)
+        out[d.type] = (eng.search(qs, 5), eng.query_batch(qs).numpy())
+    (sg, dg), (sc, dc) = out["cuda"], out["cpu"]
+    if not np.array_equal(sg.indices, sc.indices):
+        raise AssertionError("small corpus: card and host top-5 differ")
+    np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(sg.distances, sc.distances, rtol=1e-4,
+                               atol=1e-5)
+    emit({"phase": "small_parity", "n_docs": 256, "queries": len(qs),
+          "max_abs_diff": float(np.abs(dg - dc).max()), "ok": True})
+
+
+def phase_end_to_end(corpus, index, precision: str, lam: float,
+                     k: int = 10) -> dict:
+    qs = list(corpus.queries)
+    eng = WmdEngine(index, lam=lam, n_iter=CONFIG.n_iter,
+                    precision=precision)
+    eng.search(qs, k, prune="rwmd")                       # warm-up run
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = eng.search(qs, k, prune="rwmd")                 # the counted run
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    search = wall_ms(lambda: eng.search(qs, k, prune="rwmd"))
+    eng.query_batch(qs)                                   # warm-up run
+    full = eng.query_batch(qs).numpy()
+    batch = wall_ms(lambda: eng.query_batch(qs))
+    if np.isnan(full).any() or np.isnan(res.distances).any():
+        raise AssertionError(f"{precision}: NaN in the distances")
+    ex_i = np.argsort(full, axis=1, kind="stable")[:, :k]
+    ex_d = np.take_along_axis(full, ex_i, axis=1)
+    if not np.array_equal(res.indices, ex_i):
+        raise AssertionError(f"{precision}: staged top-{k} ids differ from "
+                             f"the exhaustive top-{k}")
+    np.testing.assert_allclose(res.distances, ex_d, rtol=E2E_RTOL, atol=0)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by search")
+    rec = {"phase": "end_to_end", "precision": precision, "lam": lam,
+           "n_iter": CONFIG.n_iter, "k": k, "queries": len(qs),
+           "n_docs": index.n_docs, "vocab": index.vocab_size,
+           "embed_dim": index.embed_dim,
+           "search_ms_per_batch": search,
+           "query_batch_ms": batch,
+           "queries_per_s": len(qs) / (search["median"] / 1e3),
+           "solved_per_query": res.solved.tolist(),
+           "launches": launches,
+           "max_dist_rel_diff": float(np.max(np.abs(res.distances - ex_d)
+                                             / np.abs(ex_d))),
+           "top_k_equal": True}
+    emit(rec)
+    return rec
+
+
+def phase_profile(corpus, index, k: int = 10, reps: int = 5) -> None:
+    """Where the time of a search goes: torch.profiler over ``reps`` warm
+    ``search`` calls (log, lam=10); device busy share = the kernels' summed
+    device time over the wall time (one stream, so no overlap). Times are
+    per search."""
+    from torch.profiler import ProfilerActivity, profile
+    qs = list(corpus.queries)
+    eng = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
+                    precision="log")
+    eng.search(qs, k, prune="rwmd")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng.search(qs, k, prune="rwmd")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not kernels:
+        emit({"phase": "profile", "wall_ms": wall_us / 1e3,
+              "device_time": "not measured (no device events traced)"})
+        return
+    busy_us = sum(e.self_device_time_total for e in kernels) / reps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    host = [e for e in prof.key_averages()
+            if not str(getattr(e, "device_type", "")).endswith("CUDA")]
+    top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]
+    emit({"phase": "profile", "precision": "log", "lam": CONFIG.lam,
+          "searches": reps, "wall_ms": wall_us / 1e3,
+          "device_busy_ms": busy_us / 1e3,
+          "device_busy_share": busy_us / wall_us,
+          "kernels": [{"name": e.key[:80], "count": e.count / reps,
+                       "device_ms": e.self_device_time_total / 1e3 / reps}
+                      for e in top],
+          "host_ops": [{"name": e.key[:60], "count": e.count / reps,
+                        "self_cpu_ms": e.self_cpu_time_total / 1e3 / reps}
+                       for e in top_host]})
+
+
+def phase_underflow(corpus, index) -> None:
+    """fp32 at the config's own lam=10 underflows K on this corpus
+    (lam*dist ~ 200 > 87): the engine must raise, not return NaN."""
+    eng = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter)
+    try:
+        eng.query_batch(list(corpus.queries[:2]))
+    except LamUnderflowError:
+        emit({"phase": "underflow_guard", "lam": CONFIG.lam,
+              "precision": "fp32", "raised": "LamUnderflowError"})
+        return
+    raise AssertionError("fp32 at lam=10 returned without raising "
+                         "LamUnderflowError")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    info = phase_device()
+    phase_build()
+
+    t0 = time.perf_counter()
+    corpus = paper_corpus(seed=0)
+    index = build_index(corpus.docs, corpus.vecs, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "index", "seconds": time.perf_counter() - t0,
+          "n_docs": index.n_docs, "vocab": index.vocab_size,
+          "embed_dim": index.embed_dim, "max_words": index.docs.idx.shape[1],
+          "groups": len(index.groups)})
+
+    # the paper's widest queries (48 support rows), then the widest chunk
+    # the main path itself stages for this corpus; the kernels line below
+    # reports the latter
+    sup, r, mask = paper_chunk(index.vocab_size, dev)
+    phase_k2(index, sup, mask, "paper_max")
+    phase_k1(index, sup, r, mask, False, 1.0, "paper_max")
+    phase_k1(index, sup, r, mask, True, CONFIG.lam, "paper_max")
+    sup, r, mask = main_path_chunk(corpus, index)
+    k2 = phase_k2(index, sup, mask, "main_path")
+    k1_lin = phase_k1(index, sup, r, mask, False, 1.0, "main_path")
+    k1_log = phase_k1(index, sup, r, mask, True, CONFIG.lam, "main_path")
+    phase_k1_tiles(index, sup, r, mask)
+    phase_k1_wide(index, dev)
+    # a query wider than one K2 launch's 128 support rows
+    phase_k2(index, *paper_chunk(index.vocab_size, dev, width=200, q=2,
+                                 seed=2)[::2], "wide_200")
+    torch.cuda.empty_cache()
+
+    phase_small_parity(dev)
+    e2e_log = phase_end_to_end(corpus, index, "log", CONFIG.lam)
+    phase_end_to_end(corpus, index, "fp32", 1.0)
+    phase_profile(corpus, index)
+    phase_underflow(corpus, index)
+
+    main_launches = e2e_log["launches"]
+    kernels = []
+    for rec, src, replaces in (
+            (k2, "src/repro_torch/kernels/csrc/rwmd_min_cdist.cu",
+             "src/repro/kernels/rwmd.py:54"),
+            (k1_log, "src/repro_torch/kernels/csrc/sinkhorn_fused.cu",
+             "src/repro/kernels/sddmm_spmm.py:263")):
+        kernels.append({
+            "name": rec["name"], "route": "cuda", "source": src,
+            "replaces": replaces, "launches": main_launches[rec["name"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": rec["shape"]})
+    # K1's entry is the main path's log-domain lam=10 solve; its linear
+    # fp32 lam=1 variant rides along under its own key
+    kernels[-1]["fp32_lam1"] = {key: k1_lin[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

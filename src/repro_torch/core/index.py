@@ -1,0 +1,760 @@
+"""Batched multi-query WMD engine over a frozen corpus index (port of
+``repro.core.index``: the ``impl="kernel"`` path).
+
+``CorpusIndex``
+    Freezes everything query-independent once, on the device: the ELL
+    document collection, the vocabulary embeddings and their squared
+    norms, per-doc mass centroids (the WCD bound), nnz-sorted
+    width-trimmed :class:`DocGroup` slices, the IVF k-means clustering
+    (documents are stored cluster-major; ``ext_ids``/``remap`` translate
+    to the caller's doc order at the output boundary) and the pivot-word
+    distance table. :func:`build_index` builds it with a torch k-means;
+    :func:`index_from_arrays` takes the arrays the reference's
+    ``save_index`` writes and rebuilds the same storage order and groups.
+
+``WmdEngine``
+    Shape-buckets queries to power-of-two ``v_r`` sizes (padded query rows
+    carry ``r = 1, G = 0`` — inert in the solver), stacks each chunk of up
+    to ``max_batch`` queries into one problem and runs, per chunk: one
+    stacked cdist GEMM (``torch.matmul``, full fp32) for the K block, a
+    gather of each doc group's K columns, and one launch of the Hopper
+    solver K1 (:func:`repro_torch.kernels.ops.sinkhorn_fused_all_batched`).
+    ``search`` is the staged exact top-k: RWMD (or WCD) bounds through the
+    Hopper kernel K2, a seed solve that sets each query's threshold, a
+    survivor solve, and a rank. On a CPU index the same code calls the
+    kernels' plain versions.
+
+Ported so far: ``impl="kernel"`` with fixed ``n_iter`` in fp32 or the log
+domain (``precision="log"``), ``query_batch``, ``search(mode="exact")``
+with ``prune=None|"wcd"|"rwmd"|"wcd+rwmd"``. The einsum impl, ``tol``,
+``scope``, ``warm_start``, bf16, the K-column cache, the IVF cascade and
+refine mode raise ``NotImplementedError`` (ROADMAP queue 1).
+
+fp32 policy: every product here is full fp32. PyTorch's default on the
+card (``torch.backends.cuda.matmul.allow_tf32 is False``) is relied on,
+never changed, and ``chip_smoke.py`` asserts it: TF32 keeps ~3 decimal
+digits and would move both the prune bounds and the distances.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .sinkhorn import LamUnderflowError, select_support, underflow_report
+from .sinkhorn_sparse import SolvePrecision
+from .sparse import PaddedDocs
+
+
+class DocGroup(NamedTuple):
+    """One length-homogeneous slice of the corpus, ELL-trimmed to its own
+    max word count."""
+
+    docs: PaddedDocs    # device idx (N_g, L_g) int64 / val (N_g, L_g) fp32
+    cols: np.ndarray    # (N_g,) host: storage doc ids (for reassembly)
+
+
+class IvfClusters(NamedTuple):
+    """Frozen IVF coarse quantizer over the per-doc WCD centroids."""
+
+    centers: torch.Tensor   # (C, w) cluster centers, device
+    assign: np.ndarray      # (N,) host: cluster id per doc
+    order: np.ndarray       # (N,) host: doc ids sorted by cluster id
+    starts: np.ndarray      # (C + 1,) host: cluster c owns
+    #                         order[starts[c]:starts[c + 1]]
+    radii: np.ndarray       # (C,) host: max ||center_c - centroid_n||
+    assign_dev: torch.Tensor  # (N,) device mirror of ``assign``
+
+    @property
+    def n_clusters(self) -> int:
+        return self.centers.shape[0]
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return np.diff(self.starts)
+
+
+class CorpusIndex(NamedTuple):
+    """Query-independent corpus state, frozen once and reused. Per-doc
+    arrays are in cluster-major STORAGE order; ``ext_ids`` maps storage ->
+    the caller's doc id and ``remap`` is its inverse."""
+
+    docs: PaddedDocs        # device ELL corpus: idx (N, L) int64, val fp32
+    groups: tuple           # tuple[DocGroup, ...]: nnz-sorted, width-trimmed
+    vecs: torch.Tensor      # (V, w) vocabulary embeddings, device
+    vecs_sq: torch.Tensor   # (V,) per-word |b|^2
+    centroids: torch.Tensor  # (N, w) per-doc mass centroids (WCD bound)
+    docs_host: PaddedDocs   # numpy mirror of ``docs`` (idx int32)
+    clusters: IvfClusters = None
+    ext_ids: np.ndarray = None   # (N,) host: storage id -> caller doc id
+    remap: np.ndarray = None     # (N,) host: caller doc id -> storage id
+    pivots: torch.Tensor = None  # (P, w) pivot word embeddings
+    doc_pivot_d: torch.Tensor = None  # (N, P) ||centroid_n - pivot_p||
+
+    @property
+    def n_docs(self) -> int:
+        return self.docs.idx.shape[0]
+
+    @property
+    def vocab_size(self) -> int:
+        return self.vecs.shape[0]
+
+    @property
+    def embed_dim(self) -> int:
+        return self.vecs.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vecs.device
+
+    def to_external(self, storage_ids) -> np.ndarray:
+        """Storage ids -> the caller's original doc ids."""
+        storage_ids = np.asarray(storage_ids, np.int32)
+        if self.ext_ids is None:
+            return storage_ids
+        return self.ext_ids[storage_ids]
+
+    def subset(self, doc_ids, storage: bool = False) -> DocGroup:
+        """Candidate-subset slice for the solve stage: ``doc_ids`` gathered
+        out of the host mirror into one width-trimmed :class:`DocGroup`
+        (slots are front-compacted at build, so trimming to the subset's
+        max nnz loses nothing). ``doc_ids`` are caller ids unless
+        ``storage=True``. The doc count is padded to a power of two (>= 8)
+        with inert all-zero docs and the width to a multiple of 8, as in
+        the reference; ``cols`` keeps only the real ids."""
+        doc_ids = np.asarray(doc_ids, np.int32)
+        rows = doc_ids
+        if not storage and self.remap is not None:
+            rows = self.remap[doc_ids]
+        idx = self.docs_host.idx[rows]
+        val = self.docs_host.val[rows]
+        lg = max(1, int((val > 0).sum(axis=1).max(initial=0)))
+        lg = min(-(-lg // 8) * 8, idx.shape[1])
+        n_pad = 8
+        while n_pad < doc_ids.size:
+            n_pad *= 2
+        pad = ((0, n_pad - doc_ids.size), (0, 0))
+        dev = self.device
+        return DocGroup(docs=PaddedDocs(
+            idx=torch.as_tensor(np.pad(idx[:, :lg], pad), dtype=torch.int64,
+                                device=dev),
+            val=torch.as_tensor(np.pad(val[:, :lg], pad), device=dev)),
+            cols=doc_ids)
+
+
+# ---------------------------------------------------------------- k-means
+def _assign_clusters(points: torch.Tensor,
+                     centers: torch.Tensor) -> torch.Tensor:
+    """Nearest-center assignment for one mini-batch: (B, w) -> (B,)."""
+    d2 = ((points * points).sum(1)[:, None]
+          + (centers * centers).sum(1)[None, :]
+          - 2.0 * (points @ centers.T))
+    return torch.argmin(d2, dim=1)
+
+
+def _farthest_point_init(points: torch.Tensor, c: int,
+                         start: int) -> torch.Tensor:
+    """Maxmin seeding: each new center is the point farthest from all
+    chosen so far. Deterministic, on the device."""
+    mind = ((points - points[start]) ** 2).sum(1)
+    centers = torch.zeros((c, points.shape[1]), dtype=points.dtype,
+                          device=points.device)
+    centers[0] = points[start]
+    for i in range(1, c):
+        cen = points[torch.argmax(mind)]
+        centers[i] = cen
+        mind = torch.minimum(mind, ((points - cen) ** 2).sum(1))
+    return centers
+
+
+def _kmeans(centroids: torch.Tensor, n_clusters: int, n_iters: int = 10,
+            batch: int = 4096, seed: int = 0, init_sample: int = 65536):
+    """Mini-batch Lloyd k-means over the doc centroids, on the device:
+    farthest-point init (on an ``init_sample``-capped subset), then
+    ``n_iters`` exact updates streamed in ``batch`` slices; empty clusters
+    keep their center. Returns (centers (C, w), assign host (N,))."""
+    n = centroids.shape[0]
+    rng = np.random.default_rng(seed)
+    pool = centroids
+    if n > init_sample:
+        keep = np.sort(rng.choice(n, size=init_sample, replace=False))
+        pool = centroids[torch.as_tensor(keep, device=centroids.device)]
+    centers = _farthest_point_init(pool, n_clusters,
+                                   int(rng.integers(pool.shape[0])))
+    for _ in range(n_iters):
+        sums = torch.zeros_like(centers)
+        counts = torch.zeros((n_clusters,), dtype=centers.dtype,
+                             device=centers.device)
+        for lo in range(0, n, batch):
+            pts = centroids[lo:lo + batch]
+            a = _assign_clusters(pts, centers)
+            sums.index_add_(0, a, pts)
+            counts += torch.bincount(a, minlength=n_clusters).to(
+                counts.dtype)
+        centers = torch.where(counts[:, None] > 0,
+                              sums / torch.clamp(counts, min=1.0)[:, None],
+                              centers)
+    assign = torch.cat([_assign_clusters(centroids[lo:lo + batch], centers)
+                        for lo in range(0, n, batch)])
+    return centers, assign.cpu().numpy().astype(np.int32)
+
+
+def _pivot_dists(points: torch.Tensor, pivots: torch.Tensor) -> torch.Tensor:
+    """(M, w) points x (P, w) pivots -> (M, P) Euclidean distances."""
+    a2 = (points * points).sum(1)[:, None]
+    b2 = (pivots * pivots).sum(1)[None, :]
+    d2 = a2 + b2 - 2.0 * (points @ pivots.T)
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def _select_pivots(vecs: torch.Tensor, n_pivots: int, seed: int = 0,
+                   sample: int = 65536) -> torch.Tensor:
+    """Farthest-point pivot words over the (sample-capped) vocabulary."""
+    v = vecs.shape[0]
+    n_pivots = max(1, min(int(n_pivots), v))
+    rng = np.random.default_rng(seed)
+    pool = vecs
+    if v > sample:
+        keep = np.sort(rng.choice(v, size=sample, replace=False))
+        pool = vecs[torch.as_tensor(keep, device=vecs.device)]
+    return _farthest_point_init(pool, n_pivots,
+                                int(rng.integers(pool.shape[0])))
+
+
+def _membership(assign: np.ndarray, n_clusters: int):
+    """(order, starts): cluster c's docs are order[starts[c]:starts[c+1]]."""
+    order = np.argsort(assign, kind="stable").astype(np.int32)
+    starts = np.searchsorted(assign[order],
+                             np.arange(n_clusters + 1)).astype(np.int64)
+    return order, starts
+
+
+def _cluster_radii(centroids: torch.Tensor, centers: torch.Tensor,
+                   assign: np.ndarray, n_clusters: int) -> np.ndarray:
+    """(C,) max member distance per cluster (0 for empty clusters)."""
+    radii = np.zeros(n_clusters, np.float64)
+    if assign.size:
+        own = centers[torch.as_tensor(assign.astype(np.int64),
+                                      device=centers.device)]
+        d = torch.linalg.norm(centroids - own, dim=1)
+        np.maximum.at(radii, assign, d.cpu().numpy().astype(np.float64))
+    return radii
+
+
+def default_n_clusters(n_docs: int) -> int:
+    """sqrt(N) coarse-quantizer heuristic (classic IVF sizing)."""
+    return max(1, min(n_docs, int(round(float(np.sqrt(max(n_docs, 1)))))))
+
+
+# ------------------------------------------------------------ index build
+def _compact_slots(docs: PaddedDocs, dtype=np.float32):
+    """Host copies with live slots compacted to the front."""
+    idx_np = _host(docs.idx).astype(np.int32)
+    val_np = _host(docs.val).astype(dtype)
+    slot_order = np.argsort(~(val_np > 0), axis=1, kind="stable")
+    return (np.take_along_axis(idx_np, slot_order, 1),
+            np.take_along_axis(val_np, slot_order, 1))
+
+
+def _doc_centroids(idx: torch.Tensor, val: torch.Tensor, vecs: torch.Tensor,
+                   chunk: int = 2048) -> torch.Tensor:
+    """Per-doc mass centroids sum_l val[n,l] * vecs[idx[n,l]], chunked so
+    the (n, L, w) gather stays small."""
+    n = idx.shape[0]
+    out = torch.empty((n, vecs.shape[1]), dtype=vecs.dtype,
+                      device=vecs.device)
+    for lo in range(0, n, chunk):
+        out[lo:lo + chunk] = torch.einsum("nl,nlw->nw", val[lo:lo + chunk],
+                                          vecs[idx[lo:lo + chunk]])
+    return out
+
+
+def build_index(docs: PaddedDocs, vecs, device=None, doc_groups: int = 4,
+                n_clusters=None, ivf_iters: int = 10, ivf_seed: int = 0,
+                clusters=None, n_pivots: int = 8,
+                pivot_seed: int = 0) -> CorpusIndex:
+    """Freeze the corpus side on ``device`` (``None`` -> ``cuda``; raises
+    when no CUDA device is present): ELL docs, embeddings and norms,
+    per-doc centroids, the IVF k-means (torch, on the device), the
+    cluster-major storage permutation, nnz groups and pivot distances.
+
+    ``clusters=(centers, assign)`` skips the k-means and freezes the given
+    quantizer. The index is lossless: engine results over it do not depend
+    on ``doc_groups``, ``n_clusters``, ``n_pivots`` or the storage
+    permutation, which only steer pruning — so this k-means may settle
+    near-tie assignments differently from the reference's and the
+    distances stay the same."""
+    dev = resolve_device(device)
+    vecs_t = torch.as_tensor(np.asarray(_host(vecs), np.float32), device=dev)
+    idx_np, val_np = _compact_slots(docs)
+    n_docs = idx_np.shape[0]
+    centroids = _doc_centroids(
+        torch.as_tensor(idx_np, dtype=torch.int64, device=dev),
+        torch.as_tensor(val_np, device=dev), vecs_t)
+    if clusters is not None:
+        pre_centers, pre_assign = clusters
+        centers = torch.as_tensor(np.asarray(_host(pre_centers), np.float32),
+                                  device=dev)
+        assign = np.asarray(pre_assign, np.int32)
+        n_clusters = int(centers.shape[0])
+        if assign.shape[0] != n_docs:
+            raise ValueError(f"precomputed assign has {assign.shape[0]} "
+                             f"entries for {n_docs} docs")
+        if assign.size and (assign.min() < 0 or assign.max() >= n_clusters):
+            raise ValueError("precomputed assign references cluster ids "
+                             f"outside [0, {n_clusters})")
+    else:
+        if isinstance(n_clusters, str):
+            if n_clusters == "auto":
+                raise NotImplementedError(
+                    "n_clusters='auto' is not ported yet (ROADMAP queue 1, "
+                    "item 5)")
+            if not n_clusters.isdigit():
+                raise ValueError(f"n_clusters must be an int or None, got "
+                                 f"{n_clusters!r}")
+            n_clusters = int(n_clusters)
+        elif n_clusters is None:
+            n_clusters = default_n_clusters(n_docs)
+        n_clusters = max(1, min(int(n_clusters), max(n_docs, 1)))
+        if n_docs:
+            centers, assign = _kmeans(centroids, n_clusters,
+                                      n_iters=ivf_iters, seed=ivf_seed)
+        else:
+            centers = torch.zeros((n_clusters, vecs_t.shape[1]),
+                                  device=dev)
+            assign = np.zeros((0,), np.int32)
+    # cluster-major storage: permute every per-doc array so assign is
+    # non-decreasing; ext_ids/remap translate at the output boundary
+    perm = np.argsort(assign, kind="stable").astype(np.int32)
+    idx_np, val_np, assign = idx_np[perm], val_np[perm], assign[perm]
+    centroids = centroids[torch.as_tensor(perm.astype(np.int64),
+                                          device=dev)]
+    remap = np.empty_like(perm)
+    remap[perm] = np.arange(perm.size, dtype=np.int32)
+    pivots = doc_pivot_d = None
+    if n_pivots and int(n_pivots) > 0:
+        pivots = _select_pivots(vecs_t, int(n_pivots), seed=pivot_seed)
+        doc_pivot_d = _pivot_dists(centroids, pivots)
+    order, starts = _membership(assign, n_clusters)
+    return _assemble(idx_np, val_np, vecs_t, centroids, doc_groups,
+                     IvfClusters(centers=centers, assign=assign, order=order,
+                                 starts=starts,
+                                 radii=_cluster_radii(centroids, centers,
+                                                      assign, n_clusters),
+                                 assign_dev=torch.as_tensor(assign,
+                                                            device=dev)),
+                     ext_ids=perm, remap=remap, pivots=pivots,
+                     doc_pivot_d=doc_pivot_d)
+
+
+def _nnz_groups(idx_np: np.ndarray, val_np: np.ndarray, doc_groups: int,
+                device) -> tuple:
+    """nnz-sorted, width-trimmed :class:`DocGroup` split (a pure function
+    of (idx, val, doc_groups), as in the reference)."""
+    nnz = (val_np > 0).sum(1)
+    order = np.argsort(nnz, kind="stable")
+    n = max(1, len(order))
+    gsz = -(-n // max(1, doc_groups))
+    groups = []
+    for lo in range(0, len(order), gsz):
+        # ascending storage ids within the group == cluster-major
+        sel = np.sort(order[lo:lo + gsz])
+        lg = max(1, int(nnz[sel].max(initial=0)))
+        groups.append(DocGroup(
+            docs=PaddedDocs(
+                idx=torch.as_tensor(np.ascontiguousarray(idx_np[sel, :lg]),
+                                    dtype=torch.int64, device=device),
+                val=torch.as_tensor(np.ascontiguousarray(val_np[sel, :lg]),
+                                    device=device)),
+            cols=sel.astype(np.int32)))
+    return tuple(groups)
+
+
+def _assemble(idx_np, val_np, vecs, centroids, doc_groups, clusters,
+              ext_ids, remap, pivots, doc_pivot_d) -> CorpusIndex:
+    """Shared tail of :func:`build_index` and :func:`index_from_arrays`:
+    device uploads, norms and the nnz groups."""
+    dev = vecs.device
+    idx_np = np.ascontiguousarray(idx_np, np.int32)
+    val_np = np.ascontiguousarray(val_np, np.float32)
+    return CorpusIndex(
+        docs=PaddedDocs(idx=torch.as_tensor(idx_np, dtype=torch.int64,
+                                            device=dev),
+                        val=torch.as_tensor(val_np, device=dev)),
+        groups=_nnz_groups(idx_np, val_np, doc_groups, dev),
+        vecs=vecs, vecs_sq=(vecs * vecs).sum(1), centroids=centroids,
+        docs_host=PaddedDocs(idx=idx_np, val=val_np), clusters=clusters,
+        ext_ids=ext_ids, remap=remap, pivots=pivots, doc_pivot_d=doc_pivot_d)
+
+
+def index_from_arrays(arrays: dict, device=None) -> CorpusIndex:
+    """Rebuild a :class:`CorpusIndex` from the numpy arrays the reference's
+    ``save_index`` writes (``idx``, ``val``, ``vecs``, ``centroids``,
+    ``n_groups``, ``c_*``, ``ext_ids``, ``remap``, ``pivots``,
+    ``doc_pivot_d``; ``checksum`` and ``version`` are ignored): the same
+    storage order, groups and clustering, on ``device``."""
+    dev = resolve_device(device)
+
+    def t(name):
+        return torch.as_tensor(np.asarray(arrays[name], np.float32),
+                               device=dev)
+
+    clusters = None
+    if "c_centers" in arrays:
+        assign = np.asarray(arrays["c_assign"], np.int32)
+        clusters = IvfClusters(
+            centers=t("c_centers"), assign=assign,
+            order=np.asarray(arrays["c_order"], np.int32),
+            starts=np.asarray(arrays["c_starts"], np.int64),
+            radii=np.asarray(arrays["c_radii"], np.float64),
+            assign_dev=torch.as_tensor(assign, device=dev))
+    ext_ids = remap = None
+    if "ext_ids" in arrays:
+        ext_ids = np.asarray(arrays["ext_ids"], np.int32)
+        remap = np.asarray(arrays["remap"], np.int32)
+    pivots = doc_pivot_d = None
+    if "pivots" in arrays:
+        pivots, doc_pivot_d = t("pivots"), t("doc_pivot_d")
+    return _assemble(np.asarray(arrays["idx"]), np.asarray(arrays["val"]),
+                     t("vecs"), t("centroids"), int(arrays["n_groups"]),
+                     clusters, ext_ids, remap, pivots, doc_pivot_d)
+
+
+# ------------------------------------------------------------------ engine
+def bucket_size(v_r: int, min_bucket: int = 8) -> int:
+    """Smallest power-of-two bucket (>= min_bucket) holding v_r query rows."""
+    b = max(1, int(min_bucket))
+    while b < v_r:
+        b *= 2
+    return b
+
+
+def _prepare_query(q, bucket: int, dtype=np.float32):
+    """Host-side support selection + bucket padding for one query row."""
+    q = np.asarray(q, dtype=np.float64).reshape(-1)
+    idx = np.nonzero(q > 0)[0]
+    v_r = idx.size
+    if v_r > bucket:
+        raise ValueError(f"query v_r={v_r} exceeds bucket {bucket}")
+    sup = np.zeros(bucket, np.int64)
+    sup[:v_r] = idx
+    r = np.ones(bucket, dtype)                # pad rows carry r == 1
+    r[:v_r] = (q[idx] / q[idx].sum()).astype(dtype)
+    mask = np.zeros(bucket, dtype)
+    mask[:v_r] = 1.0
+    return sup, r, mask
+
+
+def _compute_kq(sup: torch.Tensor, mask: torch.Tensor, vecs: torch.Tensor,
+                vecs_sq: torch.Tensor, lam: float,
+                log_domain: bool = False) -> torch.Tensor:
+    """Stacked cdist GEMM -> K for one query chunk: (Q, B) ids -> (Q, B, V).
+
+    One (Q*B, w) x (w, V) ``torch.matmul`` replaces Q separate cdists;
+    its sqrt/exp epilogue is plain torch. The (Q, B, V) orientation is
+    the layout the kernel's gather wants (the reference computes the
+    transposed product and transposes back for its kernel). Padded rows
+    (mask == 0) come out as all-zero K rows, or -inf rows of log K under
+    ``log_domain``."""
+    q, b = sup.shape
+    a = vecs[sup].reshape(q * b, -1)                     # (Q*B, w)
+    a2 = (a * a).sum(-1)                                 # (Q*B,)
+    ab = torch.matmul(a, vecs.T)                         # (Q*B, V)
+    m = torch.sqrt(torch.clamp(a2[:, None] + vecs_sq[None, :] - 2.0 * ab,
+                               min=0.0))
+    live = mask.reshape(-1, 1) > 0
+    if log_domain:
+        k = torch.where(live, -lam * m, torch.full_like(m, -float("inf")))
+    else:
+        k = torch.exp(-lam * m) * live.to(m.dtype)
+    return k.reshape(q, b, -1)
+
+
+def _gather_g(kq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather doc-word columns of K: (Q, B, V) x (N, L) -> G (Q, B, N, L),
+    the "qbnl" layout the fused solver reads (one doc's (B, L) tile per
+    (query, doc))."""
+    q, b, _ = kq.shape
+    n, length = idx.shape
+    g = torch.index_select(kq.reshape(q * b, -1), 1, idx.reshape(-1))
+    return g.reshape(q, b, n, length)
+
+
+class SearchResult(NamedTuple):
+    """Top-k retrieval result from :meth:`WmdEngine.search`. Rows for
+    empty queries hold ``indices == -1`` and NaN distances; ``solved``
+    counts the documents that went through the exact solve per query."""
+
+    indices: np.ndarray    # (Q, k) int32 doc ids, ascending distance
+    distances: np.ndarray  # (Q, k)
+    solved: np.ndarray     # (Q,) int64 exact solves per query
+
+
+ENGINE_IMPLS = ("kernel",)
+
+
+class WmdEngine:
+    """Persistent multi-query WMD engine over a frozen :class:`CorpusIndex`
+    (the reference's ``impl="kernel"`` engine). Runs on the index's
+    device.
+
+    Parameters are the reference's: ``lam``/``n_iter`` (Sinkhorn strength
+    and fixed iteration count), ``min_bucket``, ``max_batch`` (queries per
+    solve chunk), ``pad_q`` (round a chunk's Q up to a power of two with
+    inert fillers), ``prune_slack`` (relative fp margin on the prune
+    threshold) and ``precision`` (``"fp32"`` or ``"log"``). The knobs
+    whose solver paths are not ported yet (``impl="sparse"``, ``tol``,
+    ``scope="chunk"``, ``warm_start``, ``kcache_slots``, bf16) raise
+    ``NotImplementedError``.
+    """
+
+    def __init__(self, index: CorpusIndex, lam: float = 10.0,
+                 n_iter: int = 15, impl: str = "kernel",
+                 min_bucket: int = 8, max_batch: int = 4,
+                 pad_q: bool = True, prune_slack: float = 1e-3,
+                 tol: float | None = None, precision=None,
+                 scope: str = "query", warm_start: bool = False,
+                 kcache_slots: int | None = None):
+        if impl not in ENGINE_IMPLS:
+            raise NotImplementedError(
+                f"impl={impl!r}: only the kernel impl is ported; the einsum "
+                "impl 'sparse' comes in a later slice (ROADMAP queue 1)")
+        if scope not in ("chunk", "query"):
+            raise ValueError(f"scope must be 'chunk' or 'query', "
+                             f"got {scope!r}")
+        self.precision = SolvePrecision.parse(precision)
+        for name, unported in (
+                ("tol", tol is not None), ("scope", scope != "query"),
+                ("warm_start", bool(warm_start)),
+                ("kcache_slots", bool(kcache_slots)),
+                ("precision", self.precision.gemm != "fp32")):
+            if unported:
+                raise NotImplementedError(
+                    f"{name} is not ported yet: this engine runs the fixed "
+                    "n_iter fp32/log solve (ROADMAP queue 1, items 2 and 5)")
+        self.index = index
+        self.device = index.device
+        self.lam = float(lam)
+        self.n_iter = int(n_iter)
+        self.impl = impl
+        self.min_bucket = int(min_bucket)
+        self.max_batch = int(max_batch)
+        self.pad_q = bool(pad_q)
+        self.prune_slack = float(prune_slack)
+        self.dtype = np.dtype(np.float32)
+
+    def _ext(self, storage_ids) -> np.ndarray:
+        return self.index.to_external(np.asarray(storage_ids))
+
+    def query(self, r_full) -> torch.Tensor:
+        """WMD from one full-vocab query histogram to every doc: (N,)."""
+        return self.query_batch([r_full])[0]
+
+    # ------------------------------------------------------------ staging
+    def _plan(self, queries: list):
+        """Bucket + chunk the query set: (v_r per query, [(positions,
+        width), ...]). Queries are grouped into power-of-two v_r buckets,
+        sorted by v_r inside each, chunked by ``max_batch`` and each chunk
+        trimmed to the smallest multiple of 8 covering its members; empty
+        queries are left out."""
+        vr = [int((q > 0).sum()) for q in queries]
+        buckets: dict[int, list[int]] = {}
+        for qi in range(len(queries)):
+            if vr[qi] == 0:
+                continue        # empty marginal: NaN row, never solved
+            buckets.setdefault(bucket_size(vr[qi], self.min_bucket),
+                               []).append(qi)
+        chunks = []
+        for b in sorted(buckets):
+            members = sorted(buckets[b], key=lambda qi: vr[qi])
+            for lo in range(0, len(members), self.max_batch):
+                chunk = members[lo:lo + self.max_batch]
+                width = max(8, min(b, -(-max(vr[qi] for qi in chunk) // 8) * 8))
+                chunks.append((chunk, width))
+        return vr, chunks
+
+    def _prep_chunk(self, chunk_queries: list, width: int):
+        """Stage one chunk: (sup, r, mask) device tensors, q-padded to a
+        power of two with inert fillers when ``pad_q``."""
+        prepared = [_prepare_query(q, width, self.dtype)
+                    for q in chunk_queries]
+        n_live = len(prepared)
+        q_pad = n_live
+        if self.pad_q:
+            q_pad = 1
+            while q_pad < n_live:
+                q_pad *= 2
+        filler = (np.zeros(width, np.int64), np.ones(width, self.dtype),
+                  np.zeros(width, self.dtype))
+        prepared += [filler] * (q_pad - n_live)
+        dev = self.device
+        return tuple(torch.as_tensor(np.stack([p[i] for p in prepared]),
+                                     device=dev) for i in range(3))
+
+    def _kq(self, sup, mask) -> torch.Tensor:
+        return _compute_kq(sup, mask, self.index.vecs, self.index.vecs_sq,
+                           self.lam, log_domain=self.precision.log_domain)
+
+    def _solve_group(self, kq, r, grp: DocGroup) -> torch.Tensor:
+        """Solve one staged chunk against one doc group (a device tensor
+        (Qp, N_g), not synced): gather the group's K columns, one launch of
+        the fused solver."""
+        from repro_torch.kernels.ops import sinkhorn_fused_all_batched
+        g = _gather_g(kq, grp.docs.idx)
+        return sinkhorn_fused_all_batched(
+            g, grp.docs.val, r, self.lam, self.n_iter,
+            log_domain=self.precision.log_domain)
+
+    def _raise_if_nan(self, wmd_np: np.ndarray, chunk_queries: list) -> None:
+        """Every chunk query has support, so NaN here means the lam-driven
+        K underflow — diagnose (host-side, error path only) and raise."""
+        bad = np.isnan(wmd_np).any(axis=1)
+        if bad.any():
+            q = chunk_queries[int(np.nonzero(bad)[0][0])]
+            _, vecs_sel, _ = select_support(q, self.index.vecs)
+            raise LamUnderflowError(underflow_report(
+                self.lam, vecs_sel, self.index.vecs, self.index.docs))
+
+    # ----------------------------------------------------------- scoring
+    def query_batch(self, queries: Sequence) -> torch.Tensor:
+        """Exhaustive WMD for Q queries (full-vocab histogram rows) ->
+        (Q, N) host tensor in the caller's doc order. A query with no
+        support yields a NaN row. Raises :class:`LamUnderflowError` if lam
+        underflows K for a corpus word."""
+        queries = [np.asarray(q) for q in queries]
+        if not queries:
+            return torch.zeros((0, self.index.n_docs))
+        vr, chunks = self._plan(queries)
+        # launch every chunk before collecting any result: the device runs
+        # chunk i while the host stages chunk i+1
+        pending = []
+        for chunk, width in chunks:
+            sup, r, mask = self._prep_chunk([queries[qi] for qi in chunk],
+                                            width)
+            kq = self._kq(sup, mask)
+            pending.append((chunk, [(grp, self._solve_group(kq, r, grp))
+                                    for grp in self.index.groups]))
+        out = np.zeros((len(queries), self.index.n_docs), self.dtype)
+        for qi in range(len(queries)):
+            if vr[qi] == 0:
+                out[qi] = np.nan
+        for chunk, parts in pending:
+            for grp, wmd_g in parts:
+                w = wmd_g[:len(chunk)].cpu().numpy()
+                self._raise_if_nan(w, [queries[qi] for qi in chunk])
+                out[np.ix_(chunk, self._ext(grp.cols))] = w
+        return torch.from_numpy(out)
+
+    # ------------------------------------------------------------ search
+    def search(self, queries: Sequence, k: int, prune: object = "rwmd",
+               nprobe: int | None = None,
+               mode: str = "exact") -> SearchResult:
+        """Staged exact top-k retrieval: prune -> solve -> rank.
+
+        ``prune=None`` scores exhaustively (:meth:`query_batch` + stable
+        argsort). Otherwise, per chunk: admissible bounds on every (query,
+        doc) pair (``"rwmd"``, ``"wcd"``, ``"wcd+rwmd"`` or a
+        :class:`~repro_torch.core.prune.Pruner`); an exact solve of the
+        union of each query's k best-bounded docs, whose kth distance is
+        the query's threshold; an exact solve of the docs whose bound
+        passes it (+ ``prune_slack``); a rank over the solved docs. With
+        ``"rwmd"`` the result equals the exhaustive top-k (up to tie
+        order). Raises ``ValueError`` for ``k <= 0`` or an unknown spec,
+        ``NotImplementedError`` for ``mode="refine"`` and the IVF cascades,
+        and :class:`LamUnderflowError` when ``exp(-lam*M)`` underflows for
+        a solved pair."""
+        queries = [np.asarray(q) for q in queries]
+        n = self.index.n_docs
+        if k <= 0:
+            raise ValueError(f"k must be positive, got {k}")
+        if mode != "exact":
+            if mode == "refine":
+                raise NotImplementedError(
+                    "mode='refine' is not ported yet (ROADMAP queue 1, "
+                    "item 6)")
+            raise ValueError(f"mode must be 'exact' or 'refine', "
+                             f"got {mode!r}")
+        k = min(int(k), n)
+        nq = len(queries)
+        out_i = np.full((nq, k), -1, np.int32)
+        out_d = np.full((nq, k), np.nan, self.dtype)
+        solved = np.zeros(nq, np.int64)
+        if nq == 0 or n == 0:
+            return SearchResult(out_i, out_d, solved)
+
+        if prune is None:
+            d = self.query_batch(queries).numpy()
+            for qi in range(nq):
+                if np.isnan(d[qi]).all():
+                    continue                      # empty marginal
+                order = np.argsort(d[qi], kind="stable")[:k]
+                out_i[qi], out_d[qi] = order, d[qi, order]
+                solved[qi] = n
+            return SearchResult(out_i, out_d, solved)
+
+        from .prune import resolve_pruner
+        pruner = resolve_pruner(prune, nprobe=nprobe)
+        _, chunks = self._plan(queries)
+        for chunk, width in chunks:
+            cq = [queries[qi] for qi in chunk]
+            qc = len(chunk)
+            sup, r, mask = self._prep_chunk(cq, width)
+            kq = self._kq(sup, mask)              # shared by both solves
+
+            def solve(doc_ids):
+                # -> (qc, |ids|) host array, NaN-checked
+                grp = self.index.subset(doc_ids, storage=True)
+                w = self._solve_group(kq, r, grp)
+                w = w[:qc, :doc_ids.size].cpu().numpy()
+                self._raise_if_nan(w, cq)
+                return w
+
+            cand, d_cand = self._prune_full(pruner, sup, r, mask, qc, k,
+                                            solve)
+            cand_ext = self._ext(cand)       # storage -> caller doc ids
+            for ci, qi in enumerate(chunk):
+                order = np.argsort(d_cand[ci], kind="stable")[:k]
+                out_i[qi, :order.size] = cand_ext[order]
+                out_d[qi, :order.size] = d_cand[ci, order]
+                solved[qi] = cand.size
+        return SearchResult(out_i, out_d, solved)
+
+    def _threshold(self, d_seed: torch.Tensor, k: int,
+                   n_seed: int) -> torch.Tensor:
+        """Pruning threshold: per-query kth-smallest exact distance among
+        the solved seeds (+ fp slack margin); +inf with fewer than k."""
+        if n_seed >= k:
+            t = torch.sort(d_seed, dim=1).values[:, k - 1]
+        else:
+            t = torch.full((d_seed.shape[0],), float("inf"),
+                           dtype=d_seed.dtype, device=d_seed.device)
+        return t + self.prune_slack * (t.abs() + 1.0)
+
+    def _prune_full(self, pruner, sup, r, mask, qc, k, solve):
+        """Full-sweep prune stage: bounds for every doc, seed solve of each
+        query's k best-bounded docs (chunk union), threshold, survivor
+        solve. Seed picking and the threshold test run on the device; only
+        compact id arrays cross to the host. Returns (candidate storage
+        ids, (qc, |cand|) exact distances)."""
+        from .prune import _keep_any
+        lb = pruner.lower_bounds(self.index, sup, r, mask)   # (Qp, N)
+        seed_pos = torch.topk(-lb[:qc], k, dim=1).indices
+        seed = np.unique(seed_pos.cpu().numpy()).astype(np.int32)
+        d_seed = solve(seed)
+        thresh = self._threshold(torch.as_tensor(d_seed, device=lb.device),
+                                 k, seed.size)
+        surv = torch.nonzero(_keep_any(lb, thresh)).flatten()
+        surv = surv.cpu().numpy().astype(np.int32)
+        surv = surv[~np.isin(surv, seed)]
+        cand = np.concatenate([seed, surv])
+        if not surv.size:
+            return cand, d_seed
+        return cand, np.concatenate([d_seed, solve(surv)], axis=1)
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

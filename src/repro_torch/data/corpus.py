@@ -1,0 +1,75 @@
+"""Synthetic WMD corpus generation + nnz-balanced sharding (port of
+``repro.data.corpus``; the same numpy RNG stream, so the arrays are
+byte-identical to the reference's for every seed).
+
+The paper's dataset (crawl-300d-2M embeddings subset, V=100k, w=300;
+dbpedia documents, N=5000) is reproduced statistically: Zipf-drawn word
+ids, 19-43-word queries, Gaussian embeddings.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from repro_torch.core.sparse import PaddedDocs, padded_docs_from_lists
+
+
+class WmdCorpus(NamedTuple):
+    vecs: np.ndarray        # (V, w) embeddings
+    docs: PaddedDocs        # N target documents (ELL, numpy fields)
+    queries: np.ndarray     # (Q, V) full-vocab frequency rows, normalized
+
+
+def make_corpus(vocab_size: int = 4096, embed_dim: int = 64,
+                n_docs: int = 512, n_queries: int = 4,
+                words_per_doc: tuple[int, int] = (8, 40),
+                max_words: int | None = None, zipf_a: float = 1.4,
+                seed: int = 0, dtype=np.float32) -> WmdCorpus:
+    rng = np.random.default_rng(seed)
+    vecs = rng.standard_normal((vocab_size, embed_dim)).astype(dtype)
+
+    def draw_doc():
+        n_words = int(rng.integers(words_per_doc[0], words_per_doc[1] + 1))
+        # zipf over the vocab, clipped; unique ids with counts
+        ids = np.minimum(rng.zipf(zipf_a, size=n_words * 2), vocab_size) - 1
+        ids = rng.permutation(vocab_size)[ids % vocab_size]  # decorrelate
+        uniq, counts = np.unique(ids[:n_words], return_counts=True)
+        return uniq.astype(np.int32), counts.astype(np.float64)
+
+    ids, counts = zip(*[draw_doc() for _ in range(n_docs)])
+    docs = padded_docs_from_lists(list(ids), list(counts),
+                                  max_words=max_words, dtype=dtype)
+
+    queries = np.zeros((n_queries, vocab_size), dtype=dtype)
+    for q in range(n_queries):
+        uniq, cnt = draw_doc()
+        queries[q, uniq] = cnt / cnt.sum()
+    return WmdCorpus(vecs=vecs, docs=docs, queries=queries)
+
+
+def paper_corpus(seed: int = 0) -> WmdCorpus:
+    """Paper-scale corpus: V=100k, w=300, N=5000, 19-43-word documents and
+    queries (the shapes behind the paper's Table 1 / Fig 5-7)."""
+    return make_corpus(vocab_size=100_000, embed_dim=300, n_docs=5000,
+                       n_queries=10, words_per_doc=(19, 43), seed=seed)
+
+
+def shard_balanced(docs: PaddedDocs, n_shards: int) -> PaddedDocs:
+    """nnz-balanced document order: sort docs by nnz, deal round-robin to
+    shards, concatenate — every contiguous 1/n_shards slice then has
+    ~equal nnz. Pads N up to a multiple of n_shards with one-word docs."""
+    idx = np.asarray(docs.idx)
+    val = np.asarray(docs.val)
+    n, length = idx.shape
+    n_pad = -(-n // n_shards) * n_shards
+    if n_pad != n:
+        idx = np.concatenate([idx, np.zeros((n_pad - n, length), idx.dtype)])
+        val = np.concatenate([val, np.zeros((n_pad - n, length), val.dtype)])
+        # padded docs get one dummy word of mass 1 to keep x > 0
+        val[n:, 0] = 1.0
+    nnz = (val > 0).sum(axis=1)
+    order = np.argsort(-nnz, kind="stable")
+    shards = [order[s::n_shards] for s in range(n_shards)]
+    new_order = np.concatenate(shards)
+    return PaddedDocs(idx=idx[new_order], val=val[new_order])

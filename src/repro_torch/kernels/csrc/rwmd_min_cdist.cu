@@ -1,0 +1,194 @@
+// K2 for Hopper: masked min-over-support cdist, the RWMD prune bound.
+//
+// Replaces: src/repro/kernels/rwmd.py, rwmd_min_cdist (pallas_call body
+// _kernel), reached from repro.core.prune.RwmdPruner.lower_bounds through
+// repro.kernels.ops.rwmd_min_cdist.
+//
+//   minM[q, v] = min over k with mask[q, k] > 0 of ||a[q, k] - b[v]||
+//              = sqrt(max(|a|^2 + |b|^2 - 2 a.b, 0)), +inf if no live k.
+//
+// What bounds it on the H100: the a.b^T product. At the main path's
+// widest chunk shape (Q = 4, B <= 48, w = 300, V = 100 000) it is
+// 2*Q*B*w*V ~ 11.5 GFLOP, ~0.17 ms at the 67 TFLOP/s fp32 rate outside the
+// tensor cores; reading b once is 120 MB, ~36 us at 3.35 TB/s. So it is
+// bound by operations. Full fp32 FFMA, no TF32: the bound decides which
+// documents are pruned and must match the fp32 reference.
+//
+// What the design does about it: a register-tiled FFMA GEMM with the
+// sqrt / mask / min epilogue fused in, so the (Q*B, V) distance block never
+// leaves the SM. One block per (query, tile of 128 vocabulary rows), with
+// 2*BMAX threads: each owns an 8 (support rows) x 8 (vocabulary rows) tile
+// of partial dot products in registers. The query's support and the
+// vocabulary tile stream through shared memory in 32-wide chunks of w,
+// both transposed so that four 16-byte shared loads feed 64 FFMAs per
+// coordinate (a first version kept all B rows per thread and read a as
+// broadcasts: one 16-byte load per 4 FFMA). Masked rows drop out of
+// the min, the ragged V edge is masked, w is not padded. Each block reads
+// the whole of b's tile for its query, so b is read Q times in all (4x the
+// bound's bytes at Q = 4): acceptable while the kernel is bound by
+// operations. A query wider than 128 support rows runs as one launch per
+// 128-row chunk on the same stream; every chunk after the first folds its
+// min into the output already written (min is exact in any order).
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kTileV = 128;   // vocabulary rows per block
+constexpr int kChunkW = 32;   // embedding coordinates per chunk
+constexpr int kStrideB = kTileV + 4;   // keeps float4 rows 16-byte aligned
+
+template <int BMAX>
+__global__ void __launch_bounds__(2 * BMAX)
+rwmd_min_cdist_kernel(const float* __restrict__ a,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ b,
+                      float* __restrict__ out, int B, int LDB, int W,
+                      int V, int accumulate) {
+  constexpr int KG = BMAX / 8;          // support-row groups of 8
+  constexpr int NT = KG * 16;           // 16 vocabulary groups of 8
+  __shared__ __align__(16) float aT[kChunkW * BMAX];    // [j][k]
+  __shared__ __align__(16) float bT[kChunkW * kStrideB];  // [j][v]
+  __shared__ float a2s[BMAX], ms[BMAX];
+
+  const int q = blockIdx.y;
+  const int v0 = blockIdx.x * kTileV;
+  const int tid = threadIdx.x;
+  const int vg = tid % 16, kg = tid / 16;
+  const float* aq = a + (size_t)q * LDB * W;   // B of the query's LDB rows
+
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  float b2[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) b2[c] = 0.f;
+  float a2 = 0.f;
+
+  for (int j0 = 0; j0 < W; j0 += kChunkW) {
+    const int wc = min(kChunkW, W - j0);
+    __syncthreads();                    // previous chunk consumed
+    for (int i = tid; i < BMAX * kChunkW; i += NT) {
+      int k = i / kChunkW, j = i % kChunkW;
+      aT[j * BMAX + k] =
+          (k < B && j < wc) ? aq[(size_t)k * W + j0 + j] : 0.f;
+    }
+    for (int i = tid; i < kTileV * kChunkW; i += NT) {
+      int v = i / kChunkW, j = i % kChunkW;
+      bT[j * kStrideB + v] = (v0 + v < V && j < wc)
+                                 ? b[(size_t)(v0 + v) * W + j0 + j]
+                                 : 0.f;
+    }
+    __syncthreads();
+    if (tid < BMAX)
+      for (int j = 0; j < wc; ++j) {
+        const float x = aT[j * BMAX + tid];
+        a2 = fmaf(x, x, a2);
+      }
+    for (int jj = 0; jj < wc; ++jj) {
+      const float4 a0 = *reinterpret_cast<const float4*>(
+          aT + jj * BMAX + kg * 8);
+      const float4 a1 = *reinterpret_cast<const float4*>(
+          aT + jj * BMAX + kg * 8 + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(
+          bT + jj * kStrideB + vg * 8);
+      const float4 b1 = *reinterpret_cast<const float4*>(
+          bT + jj * kStrideB + vg * 8 + 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) b2[c] = fmaf(bv[c], bv[c], b2[c]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    }
+  }
+  if (tid < BMAX) {
+    a2s[tid] = a2;
+    ms[tid] = tid < B ? mask[(size_t)q * LDB + tid] : 0.f;
+  }
+  __syncthreads();                      // also: every read of bT is done
+
+  // min over this thread's 8 rows, then over the KG row groups
+  float* red = bT;                      // (KG, kTileV)
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float best = INFINITY;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int k = kg * 8 + r;
+      if (ms[k] > 0.f) {
+        const float d2 = a2s[k] + b2[c] - 2.f * acc[r][c];
+        best = fminf(best, sqrtf(fmaxf(d2, 0.f)));
+      }
+    }
+    red[kg * kTileV + vg * 8 + c] = best;
+  }
+  __syncthreads();
+  for (int v = tid; v < kTileV; v += NT) {
+    float best = INFINITY;
+    for (int gi = 0; gi < KG; ++gi) best = fminf(best, red[gi * kTileV + v]);
+    if (v0 + v < V) {
+      float* o = out + (size_t)q * V + v0 + v;
+      *o = accumulate ? fminf(*o, best) : best;
+    }
+  }
+}
+
+constexpr int kMaxB = 128;   // support rows per launch
+
+template <int BMAX>
+cudaError_t launch(const float* a, const float* mask, const float* b,
+                   float* out, int Q, int B, int LDB, int W, int V,
+                   int accumulate, cudaStream_t stream) {
+  dim3 grid((V + kTileV - 1) / kTileV, Q);
+  rwmd_min_cdist_kernel<BMAX><<<grid, 2 * BMAX, 0, stream>>>(
+      a, mask, b, out, B, LDB, W, V, accumulate);
+  return cudaGetLastError();
+}
+
+// One launch over B <= kMaxB consecutive support rows of every query; a
+// and mask point at the chunk's first row, LDB is the rows per query.
+cudaError_t launch_chunk(const float* a, const float* mask, const float* b,
+                         float* out, int Q, int B, int LDB, int W, int V,
+                         int acc, cudaStream_t s) {
+  switch (B <= 64 ? ((B + 7) / 8) * 8 : ((B + 15) / 16) * 16) {
+    case 8: return launch<8>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 16: return launch<16>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 24: return launch<24>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 32: return launch<32>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 40: return launch<40>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 48: return launch<48>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 56: return launch<56>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 64: return launch<64>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 80: return launch<80>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 96: return launch<96>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 112: return launch<112>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    case 128: return launch<128>(a, mask, b, out, Q, B, LDB, W, V, acc, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// a (Q, B, W), mask (Q, B), b (V, W), out (Q, V); all fp32, contiguous,
+// on the device, B >= 1. Returns the cudaError_t of the first launch that
+// failed, else 0.
+extern "C" int rwmd_min_cdist_launch(const float* a, const float* mask,
+                                     const float* b, float* out, int Q,
+                                     int B, int W, int V, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Q == 0 || V == 0) return 0;
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  for (int k0 = 0; k0 < B; k0 += kMaxB) {
+    const int rows = B - k0 < kMaxB ? B - k0 : kMaxB;
+    const cudaError_t err = launch_chunk(a + (size_t)k0 * W, mask + k0, b,
+                                         out, Q, rows, B, W, V, k0 > 0, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}

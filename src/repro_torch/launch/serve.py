@@ -1,0 +1,137 @@
+"""WMD query server (port of ``repro.launch.serve --wmd``; the LM decode
+server and the async serving runtime are not ported yet).
+
+Scores ``--batch-queries`` stream requests per step through the
+persistent engine: exhaustive ``query_batch`` by default, or the staged
+top-k retrieval (prune -> solve -> rank) with ``--top-k K``. Prints one
+JSON record with the per-batch latency and the card it ran on::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
+        --prune rwmd --n-docs 5000 --vocab 100000 --embed-dim 300 \\
+        --precision log --lam 10
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --device cpu \\
+        --n-docs 64 --vocab 512 --embed-dim 16 --steps 3   # host run
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.index import WmdEngine, build_index
+from repro_torch.core.sinkhorn import LamUnderflowError
+from repro_torch.data.corpus import make_corpus
+from repro_torch.data.pipeline import wmd_request_stream
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_wmd(args) -> dict:
+    device = resolve_device(args.device)
+    corpus = make_corpus(vocab_size=args.vocab, embed_dim=args.embed_dim,
+                         n_docs=args.n_docs, n_queries=8, seed=0)
+    index = build_index(corpus.docs, corpus.vecs, device=device)
+    engine = WmdEngine(index, lam=args.lam, n_iter=args.n_iter,
+                       impl=args.impl, precision=args.precision)
+    reqs = wmd_request_stream(corpus)
+    bq = max(1, args.batch_queries)
+    prune = None if args.prune == "none" else args.prune
+
+    def score(batch):
+        if args.top_k > 0:
+            return engine.search(batch, args.top_k, prune=prune)
+        return engine.query_batch(batch)
+
+    times, solved = [], []
+    underflows = 0
+    for i in range(args.steps):
+        batch = [next(reqs) for _ in range(bq)]
+        _sync(device)
+        t0 = time.perf_counter()
+        try:
+            out = score(batch)
+        except LamUnderflowError:
+            # per-request isolation: re-score one at a time so batchmates
+            # still get answers; the failing request gets a JSON error
+            out = None
+            for qi, q in enumerate(batch):
+                try:
+                    sub = score([q])
+                    out = sub if out is None else out
+                except LamUnderflowError as e:
+                    underflows += 1
+                    print(json.dumps({
+                        "step": i, "query": qi, "ok": False,
+                        "error": {"code": "lam_underflow",
+                                  "underflow_report": str(e)}}))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        if args.top_k > 0 and out is not None:
+            solved.append(float(out.solved.mean()))
+    # the first step builds the kernels and warms the allocator
+    times = np.asarray(times[1:] if len(times) > 1 else times) * 1e3
+    p50 = float(np.percentile(times, 50))
+    rec = {
+        "workload": "wmd_topk" if args.top_k > 0 else "wmd_batched",
+        "impl": args.impl,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "n_docs": args.n_docs, "vocab": args.vocab,
+        "embed_dim": args.embed_dim, "batch_queries": bq,
+        "steps": args.steps, "lam": args.lam, "n_iter": args.n_iter,
+        "ms_per_batch_p50": p50,
+        "queries_per_s": bq / (p50 / 1e3),
+        "precision": engine.precision.name,
+    }
+    if underflows:
+        rec["underflow_errors"] = underflows
+    if args.top_k > 0:
+        rec["top_k"] = args.top_k
+        rec["prune"] = args.prune
+        if solved:
+            rec["solved_frac"] = float(np.mean(solved)) / args.n_docs
+    print(json.dumps(rec))
+    return rec
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--wmd", action="store_true",
+                    help="the WMD query server (the only server ported)")
+    ap.add_argument("--impl", default="kernel", choices=["kernel"])
+    ap.add_argument("--batch-queries", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="> 0: staged top-k retrieval (prune->solve->rank) "
+                         "instead of exhaustive scoring")
+    ap.add_argument("--prune", default="rwmd",
+                    choices=["none", "wcd", "rwmd", "wcd+rwmd"],
+                    help="lower bound for the prune stage (with --top-k)")
+    ap.add_argument("--precision", default="fp32", choices=["fp32", "log"],
+                    help="log: the log-domain solve (underflow-free at any "
+                         "lam)")
+    ap.add_argument("--n-docs", type=int, default=1024)
+    ap.add_argument("--vocab", type=int, default=8192)
+    ap.add_argument("--embed-dim", type=int, default=64)
+    # this synthetic corpus' distance scale is ~sqrt(2*embed_dim); lam must
+    # keep lam*dist < ~87 in fp32 or K underflows (the engine raises)
+    ap.add_argument("--lam", type=float, default=1.0)
+    ap.add_argument("--n-iter", type=int, default=15)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions on the host)")
+    args = ap.parse_args(argv)
+    if not args.wmd:
+        ap.error("only the WMD server is ported: pass --wmd")
+    serve_wmd(args)
+
+
+if __name__ == "__main__":
+    main()

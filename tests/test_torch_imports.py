@@ -1,0 +1,88 @@
+"""The port stands alone: it imports no JAX and nothing of the reference
+package, its entry points refuse to fall back to the CPU, and its serve
+CLI runs on the host when asked."""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|"
+                       r"from repro\.|from repro import|import repro\s*$)",
+                       re.MULTILINE)
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    mods = list(_port_modules())
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 15
+    script = "\n".join(
+        ["import importlib, sys",
+         f"sys.path.insert(0, {str(ROOT)!r})",
+         *[f"importlib.import_module({m!r})" for m in mods],
+         "import chip_smoke",          # runs only its import block
+         "bad = sorted(m for m in sys.modules if m == 'jax' or "
+         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))",
+         "assert not bad, bad",
+         "print('ok', len(sys.modules))"])
+    out = subprocess.run([sys.executable, "-c", script], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_source_line_imports_jax_or_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        hit = FORBIDDEN.search(path.read_text())
+        assert hit is None, f"{path}: {hit.group(0).strip()}"
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core.index import build_index, index_from_arrays
+    from repro_torch.data.corpus import make_corpus
+    c = make_corpus(vocab_size=32, embed_dim=4, n_docs=6, n_queries=1,
+                    words_per_doc=(2, 4), seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_index(c.docs, c.vecs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        index_from_arrays({"idx": c.docs.idx}, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_index(c.docs, c.vecs, device="cuda")
+    index = build_index(c.docs, c.vecs, device="cpu")
+    assert index.device == torch.device("cpu")
+
+
+def test_serve_cli_runs_on_cpu():
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--wmd",
+           "--device", "cpu", "--n-docs", "48", "--vocab", "256",
+           "--embed-dim", "8", "--steps", "2", "--batch-queries", "3",
+           "--top-k", "4", "--prune", "rwmd", "--lam", "1.0"]
+    out = subprocess.run(cmd, env=_env(), capture_output=True, text=True,
+                         timeout=180, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["workload"] == "wmd_topk" and rec["device"] == "cpu"
+    assert rec["top_k"] == 4 and 0 < rec["solved_frac"] <= 1
+    assert np.isfinite(rec["ms_per_batch_p50"])

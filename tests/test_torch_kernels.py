@@ -1,0 +1,192 @@
+"""The port's kernel wrappers on the CPU (their plain versions) against
+the reference's Pallas kernels in interpret mode. The Hopper kernels
+themselves are held against the plain versions in test_torch_gpu.py."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import sinkhorn_sparse as ref_ss
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro_torch.core import sinkhorn_sparse
+from repro_torch.kernels import ops, ref
+
+# as tests/test_kernels.py holds the reference kernels to their oracles
+K1_TOL = dict(rtol=5e-5, atol=5e-5)
+K2_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _k2_inputs(rng, q=3, b=10, w=16, v=200):
+    a = rng.standard_normal((q, b, w)).astype(np.float32)
+    mask = (rng.random((q, b)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    mask[q - 1] = 0.0                     # an all-masked (filler) row
+    vocab = rng.standard_normal((v, w)).astype(np.float32)
+    return a, mask, vocab
+
+
+def test_rwmd_min_cdist_plain_matches_reference(rng):
+    a, mask, b = _k2_inputs(rng)
+    got = ops.rwmd_min_cdist(*map(torch.from_numpy, (a, mask, b))).numpy()
+    pallas = np.asarray(ref_ops.rwmd_min_cdist(
+        jnp.asarray(a), jnp.asarray(mask), jnp.asarray(b), interpret=True))
+    oracle = np.asarray(ref_ref.rwmd_min_cdist_ref(
+        jnp.asarray(a), jnp.asarray(mask), jnp.asarray(b)))
+    assert np.isinf(got[-1]).all() and np.isinf(pallas[-1]).all()
+    np.testing.assert_allclose(got, pallas, **K2_TOL)
+    np.testing.assert_allclose(got, oracle, **K2_TOL)
+
+
+def _k1_inputs(rng, log_domain, q=2, v_r=8, n=256, length=8, lam=3.0):
+    """G as the solver sees it: gathered K = exp(-lam*M), or log K; pad
+    query rows (G 0 / -inf, r 1) and pad docs (val 0)."""
+    m = rng.uniform(0.1, 1.5, (q, v_r, n, length)).astype(np.float32)
+    g = (-lam * m) if log_domain else np.exp(-lam * m)
+    g = g.astype(np.float32)
+    live_rows = [v_r, v_r - 3]
+    r = np.ones((q, v_r), np.float32)
+    for qi, nr in enumerate(live_rows):
+        g[qi, nr:] = -np.inf if log_domain else 0.0
+        w = rng.uniform(0.1, 1.0, nr)
+        r[qi, :nr] = w / w.sum()
+    val = np.where(rng.random((n, length)) > 0.4,
+                   rng.random((n, length)), 0.0)
+    val[:, 0] = np.maximum(val[:, 0], 0.05)   # every real doc has a word
+    val[n - 20:] = 0.0                        # pad docs
+    val = (val / np.maximum(val.sum(1, keepdims=True), 1e-9))
+    return g, val.astype(np.float32), r, lam
+
+
+@pytest.mark.parametrize("log_domain", [False, True])
+def test_sinkhorn_fused_plain_matches_pallas(rng, log_domain):
+    g, val, r, lam = _k1_inputs(rng, log_domain)
+    n_iter = 10
+    got, iters = ops.sinkhorn_fused_all_batched(
+        *map(torch.from_numpy, (g, val, r)), lam, n_iter,
+        log_domain=log_domain, with_iters=True)
+    want, want_iters = ref_ops.sinkhorn_fused_all_batched(
+        jnp.asarray(g), jnp.asarray(val), jnp.asarray(r), lam, n_iter,
+        log_domain=log_domain, interpret=True, with_iters=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **K1_TOL)
+    np.testing.assert_array_equal(iters.numpy(), np.asarray(want_iters))
+    assert np.all(got.numpy()[:, -20:] == 0.0)        # pad docs are inert
+
+
+def test_sinkhorn_fused_linear_underflow_is_nan():
+    """A live doc word whose K column underflowed to all zero poisons the
+    doc's distance (the engine raises LamUnderflowError on it)."""
+    g = np.full((1, 2, 2, 2), 0.5, np.float32)
+    g[0, :, 1, 0] = 0.0                       # doc 1, slot 0: dead column
+    val = np.full((2, 2), 0.5, np.float32)
+    r = np.full((1, 2), 0.5, np.float32)
+    wmd = ops.sinkhorn_fused_all_batched(
+        *map(torch.from_numpy, (g, val, r)), 1.0, 3).numpy()
+    assert np.isfinite(wmd[0, 0]) and np.isnan(wmd[0, 1])
+    with np.errstate(divide="ignore"):
+        log_g = np.log(g)                     # the dead column is -inf
+    logd = ops.sinkhorn_fused_all_batched(
+        *map(torch.from_numpy, (log_g, val, r)), 1.0, 3,
+        log_domain=True).numpy()
+    assert np.isfinite(logd).all()
+
+
+def test_reconstruct_gm_matches_reference(rng):
+    g = rng.uniform(0.0, 1.0, (4, 6, 5)).astype(np.float32)
+    g[0, 0] = 0.0
+    got = ref.reconstruct_gm_ref(torch.from_numpy(g), 2.5).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(ref_ref.reconstruct_gm_ref(jnp.asarray(g), 2.5)),
+        rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        sinkhorn_sparse.reconstruct_gm(torch.from_numpy(g), 2.5).numpy(),
+        np.asarray(ref_ss.reconstruct_gm(jnp.asarray(g), 2.5)),
+        rtol=1e-6, atol=1e-7)
+    shift = rng.standard_normal((3, 5)).astype(np.float32)
+    val = rng.random((3, 5)).astype(np.float32)
+    np.testing.assert_allclose(
+        sinkhorn_sparse.log_shift_correction(
+            torch.from_numpy(shift), torch.from_numpy(val), 4.0).numpy(),
+        np.asarray(ref_ss.log_shift_correction(jnp.asarray(shift),
+                                               jnp.asarray(val), 4.0)),
+        rtol=1e-6)
+
+
+def test_cdist_support_and_underflow_report_match_reference(rng):
+    from repro.core import sinkhorn as ref_sk
+    from repro_torch.core import sinkhorn as sk
+    a = rng.standard_normal((7, 12)).astype(np.float32)
+    b = rng.standard_normal((40, 12)).astype(np.float32)
+    np.testing.assert_allclose(
+        sk.cdist(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+        np.asarray(ref_sk.cdist(jnp.asarray(a), jnp.asarray(b))),
+        rtol=1e-5, atol=1e-5)
+    q = np.where(rng.random(40) > 0.7, rng.random(40), 0.0)
+    got = sk.select_support(q, b)
+    want = ref_sk.select_support(q, b)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-6)
+    docs = (np.array([[0, 3], [5, 0]], np.int32),
+            np.array([[0.5, 0.5], [1.0, 0.0]], np.float32))
+    from repro.core.sparse import PaddedDocs as RefDocs
+    from repro_torch.core.sparse import PaddedDocs
+    assert sk.MAX_NEG_EXP == ref_sk.MAX_NEG_EXP
+    msg = sk.underflow_report(40.0, got[1], b, PaddedDocs(*docs))
+    ref_msg = ref_sk.underflow_report(40.0, want[1], b, RefDocs(*docs))
+    # the same diagnosis; only the advice's list of escape hatches differs
+    assert msg.split(" The Sinkhorn")[0] == ref_msg.split(" The Sinkhorn")[0]
+
+
+def test_solve_precision_parse_matches_reference():
+    for spec in (None, "fp32", "log", "bf16", "bf16+log", "log+fp32"):
+        got = sinkhorn_sparse.SolvePrecision.parse(spec)
+        want = ref_ss.SolvePrecision.parse(spec)
+        assert (got.gemm, got.log_domain, got.name) == \
+            (want.gemm, want.log_domain, want.name)
+    with pytest.raises(ValueError):
+        sinkhorn_sparse.SolvePrecision.parse("fp16")
+
+
+def test_cpu_tensors_leave_launch_counts_at_zero(rng):
+    ops.reset_launches()
+    a, mask, b = _k2_inputs(rng)
+    ops.rwmd_min_cdist(*map(torch.from_numpy, (a, mask, b)))
+    g, val, r, lam = _k1_inputs(rng, False, n=16)
+    ops.sinkhorn_fused_all_batched(*map(torch.from_numpy, (g, val, r)),
+                                   lam, 2)
+    assert ops.launches() == {"rwmd_min_cdist": 0,
+                              "sinkhorn_fused_all_batched": 0}
+
+
+@pytest.mark.parametrize("kwargs", [dict(tol=1e-3), dict(resmask=True),
+                                    dict(gemm="bf16")])
+def test_unported_solver_options_raise(rng, kwargs):
+    g, val, r, lam = _k1_inputs(rng, False, n=16)
+    if "resmask" in kwargs:
+        kwargs = dict(resmask=torch.ones((g.shape[0], g.shape[2])))
+    with pytest.raises(NotImplementedError):
+        ops.sinkhorn_fused_all_batched(*map(torch.from_numpy, (g, val, r)),
+                                       lam, 2, **kwargs)
+
+
+def test_wrappers_validate_inputs(rng):
+    a, mask, b = map(torch.from_numpy, _k2_inputs(rng))
+    with pytest.raises(TypeError):
+        ops.rwmd_min_cdist(a.double(), mask, b)
+    with pytest.raises(ValueError):
+        ops.rwmd_min_cdist(a, mask[:, :3], b)
+    with pytest.raises(ValueError):
+        ops.rwmd_min_cdist(a.transpose(1, 2).contiguous().transpose(1, 2),
+                           mask, b)
+    g, val, r, lam = _k1_inputs(rng, False, n=16)
+    with pytest.raises(ValueError):
+        ops.sinkhorn_fused_all_batched(torch.from_numpy(g),
+                                       torch.from_numpy(val[:, :3]),
+                                       torch.from_numpy(r), lam, 2)
+    gt, vt, rt = map(torch.from_numpy, (g, val, r))
+    with pytest.raises(ValueError, match="tile must be one of"):
+        ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 2, tile="global")
+    wide = torch.zeros((1, 65, 16, val.shape[1]), dtype=torch.float32)
+    with pytest.raises(ValueError, match="at most 64 x 64"):
+        ops.sinkhorn_fused_all_batched(wide, vt, torch.ones((1, 65)), lam, 2,
+                                       tile="registers")
