@@ -2,18 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``,
-holds each one against its plain PyTorch version at the shapes the main
-path gives it, then drives the main path — staged exact top-k search,
-``WmdEngine.search(k=10, prune="rwmd")`` and ``query_batch`` — at the
-paper's full widths (V=100 000, w=300, N=5000, 10 queries of 19-43
-words, n_iter=15) and checks the result against the exhaustive top-k.
-Prints one JSON object per phase; the line before the last lists every
-kernel with its launches on the main path, error, time, plain time and
-bound; the last line is ``{"ok": true, "device": {...}}``. Any failed
-check raises, and the script exits non-zero without that last line. It
-needs a CUDA device and the CUDA toolkit (``nvcc``), and imports nothing
-of JAX.
+Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
+and holds each one against its plain PyTorch version at the shapes its
+path gives it. Then, at the paper's full widths (V=100 000, w=300,
+N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
+
+- staged exact top-k search, ``WmdEngine.search(k=10, prune="rwmd")``
+  and ``query_batch`` (kernels K2 and K1), checked against the
+  exhaustive top-k;
+- the paper's one-query workload, ``one_to_many`` with all five impls
+  (``impl="kernel"`` runs K3 and K4), checked against ``impl="dense"``,
+  and ``many_to_many`` against the per-query loop;
+- the fused step ``ops.sddmm_spmm_step`` (K5) looped as a solve,
+  checked against the sparse solver's iteration.
+
+Each path runs once with the launch counts set to 0 just before it and
+read just after. Prints one JSON object per phase; the line before the
+last lists every kernel with its launches on its path, error, time,
+plain time and bound; the last line is ``{"ok": true, "device": {...}}``.
+Any failed check raises, and the script exits non-zero without that last
+line. It needs a CUDA device and the CUDA toolkit (``nvcc``), and imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -31,7 +40,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.paper_wmd import CONFIG  # noqa: E402
 from repro_torch.core.index import (WmdEngine, _compute_kq,  # noqa: E402
                                     _gather_g, build_index)
-from repro_torch.core.sinkhorn import LamUnderflowError  # noqa: E402
+from repro_torch.core import many_to_many, one_to_many  # noqa: E402
+from repro_torch.core.sinkhorn import (LamUnderflowError,  # noqa: E402
+                                       select_support)
+from repro_torch.core.sinkhorn_sparse import (_iterate,  # noqa: E402
+                                              gather_columns,
+                                              precompute_sparse,
+                                              sinkhorn_wmd_sparse)
+from repro_torch.core.sparse import PaddedDocs  # noqa: E402
 from repro_torch.data.corpus import make_corpus, paper_corpus  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
@@ -50,12 +66,40 @@ K2_SQ_RTOL = 1e-5
 # K1: sums over v_r and L run in another order, and 15 iterations of
 # the scaling fixed point carry the ulp differences into the distance
 K1_RTOL, K1_ATOL = 1e-4, 1e-4
+# K3: ref.K3_SQ_RTOL and ref.K3_ULP (ref.hold_cdist_exp holds it)
+# K4: tests/test_kernels.py's tolerance for the reference kernel
+K4_RTOL, K4_ATOL = 5e-5, 5e-5
+# K5: one iteration, sums in another order (tests/test_kernels.py's)
+K5_RTOL, K5_ATOL = 1e-5, 1e-5
+# one_to_many: sparse, sparse_unfused and kernel against dense at
+# tests/test_sinkhorn.py's tolerance. The kernel impl makes M with K3,
+# which sums a.b in another order than the dense impl's cuBLAS GEMM: at
+# exact word matches that leaves up to ~2e-2 of distance (P1). The kernel
+# impl (and its log domain, against the sparse solver's) is held at the
+# gap that alone leaves at w=300: 3.6e-4 (2.4e-4 log) measured on an H100
+# (ROADMAP queue 3, P1). The kernel path fed the plain K is held at
+# OTM_RTOL
+OTM_RTOL, OTM_ATOL = 2e-4, 2e-4
+P1_RTOL = 4e-4
+# timed one_to_many calls per impl (dense: DENSE_REPS) and the docs the
+# dense_stabilized impl takes: its (v_r, V, N) temporaries are ~2.4 GB
+# at 256 docs, ~50 GB at all 5000
+OTM_REPS, DENSE_REPS, STAB_DOCS = 10, 3, 256
+# dense_stabilized and dense reach one fixed point from different starts:
+# they are compared after this many iterations (they differ by ~1e-2 at 15)
+STAB_ITERS = 200
+# many_to_many: the batched engine against the per-query loop, within the
+# reference's own batched-vs-looped spread (ROADMAP queue 3, R2)
+M2M_RTOL = 1e-3
 # staged vs exhaustive distances: the same per-doc solve on other ELL
 # trims (pad slots are exactly inert), so agreement is at fp32 rounding
 E2E_RTOL = 1e-5
 # timed end-to-end calls per configuration (after one warm-up and the
 # counted run)
 E2E_REPS = 15
+# spin-kernel cycles that hold the stream while time_ms enqueues its
+# launches (~25 ms at the H100's 1.98 GHz boost clock)
+HOLD_CYCLES = 50_000_000
 
 
 def emit(obj) -> None:
@@ -63,7 +107,29 @@ def emit(obj) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median over ``reps`` launches, each between its own CUDA events."""
+    """Device time of one launch of ``fn``: the mean over ``reps``
+    launches run back to back. A spin kernel holds the stream while the
+    host enqueues them, so the wrapper's host time (tens of us, more than
+    a small kernel's run) is hidden from the events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def launch_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median over ``reps`` single launches, each between its own CUDA
+    events with the stream idle: the kernel plus the host time of its
+    wrapper until the launch reaches the card (what a caller that syncs
+    after each call sees)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -221,9 +287,13 @@ def phase_k2(index, sup, mask, label: str) -> dict:
            "max_sq_err_over_scale": float((err_sq / scale)[fin].max()),
            "sq_rtol": K2_SQ_RTOL,
            "ms": time_ms(lambda: ops.rwmd_min_cdist(a, mask, b)),
+           "launch_ms": launch_ms(lambda: ops.rwmd_min_cdist(a, mask, b)),
            "plain_ms": time_ms(lambda: ref.rwmd_min_cdist_ref(a, mask, b),
                                reps=5, warmup=1),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "library": "none: no single PyTorch call computes a masked "
+                      "min-over-support cdist (torch.cdist + a masked min "
+                      "is two)"}
     emit(rec)
     return rec
 
@@ -273,9 +343,11 @@ def phase_k1(index, sup, r, mask, log_domain: bool, lam: float,
                      "live_rows": int(live_rows)},
            "max_abs_err": abs_err, "max_rel_err": rel_err,
            "rtol": K1_RTOL, "atol": K1_ATOL,
-           "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5,
-                                                      warmup=1),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
+           "ms": time_ms(kernel), "launch_ms": launch_ms(kernel),
+           "plain_ms": time_ms(plain, reps=5, warmup=1),
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "library": "none: no single PyTorch call computes a Sinkhorn "
+                      "solve"}
     emit(rec)
     del g
     return rec
@@ -373,8 +445,8 @@ def phase_end_to_end(corpus, index, precision: str, lam: float,
         raise AssertionError(f"{precision}: staged top-{k} ids differ from "
                              f"the exhaustive top-{k}")
     np.testing.assert_allclose(res.distances, ex_d, rtol=E2E_RTOL, atol=0)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("rwmd_min_cdist", "sinkhorn_fused_all_batched"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by search")
     rec = {"phase": "end_to_end", "precision": precision, "lam": lam,
            "n_iter": CONFIG.n_iter, "k": k, "queries": len(qs),
@@ -397,40 +469,12 @@ def phase_profile(corpus, index, k: int = 10, reps: int = 5) -> None:
     ``search`` calls (log, lam=10); device busy share = the kernels' summed
     device time over the wall time (one stream, so no overlap). Times are
     per search."""
-    from torch.profiler import ProfilerActivity, profile
     qs = list(corpus.queries)
     eng = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
                     precision="log")
-    eng.search(qs, k, prune="rwmd")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            eng.search(qs, k, prune="rwmd")
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    if not kernels:
-        emit({"phase": "profile", "wall_ms": wall_us / 1e3,
-              "device_time": "not measured (no device events traced)"})
-        return
-    busy_us = sum(e.self_device_time_total for e in kernels) / reps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    host = [e for e in prof.key_averages()
-            if not str(getattr(e, "device_type", "")).endswith("CUDA")]
-    top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]
-    emit({"phase": "profile", "precision": "log", "lam": CONFIG.lam,
-          "searches": reps, "wall_ms": wall_us / 1e3,
-          "device_busy_ms": busy_us / 1e3,
-          "device_busy_share": busy_us / wall_us,
-          "kernels": [{"name": e.key[:80], "count": e.count / reps,
-                       "device_ms": e.self_device_time_total / 1e3 / reps}
-                      for e in top],
-          "host_ops": [{"name": e.key[:60], "count": e.count / reps,
-                        "self_cpu_ms": e.self_cpu_time_total / 1e3 / reps}
-                       for e in top_host]})
+    out = profile_window(lambda: eng.search(qs, k, prune="rwmd"), reps)
+    emit(profile_record("profile", *out, reps, precision="log",
+                        lam=CONFIG.lam))
 
 
 def phase_underflow(corpus, index) -> None:
@@ -445,6 +489,336 @@ def phase_underflow(corpus, index) -> None:
         return
     raise AssertionError("fp32 at lam=10 returned without raising "
                          "LamUnderflowError")
+
+
+def widest_query(corpus) -> np.ndarray:
+    """The paper query with the most unique words (23 at seed 0): the
+    one-query phases' input."""
+    return max(corpus.queries, key=lambda q: int((q > 0).sum()))
+
+
+def device_docs(docs, dev) -> PaddedDocs:
+    return PaddedDocs(idx=torch.as_tensor(docs.idx, dtype=torch.int64,
+                                          device=dev),
+                      val=torch.as_tensor(docs.val, device=dev))
+
+
+def k3_bound(v_r: int, w: int, v: int, n_out: int) -> tuple[float, str]:
+    """a, b and r read once, ``n_out`` (v_r, V) outputs written once; the
+    product and the norms."""
+    n_bytes = 4.0 * (v_r * w + v * w + v_r + n_out * v_r * v)
+    n_flops = 2.0 * v_r * w * v + 2.0 * (v_r + v) * w
+    return bound_ms(n_bytes, n_flops)
+
+
+def phase_k3(vecs, a, r, label: str) -> list[dict]:
+    """K3 in its three modes on one query's support rows ``a``."""
+    recs = []
+    v_r, w = a.shape
+    v = vecs.shape[0]
+    for mode, lam, k_only, log_k in (("full", 1.0, False, False),
+                                     ("k_only", 1.0, True, False),
+                                     ("log_k", CONFIG.lam, True, True)):
+        def kernel():
+            return ops.cdist_exp(a, vecs, r, lam, k_only=k_only, log_k=log_k)
+
+        def plain():
+            return ref.cdist_exp_ref(a, vecs, r, lam, k_only=k_only,
+                                     log_k=log_k)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        errs = ref.hold_cdist_exp(got, a, vecs, r, lam, k_only, log_k)
+        del got
+        bms, by = k3_bound(v_r, w, v, 1 if k_only else 3)
+        rec = {"phase": "k3", "name": "cdist_exp", "inputs": label,
+               "mode": mode, "lam": lam,
+               "shape": {"v_r": v_r, "w": w, "V": v}, **errs,
+               "sq_rtol": ref.K3_SQ_RTOL, "ms": time_ms(kernel),
+               "launch_ms": launch_ms(kernel),
+               "plain_ms": time_ms(plain, reps=5, warmup=1),
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "library": "none: no single PyTorch call computes "
+                          "exp(-lam*cdist); torch.cdist gives M alone"}
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def solver_bound(v_r: int, val, n_iter: int) -> tuple[float, str]:
+    """K4's bound for one query of ``v_r`` live rows, as K1's: G and val
+    at live doc slots (pad slots and docs add exact zeros), r, the
+    outputs; 4 flops per live (row, slot) pair and iteration, plus the
+    last SDDMM and the distance line."""
+    live_slots = float((val > 0).sum())
+    n = val.shape[0]
+    n_bytes = 4.0 * (v_r * live_slots + live_slots + v_r + n + -(-n // 128))
+    return bound_ms(n_bytes, v_r * live_slots * (4.0 * n_iter + 4.0))
+
+
+def gathered(vecs, docs, r, vecs_sel, lam: float, log_k: bool):
+    """The one-query G: the plain K (or log K) gathered at the doc words."""
+    return gather_columns(ref.cdist_exp_ref(vecs_sel, vecs, r, lam,
+                                            k_only=True, log_k=log_k),
+                          docs.idx)
+
+
+def phase_k4(vecs, docs, r, vecs_sel) -> list[dict]:
+    """K4 on the gathered G of one paper query against every document."""
+    recs = []
+    n_iter = CONFIG.n_iter
+    for log_domain, lam in ((False, 1.0), (True, CONFIG.lam)):
+        g = gathered(vecs, docs, r, vecs_sel, lam, log_domain)
+
+        def kernel():
+            return ops.sinkhorn_fused_all(g, docs.val, r, lam, n_iter,
+                                          log_domain=log_domain)
+
+        def plain():
+            return ref.sinkhorn_fused_all_ref(g, docs.val, r, lam, n_iter,
+                                              log_domain=log_domain)[0]
+
+        got = kernel()
+        torch.cuda.synchronize()
+        abs_err, rel_err = compare(got, plain(), K4_RTOL, K4_ATOL,
+                                   f"K4 log_domain={log_domain}")
+        bms, by = solver_bound(g.shape[0], docs.val, n_iter)
+        v_r, n, length = g.shape
+        rec = {"phase": "k4", "name": "sinkhorn_fused_all",
+               "log_domain": log_domain, "lam": lam, "n_iter": n_iter,
+               "shape": {"v_r": v_r, "N": n, "L": length,
+                         "live_slots": int((docs.val > 0).sum())},
+               "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "rtol": K4_RTOL, "atol": K4_ATOL, "ms": time_ms(kernel),
+               "launch_ms": launch_ms(kernel),
+               "plain_ms": time_ms(plain, reps=5, warmup=1),
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "library": "none: no single PyTorch call computes a "
+                          "Sinkhorn solve"}
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def phase_k5(vecs, docs, r, vecs_sel) -> dict:
+    """K5 on one paper query's G and G/r from the uniform start, then its
+    path: ``CONFIG.n_iter`` steps through ``ops.sddmm_spmm_step`` against
+    the sparse solver's fused loop."""
+    pre = precompute_sparse(r, vecs_sel, vecs, docs, 1.0)
+    v_r, n, length = pre.G.shape
+    x0 = torch.full((v_r, n), 1.0 / v_r, device=vecs.device)
+
+    def kernel():
+        return ops.sddmm_spmm_step(pre.G, pre.G_over_r, pre.val, x0)
+
+    def plain():
+        return ref.sddmm_spmm_step_ref(pre.G, pre.G_over_r, pre.val, x0)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    abs_err, rel_err = compare(got, plain(), K5_RTOL, K5_ATOL, "K5")
+    live_slots = float((pre.val > 0).sum())
+    # G and G/r at live slots (w is 0 on pad slots, so neither is needed
+    # there), val at live slots, x in, x' out
+    n_bytes = 4.0 * (2 * v_r * live_slots + live_slots + 2 * v_r * n)
+    bms, by = bound_ms(n_bytes, 4.0 * v_r * live_slots)
+    ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5, warmup=1)
+
+    ops.reset_launches()                  # the path: a solve of K5 steps
+    x = x0
+    for _ in range(CONFIG.n_iter):
+        x = ops.sddmm_spmm_step(pre.G, pre.G_over_r, pre.val, x)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    path_err = compare(x, _iterate(pre, CONFIG.n_iter), 1e-4, 0.0,
+                       "K5 path against the sparse solver's loop")
+    if launches["sddmm_spmm_step"] != CONFIG.n_iter:
+        raise AssertionError(f"K5 path launched {launches}")
+    rec = {"phase": "k5", "name": "sddmm_spmm_step", "lam": 1.0,
+           "shape": {"v_r": v_r, "N": n, "L": length,
+                     "live_slots": int(live_slots)},
+           "max_abs_err": abs_err, "max_rel_err": rel_err, "rtol": K5_RTOL,
+           "atol": K5_ATOL, "ms": ms, "launch_ms": launch_ms(kernel),
+           "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "library": "none: no single PyTorch call computes an SDDMM "
+                      "fused with an SpMM",
+           "path": {"steps": CONFIG.n_iter, "launches": launches,
+                    "x_max_abs_and_rel_err_vs_sparse_loop": path_err}}
+    emit(rec)
+    return rec
+
+
+def phase_one_to_many(corpus, dev) -> dict:
+    """The paper's one-query workload at its widths, every impl, all 10
+    queries: agreement with dense, the log domain, the underflow guard,
+    timings with inputs on the card and from numpy, and the launches of
+    one ``impl="kernel"`` call."""
+    vecs = torch.as_tensor(corpus.vecs, device=dev)
+    docs = device_docs(corpus.docs, dev)
+    lam, n_iter = 1.0, CONFIG.n_iter
+    rec = {"phase": "one_to_many", "lam": lam, "n_iter": n_iter,
+           "queries": len(corpus.queries), "n_docs": corpus.docs.idx.shape[0],
+           "vocab": vecs.shape[0], "embed_dim": vecs.shape[1]}
+    held = {"sparse": OTM_RTOL, "sparse_unfused": OTM_RTOL,
+            "kernel": P1_RTOL, "kernel_plain_k": OTM_RTOL,
+            "kernel_log_vs_sparse_log": P1_RTOL,
+            "dense_stabilized_converged": OTM_RTOL}
+    gap = dict.fromkeys(held, 0.0)
+    missed = []
+
+    def hold(key, got, want):
+        gap[key] = max(gap[key], float(((got - want).abs()
+                                        / want.abs()).max()))
+        try:
+            compare(got, want, held[key], OTM_ATOL, key)
+        except AssertionError as e:
+            missed.append(str(e))
+
+    for q in corpus.queries:
+        want = one_to_many(q, docs, vecs, lam, n_iter, "dense", device=dev)
+        for impl in ("sparse", "sparse_unfused", "kernel"):
+            hold(impl, one_to_many(q, docs, vecs, lam, n_iter, impl,
+                                   device=dev), want)
+        # P1's share: the kernel path with K3's output replaced by its
+        # plain version (the dense impl's GEMM)
+        r, vecs_sel, _ = select_support(q, vecs)
+        hold("kernel_plain_k", ops.sinkhorn_fused_all(
+            gathered(vecs, docs, r, vecs_sel, lam, False), docs.val, r, lam,
+            n_iter), want)
+        hold("kernel_log_vs_sparse_log",
+             ops.sinkhorn_wmd_kernel(r, vecs_sel, vecs, docs, CONFIG.lam,
+                                     n_iter, precision="log"),
+             sinkhorn_wmd_sparse(r, vecs_sel, vecs, docs, CONFIG.lam, n_iter,
+                                 precision="log"))
+    # the log-domain dense iteration reaches the scaling iteration's fixed
+    # point from another start, so the two agree once converged
+    q = widest_query(corpus)
+    stab_docs = PaddedDocs(idx=docs.idx[:STAB_DOCS], val=docs.val[:STAB_DOCS])
+    hold("dense_stabilized_converged",
+         one_to_many(q, stab_docs, vecs, lam, STAB_ITERS, "dense_stabilized",
+                     device=dev),
+         one_to_many(q, stab_docs, vecs, lam, STAB_ITERS, "dense",
+                     device=dev))
+    rec["dense_stabilized"] = {"docs": STAB_DOCS, "n_iter": STAB_ITERS}
+    try:
+        one_to_many(q, docs, vecs, CONFIG.lam, n_iter, "kernel", device=dev)
+    except LamUnderflowError:
+        rec["lam10_linear_kernel"] = "LamUnderflowError"
+    else:
+        raise AssertionError("linear one_to_many(impl='kernel') at lam=10 "
+                             "returned without raising LamUnderflowError")
+
+    ops.reset_launches()                  # the path: one kernel-impl call
+    one_to_many(q, docs, vecs, lam, n_iter, "kernel", device=dev)
+    torch.cuda.synchronize()
+    rec["launches_per_kernel_call"] = ops.launches()
+    for name in ("cdist_exp", "sinkhorn_fused_all"):
+        if rec["launches_per_kernel_call"][name] <= 0:
+            raise AssertionError(f"{name} was not launched by one_to_many")
+
+    timings = {}
+    for where, (d_in, v_in) in (("on_card", (docs, vecs)),
+                                ("numpy", (corpus.docs, corpus.vecs))):
+        timings[where] = {}
+        for impl in ("dense", "dense_stabilized", "sparse",
+                     "sparse_unfused", "kernel"):
+            dd = d_in
+            if impl == "dense_stabilized":
+                dd = PaddedDocs(idx=d_in.idx[:STAB_DOCS],
+                                val=d_in.val[:STAB_DOCS])
+            reps = DENSE_REPS if impl == "dense" else OTM_REPS
+
+            def call(impl=impl, dd=dd):
+                return one_to_many(q, dd, v_in, lam, n_iter, impl, device=dev)
+
+            call()                                        # warm-up
+            timings[where][impl] = wall_ms(call, reps=reps)
+    rec["max_rel_gap"] = gap
+    rec["rtol"], rec["atol"] = held, OTM_ATOL
+    rec["wall_ms"] = timings
+    med = {k: v["median"] for k, v in timings["on_card"].items()}
+    rec["dense_over_sparse"] = med["dense"] / med["sparse"]
+    rec["dense_over_kernel"] = med["dense"] / med["kernel"]
+    rec["sparse_over_kernel"] = med["sparse"] / med["kernel"]
+    emit(rec)
+    if missed:
+        raise AssertionError("one_to_many: " + "; ".join(missed))
+    return rec
+
+
+def phase_many_to_many(corpus, dev) -> None:
+    """``many_to_many(batched=True, impl="kernel")`` (the K1 engine)
+    against the per-query loop of ``one_to_many(impl="kernel")``."""
+    vecs = torch.as_tensor(corpus.vecs, device=dev)
+    docs = device_docs(corpus.docs, dev)
+    qs = list(corpus.queries)
+    batched = many_to_many(qs, docs, vecs, 1.0, CONFIG.n_iter, "kernel",
+                           device=dev)
+    looped = many_to_many(qs, docs, vecs, 1.0, CONFIG.n_iter, "kernel",
+                          batched=False, device=dev)
+    gap = 0.0
+    for b, lo in zip(batched, looped):
+        lo = lo.cpu()
+        gap = max(gap, compare(b, lo, M2M_RTOL, 0.0,
+                               "many_to_many batched vs looped")[1])
+    emit({"phase": "many_to_many", "impl": "kernel", "lam": 1.0,
+          "queries": len(qs), "max_rel_gap_batched_vs_looped": gap,
+          "rtol": M2M_RTOL})
+
+
+def profile_window(fn, reps: int) -> tuple[float, list, list, float]:
+    """torch.profiler over ``reps`` warm calls of ``fn``: (wall us per
+    call, device events, host events, device busy us per call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    ev = prof.key_averages()
+    dev_ev = [e for e in ev
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    host = [e for e in ev
+            if not str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in dev_ev) / reps
+    return wall_us, dev_ev, host, busy
+
+
+def profile_record(phase: str, wall_us, dev_ev, host, busy_us, reps,
+                   **extra) -> dict:
+    if not dev_ev:
+        return {"phase": phase, "wall_ms": wall_us / 1e3,
+                "device_time": "not measured (no device events traced)"}
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:12]
+    top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]
+    return {"phase": phase, **extra, "calls": reps,
+            "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "kernels": [{"name": e.key[:80], "count": e.count / reps,
+                         "device_ms": e.self_device_time_total / 1e3 / reps}
+                        for e in top],
+            "host_ops": [{"name": e.key[:60], "count": e.count / reps,
+                          "self_cpu_ms": e.self_cpu_time_total / 1e3 / reps}
+                         for e in top_host]}
+
+
+def phase_profile_one_to_many(corpus, dev, reps: int = 5) -> None:
+    """Where the time of one ``one_to_many(impl="kernel")`` call goes
+    (fp32, lam=1, inputs on the card), averaged over ``reps`` calls."""
+    vecs = torch.as_tensor(corpus.vecs, device=dev)
+    docs = device_docs(corpus.docs, dev)
+    q = widest_query(corpus)
+    out = profile_window(
+        lambda: one_to_many(q, docs, vecs, 1.0, CONFIG.n_iter, "kernel",
+                            device=dev),
+        reps)
+    emit(profile_record("profile_one_to_many", *out, reps, impl="kernel",
+                        lam=1.0))
 
 
 def main() -> int:
@@ -482,30 +856,69 @@ def main() -> int:
                                  seed=2)[::2], "wide_200")
     torch.cuda.empty_cache()
 
+    # the one-query kernels on the first paper query (and K3 on a
+    # 200-word query, four row tiles)
+    vecs = torch.as_tensor(corpus.vecs, device=dev)
+    docs = device_docs(corpus.docs, dev)
+    r0, sel0, _ = select_support(widest_query(corpus), vecs)
+    k3 = phase_k3(vecs, sel0, r0, "widest_paper_query")
+    rng = np.random.default_rng(4)
+    wide = torch.as_tensor(rng.choice(vecs.shape[0], 200, replace=False),
+                           device=dev)
+    rw = rng.uniform(0.1, 1.0, 200)
+    phase_k3(vecs, vecs[wide].contiguous(),
+             torch.as_tensor(rw / rw.sum(), dtype=torch.float32, device=dev),
+             "wide_200")
+    k4 = phase_k4(vecs, docs, r0, sel0)
+    k5 = phase_k5(vecs, docs, r0, sel0)
+    del vecs, docs
+    torch.cuda.empty_cache()
+
     phase_small_parity(dev)
     e2e_log = phase_end_to_end(corpus, index, "log", CONFIG.lam)
     phase_end_to_end(corpus, index, "fp32", 1.0)
     phase_profile(corpus, index)
     phase_underflow(corpus, index)
+    del index
+    torch.cuda.empty_cache()
+    otm = phase_one_to_many(corpus, dev)
+    torch.cuda.empty_cache()
+    phase_many_to_many(corpus, dev)
+    phase_profile_one_to_many(corpus, dev)
 
-    main_launches = e2e_log["launches"]
+    path_launches = {**otm["launches_per_kernel_call"],
+                     "rwmd_min_cdist": e2e_log["launches"]["rwmd_min_cdist"],
+                     "sinkhorn_fused_all_batched":
+                         e2e_log["launches"]["sinkhorn_fused_all_batched"],
+                     "sddmm_spmm_step":
+                         k5["path"]["launches"]["sddmm_spmm_step"]}
+    csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for rec, src, replaces in (
-            (k2, "src/repro_torch/kernels/csrc/rwmd_min_cdist.cu",
-             "src/repro/kernels/rwmd.py:54"),
-            (k1_log, "src/repro_torch/kernels/csrc/sinkhorn_fused.cu",
-             "src/repro/kernels/sddmm_spmm.py:263")):
+            (k2, "rwmd_min_cdist.cu", "src/repro/kernels/rwmd.py:54"),
+            (k1_log, "sinkhorn_fused.cu",
+             "src/repro/kernels/sddmm_spmm.py:263"),
+            (k3[1], "cdist_exp.cu", "src/repro/kernels/cdist_exp.py:60"),
+            (k4[0], "sinkhorn_fused.cu",
+             "src/repro/kernels/sddmm_spmm.py:202"),
+            (k5, "sddmm_spmm_step.cu", "src/repro/kernels/sddmm_spmm.py:76")):
         kernels.append({
-            "name": rec["name"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main_launches[rec["name"]],
+            "name": rec["name"], "route": "cuda", "source": csrc + src,
+            "replaces": replaces, "launches": path_launches[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": rec["shape"]})
-    # K1's entry is the main path's log-domain lam=10 solve; its linear
-    # fp32 lam=1 variant rides along under its own key
-    kernels[-1]["fp32_lam1"] = {key: k1_lin[key] for key in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+            "library": rec["library"], "shape": rec["shape"],
+            "launch_ms": rec["launch_ms"]})
+    # K1's entry is the search path's log-domain lam=10 solve, K3's and
+    # K4's the one_to_many(impl="kernel") path's fp32 lam=1 calls; their
+    # other variants ride along under their own keys
+    keys = ("max_abs_err", "ms", "launch_ms", "plain_ms", "bound_ms",
+            "bound_by")
+    kernels[1]["fp32_lam1"] = {key: k1_lin[key] for key in keys}
+    kernels[2]["full"] = {key: k3[0][key] for key in keys}
+    kernels[2]["log_k_lam10"] = {key: k3[2][key] for key in keys}
+    kernels[3]["log_lam10"] = {key: k4[1][key] for key in keys}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

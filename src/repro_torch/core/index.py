@@ -44,7 +44,7 @@ import torch
 
 from .device import resolve_device
 from .sinkhorn import LamUnderflowError, select_support, underflow_report
-from .sinkhorn_sparse import SolvePrecision
+from .sinkhorn_sparse import SolvePrecision, gather_columns
 from .sparse import PaddedDocs
 
 
@@ -477,9 +477,8 @@ def _gather_g(kq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     the "qbnl" layout the fused solver reads (one doc's (B, L) tile per
     (query, doc))."""
     q, b, _ = kq.shape
-    n, length = idx.shape
-    g = torch.index_select(kq.reshape(q * b, -1), 1, idx.reshape(-1))
-    return g.reshape(q, b, n, length)
+    return gather_columns(kq.reshape(q * b, -1), idx).reshape(
+        q, b, *idx.shape)
 
 
 class SearchResult(NamedTuple):

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class PaddedDocs(NamedTuple):
@@ -70,20 +71,14 @@ def padded_docs_from_lists(word_ids: list[np.ndarray], counts: list[np.ndarray],
     return PaddedDocs(idx=idx, val=val)
 
 
-def padded_docs_to_dense(docs: PaddedDocs, vocab_size: int) -> np.ndarray:
+def padded_docs_to_dense(docs: PaddedDocs, vocab_size: int):
     """Inverse of :func:`padded_docs_from_dense`; duplicated word ids
-    accumulate."""
-    idx = _to_numpy(docs.idx)
-    val = _to_numpy(docs.val)
-    n, _ = idx.shape
-    c = np.zeros((vocab_size, n), dtype=val.dtype)
-    jj, ll = np.nonzero(val > 0)
-    np.add.at(c, (idx[jj, ll], jj), val[jj, ll])
-    return c
-
-
-def _to_numpy(a) -> np.ndarray:
-    """Host copy of a numpy array or a torch tensor on any device."""
-    if hasattr(a, "detach"):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+    accumulate. The (V, N) matrix is built on ``docs.val``'s device (no
+    host round trip); numpy fields give numpy back."""
+    val = torch.as_tensor(docs.val)
+    idx = torch.as_tensor(docs.idx, device=val.device)
+    jj, ll = torch.nonzero(val > 0, as_tuple=True)
+    c = torch.zeros((vocab_size, val.shape[0]), dtype=val.dtype,
+                    device=val.device)
+    c.index_put_((idx[jj, ll].long(), jj), val[jj, ll], accumulate=True)
+    return c if isinstance(docs.val, torch.Tensor) else c.numpy()

@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process
 per source, all started together) and linked into one shared library with
-a plain C interface under ``build/repro_torch/`` at the repository root.
-The library's file name carries a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+a plain C interface under ``build/repro_torch/`` at the repository root;
+``csrc/*.cuh`` holds device code that sources share. The library's file
+name carries a hash of the sources, headers and flags, so an edited file
+is rebuilt and an unchanged one is loaded as it is. Nothing
 here runs at import: the CPU tests import every module of the port.
 """
 from __future__ import annotations
@@ -42,7 +43,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):      # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
@@ -96,6 +97,15 @@ def load() -> ctypes.CDLL:
     lib.sinkhorn_fused_batched_launch.argtypes = [
         p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
     lib.sinkhorn_fused_batched_launch.restype = i
+    lib.sinkhorn_fused_launch.argtypes = [
+        p, p, p, p, p, i, i, i, i, f, i, i, i, p]
+    lib.sinkhorn_fused_launch.restype = i
     lib.sinkhorn_fused_smem_bytes.argtypes = [i, i, i]
     lib.sinkhorn_fused_smem_bytes.restype = ctypes.c_longlong
+    lib.cdist_exp_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
+    lib.cdist_exp_launch.restype = i
+    lib.sddmm_spmm_step_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.sddmm_spmm_step_launch.restype = i
+    lib.sddmm_spmm_step_smem_bytes.argtypes = [i, i]
+    lib.sddmm_spmm_step_smem_bytes.restype = ctypes.c_longlong
     return lib

@@ -17,27 +17,24 @@
 // What the design does about it: a register-tiled FFMA GEMM with the
 // sqrt / mask / min epilogue fused in, so the (Q*B, V) distance block never
 // leaves the SM. One block per (query, tile of 128 vocabulary rows), with
-// 2*BMAX threads: each owns an 8 (support rows) x 8 (vocabulary rows) tile
-// of partial dot products in registers. The query's support and the
-// vocabulary tile stream through shared memory in 32-wide chunks of w,
-// both transposed so that four 16-byte shared loads feed 64 FFMAs per
-// coordinate (a first version kept all B rows per thread and read a as
-// broadcasts: one 16-byte load per 4 FFMA). Masked rows drop out of
-// the min, the ragged V edge is masked, w is not padded. Each block reads
-// the whole of b's tile for its query, so b is read Q times in all (4x the
-// bound's bytes at Q = 4): acceptable while the kernel is bound by
-// operations. A query wider than 128 support rows runs as one launch per
-// 128-row chunk on the same stream; every chunk after the first folds its
-// min into the output already written (min is exact in any order).
+// 2*BMAX threads, each owning an 8 (support rows) x 8 (vocabulary rows)
+// tile of partial dot products in registers (the product is
+// cdist_tile.cuh's, shared with K3). Masked rows drop out of the min, the
+// ragged V edge is masked, w is not padded. Each block reads the whole of
+// b's tile for its query, so b is read Q times in all (4x the bound's
+// bytes at Q = 4): acceptable while the kernel is bound by operations. A
+// query wider than 128 support rows runs as one launch per 128-row chunk
+// on the same stream; every chunk after the first folds its min into the
+// output already written (min is exact in any order).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cdist_tile.cuh"
+
 namespace {
 
-constexpr int kTileV = 128;   // vocabulary rows per block
-constexpr int kChunkW = 32;   // embedding coordinates per chunk
-constexpr int kStrideB = kTileV + 4;   // keeps float4 rows 16-byte aligned
+using cdist_tile::kTileV;
 
 template <int BMAX>
 __global__ void __launch_bounds__(2 * BMAX)
@@ -48,8 +45,7 @@ rwmd_min_cdist_kernel(const float* __restrict__ a,
                       int V, int accumulate) {
   constexpr int KG = BMAX / 8;          // support-row groups of 8
   constexpr int NT = KG * 16;           // 16 vocabulary groups of 8
-  __shared__ __align__(16) float aT[kChunkW * BMAX];    // [j][k]
-  __shared__ __align__(16) float bT[kChunkW * kStrideB];  // [j][v]
+  __shared__ __align__(16) cdist_tile::Staging<BMAX> st;
   __shared__ float a2s[BMAX], ms[BMAX];
 
   const int q = blockIdx.y;
@@ -58,55 +54,8 @@ rwmd_min_cdist_kernel(const float* __restrict__ a,
   const int vg = tid % 16, kg = tid / 16;
   const float* aq = a + (size_t)q * LDB * W;   // B of the query's LDB rows
 
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  float b2[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) b2[c] = 0.f;
-  float a2 = 0.f;
-
-  for (int j0 = 0; j0 < W; j0 += kChunkW) {
-    const int wc = min(kChunkW, W - j0);
-    __syncthreads();                    // previous chunk consumed
-    for (int i = tid; i < BMAX * kChunkW; i += NT) {
-      int k = i / kChunkW, j = i % kChunkW;
-      aT[j * BMAX + k] =
-          (k < B && j < wc) ? aq[(size_t)k * W + j0 + j] : 0.f;
-    }
-    for (int i = tid; i < kTileV * kChunkW; i += NT) {
-      int v = i / kChunkW, j = i % kChunkW;
-      bT[j * kStrideB + v] = (v0 + v < V && j < wc)
-                                 ? b[(size_t)(v0 + v) * W + j0 + j]
-                                 : 0.f;
-    }
-    __syncthreads();
-    if (tid < BMAX)
-      for (int j = 0; j < wc; ++j) {
-        const float x = aT[j * BMAX + tid];
-        a2 = fmaf(x, x, a2);
-      }
-    for (int jj = 0; jj < wc; ++jj) {
-      const float4 a0 = *reinterpret_cast<const float4*>(
-          aT + jj * BMAX + kg * 8);
-      const float4 a1 = *reinterpret_cast<const float4*>(
-          aT + jj * BMAX + kg * 8 + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(
-          bT + jj * kStrideB + vg * 8);
-      const float4 b1 = *reinterpret_cast<const float4*>(
-          bT + jj * kStrideB + vg * 8 + 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int c = 0; c < 8; ++c) b2[c] = fmaf(bv[c], bv[c], b2[c]);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-  }
+  float acc[8][8], b2[8], a2;
+  cdist_tile::product<BMAX>(aq, B, b, v0, W, V, st, acc, b2, a2);
   if (tid < BMAX) {
     a2s[tid] = a2;
     ms[tid] = tid < B ? mask[(size_t)q * LDB + tid] : 0.f;
@@ -114,7 +63,7 @@ rwmd_min_cdist_kernel(const float* __restrict__ a,
   __syncthreads();                      // also: every read of bT is done
 
   // min over this thread's 8 rows, then over the KG row groups
-  float* red = bT;                      // (KG, kTileV)
+  float* red = st.bT;                   // (KG, kTileV)
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     float best = INFINITY;

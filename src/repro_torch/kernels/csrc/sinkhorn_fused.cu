@@ -1,12 +1,16 @@
-// K1 for Hopper: the batched fused Sinkhorn solve, one shared-memory tile
-// per (query, document).
+// K1 and K4 for Hopper: the fused Sinkhorn solve, one tile per (query,
+// document).
 //
 // Replaces: src/repro/kernels/sddmm_spmm.py, sinkhorn_fused_all_batched
-// (pallas_call body _fused_batched_kernel -> _solve_block), reached from
-// repro.core.index.WmdEngine._solve_group through
-// repro.kernels.ops.sinkhorn_fused_all_batched. Fixed n_iter, fp32, linear
-// or log domain; the adaptive exit (tol/resmask) and bf16 operands are not
-// ported yet.
+// (K1; pallas_call body _fused_batched_kernel -> _solve_block), reached
+// from repro.core.index.WmdEngine._solve_group through
+// repro.kernels.ops.sinkhorn_fused_all_batched; and sinkhorn_fused_all
+// (K4; body _fused_kernel -> the same _solve_block), reached from
+// repro.core.wmd.one_to_many(impl="kernel") through
+// repro.kernels.ops.sinkhorn_wmd_kernel. K4 is K1 for one query: its entry
+// point, sinkhorn_fused_launch, launches the same kernels on an (N, 1)
+// grid. Fixed n_iter, fp32, linear or log domain; the adaptive exit
+// (tol/resmask) and bf16 operands are not ported yet.
 //
 // Per (query q, doc n), with G = g[q, :, n, :] (v_r x L):
 //   x0[k] = 1/(live rows) on rows with any G != 0, else 0
@@ -397,4 +401,16 @@ extern "C" int sinkhorn_fused_batched_launch(const float* g, const float* val,
                                   static_cast<cudaStream_t>(stream)>>>(
       g, val, r, wmd, iters, VR, N, L, n_iter, lam, log_domain, block_n);
   return (int)cudaGetLastError();
+}
+
+// K4: g (VR, N, L), val (N, L), r (VR,) -> wmd (N,), iters
+// (ceil(N / block_n),): K1 with Q = 1, through the same kernels.
+extern "C" int sinkhorn_fused_launch(const float* g, const float* val,
+                                     const float* r, float* wmd, int* iters,
+                                     int VR, int N, int L, int n_iter,
+                                     float lam, int log_domain, int block_n,
+                                     int variant, void* stream) {
+  return sinkhorn_fused_batched_launch(g, val, r, wmd, iters, 1, VR, N, L,
+                                       n_iter, lam, log_domain, block_n,
+                                       variant, stream);
 }

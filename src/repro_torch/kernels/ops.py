@@ -1,10 +1,11 @@
-"""Wrappers around the port's Hopper kernels.
+"""Wrappers around the port's Hopper kernels, and the single-query kernel
+path :func:`sinkhorn_wmd_kernel` built from them.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
 if the launch failed, and adds one to its ``launches`` counter for each
 kernel launch (``rwmd_min_cdist`` launches once per 128 support rows, the
-solver once per call). A tensor on the CPU goes to the plain version in
+others once per call). A tensor on the CPU goes to the plain version in
 :mod:`.ref` instead (and does not count); a CUDA tensor always launches
 the kernel — there is no fallback.
 """
@@ -87,6 +88,137 @@ def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor,
 rwmd_min_cdist.launches = 0
 
 
+def _refuse_unported(tol, resmask, gemm: str) -> None:
+    if tol is not None or resmask is not None:
+        raise NotImplementedError(
+            "the adaptive solve (tol/resmask) is not ported to the Hopper "
+            "kernel yet (ROADMAP queue 2, K1 and K4 options)")
+    if gemm != "fp32":
+        raise NotImplementedError(
+            f"gemm={gemm!r}: only fp32 operands are ported (ROADMAP queue "
+            "2, K1 and K4 options)")
+
+
+def cdist_exp(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
+              lam: float, k_only: bool = False, gemm: str = "fp32",
+              log_k: bool = False):
+    """Fused distance, kernel and scaled kernel (K3). a (v_r, w) query
+    word embeddings, b (V, w) vocabulary, r (v_r,) query weights ->
+    (M, K, K/r), each (v_r, V); ``k_only`` returns K alone and writes
+    nothing else. ``log_k`` makes K the unexponentiated ``-lam*M``.
+    ``gemm="bf16"`` is not ported yet and raises."""
+    _refuse_unported(None, None, gemm)
+    dev = a.device
+    _check("a", a, 2, torch.float32, dev)
+    _check("b", b, 2, torch.float32, dev)
+    _check("r", r, 1, torch.float32, dev)
+    v_r, w = a.shape
+    v = b.shape[0]
+    if b.shape[1] != w or r.shape != (v_r,):
+        raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, r {tuple(r.shape)}")
+    if dev.type == "cpu":
+        return ref.cdist_exp_ref(a, b, r, lam, k_only=k_only, log_k=log_k)
+    k = torch.empty((v_r, v), dtype=torch.float32, device=dev)
+    m = kr = None
+    if not k_only:
+        m, kr = torch.empty_like(k), torch.empty_like(k)
+    null = ctypes.c_void_p(None)
+    _raise_on(_lib().cdist_exp_launch(
+        _ptr(a), _ptr(b), _ptr(r), null if k_only else _ptr(m), _ptr(k),
+        null if k_only else _ptr(kr), v_r, w, v, ctypes.c_float(float(lam)),
+        int(log_k), _stream(dev)), "cdist_exp")
+    cdist_exp.launches += 1
+    return k if k_only else (m, k, kr)
+
+
+cdist_exp.launches = 0
+
+
+def sddmm_spmm_step(g: torch.Tensor, g_over_r: torch.Tensor,
+                    val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One fused SDDMM_SpMM Sinkhorn iteration (K5, the paper's Fig. 4
+    kernel): g and g_over_r (v_r, N, L), val (N, L), x (v_r, N) -> x'
+    (v_r, N), with u = 1/x and w = val/t both guarded (0 where the
+    denominator is not positive)."""
+    dev = g.device
+    for name, t, nd in (("g", g, 3), ("g_over_r", g_over_r, 3),
+                        ("val", val, 2), ("x", x, 2)):
+        _check(name, t, nd, torch.float32, dev)
+    v_r, n, length = g.shape
+    if (g_over_r.shape != g.shape or val.shape != (n, length)
+            or x.shape != (v_r, n)):
+        raise ValueError(f"shape mismatch: g {tuple(g.shape)}, g_over_r "
+                         f"{tuple(g_over_r.shape)}, val {tuple(val.shape)}, "
+                         f"x {tuple(x.shape)}")
+    if dev.type == "cpu":
+        return ref.sddmm_spmm_step_ref(g, g_over_r, val, x)
+    lib = _lib()
+    smem = lib.sddmm_spmm_step_smem_bytes(v_r, length)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"sddmm_spmm_step keeps u and w of four docs in "
+                         f"shared memory: v_r={v_r}, L={length} needs {smem} "
+                         f"B, the limit is {MAX_SMEM_BYTES}")
+    out = torch.empty((v_r, n), dtype=torch.float32, device=dev)
+    _raise_on(lib.sddmm_spmm_step_launch(
+        _ptr(g), _ptr(g_over_r), _ptr(val), _ptr(x), _ptr(out), v_r, n,
+        length, _stream(dev)), "sddmm_spmm_step")
+    sddmm_spmm_step.launches += 1
+    return out
+
+
+sddmm_spmm_step.launches = 0
+
+
+def _solver_smem(lib, v_r: int, length: int, variant: int, name: str) -> None:
+    smem = lib.sinkhorn_fused_smem_bytes(v_r, length, variant)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name} keeps one (v_r, L) tile in shared memory: v_r={v_r}, "
+            f"L={length} needs {smem} B, the limit is {MAX_SMEM_BYTES}")
+
+
+def sinkhorn_fused_all(g: torch.Tensor, val: torch.Tensor, r: torch.Tensor,
+                       lam: float, n_iter: int, block_n: int = 128,
+                       tol=None, gemm: str = "fp32",
+                       log_domain: bool = False, resmask=None,
+                       with_iters: bool = False):
+    """Fused Sinkhorn solve for one query (K4, K1 with Q = 1). g (v_r, N,
+    L) gathered K (log K under ``log_domain``; pad rows 0, or -inf under
+    ``log_domain``), val (N, L), r (v_r,) with pad rows 1 -> wmd (N,) and,
+    with ``with_iters``, iters (ceil(N / block_n),). ``block_n`` only
+    shapes ``iters``. ``tol``/``resmask`` and ``gemm="bf16"`` are not
+    ported yet and raise."""
+    _refuse_unported(tol, resmask, gemm)
+    dev = g.device
+    _check("g", g, 3, torch.float32, dev)
+    _check("val", val, 2, torch.float32, dev)
+    _check("r", r, 1, torch.float32, dev)
+    v_r, n, length = g.shape
+    if val.shape != (n, length) or r.shape != (v_r,):
+        raise ValueError(f"shape mismatch: g {tuple(g.shape)}, val "
+                         f"{tuple(val.shape)}, r {tuple(r.shape)}")
+    if block_n < 1:
+        raise ValueError(f"block_n must be positive, got {block_n}")
+    if dev.type == "cpu":
+        wmd, iters = ref.sinkhorn_fused_all_ref(
+            g, val, r, lam, n_iter, log_domain=log_domain, block_n=block_n)
+        return (wmd, iters) if with_iters else wmd
+    lib = _lib()
+    _solver_smem(lib, v_r, length, _TILES["auto"], "sinkhorn_fused_all")
+    wmd = torch.empty((n,), dtype=torch.float32, device=dev)
+    iters = torch.empty((-(-n // block_n),), dtype=torch.int32, device=dev)
+    _raise_on(lib.sinkhorn_fused_launch(
+        _ptr(g), _ptr(val), _ptr(r), _ptr(wmd), _ptr(iters), v_r, n, length,
+        int(n_iter), ctypes.c_float(float(lam)), int(log_domain),
+        int(block_n), _TILES["auto"], _stream(dev)), "sinkhorn_fused_all")
+    sinkhorn_fused_all.launches += 1
+    return (wmd, iters) if with_iters else wmd
+
+
+sinkhorn_fused_all.launches = 0
+
+
 def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
                                r: torch.Tensor, lam: float, n_iter: int,
                                block_n: int = 128, tol=None,
@@ -109,14 +241,7 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
     ``"auto"``, and the other two let tests and ``chip_smoke.py`` hold and
     time the variants against each other at one shape.
     """
-    if tol is not None or resmask is not None:
-        raise NotImplementedError(
-            "the adaptive solve (tol/resmask) is not ported to the Hopper "
-            "kernel yet (ROADMAP queue 2, K1 options)")
-    if gemm != "fp32":
-        raise NotImplementedError(
-            f"gemm={gemm!r}: only fp32 operands are ported (ROADMAP queue "
-            "2, K1 options)")
+    _refuse_unported(tol, resmask, gemm)
     dev = g.device
     _check("g", g, 4, torch.float32, dev)
     _check("val", val, 2, torch.float32, dev)
@@ -138,12 +263,7 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
             g, val, r, lam, n_iter, log_domain=log_domain, block_n=block_n)
         return (wmd, iters) if with_iters else wmd
     lib = _lib()
-    smem = lib.sinkhorn_fused_smem_bytes(v_r, length, _TILES[tile])
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"sinkhorn_fused_all_batched keeps one (v_r, L) tile in shared "
-            f"memory: v_r={v_r}, L={length} needs {smem} B, the limit is "
-            f"{MAX_SMEM_BYTES}")
+    _solver_smem(lib, v_r, length, _TILES[tile], "sinkhorn_fused_all_batched")
     wmd = torch.empty((q, n), dtype=torch.float32, device=dev)
     iters = torch.empty((q, -(-n // block_n)), dtype=torch.int32,
                         device=dev)
@@ -160,12 +280,38 @@ sinkhorn_fused_all_batched.launches = 0
 _TILES = {"auto": 0, "registers": 1, "shared": 2}
 
 
+def sinkhorn_wmd_kernel(r: torch.Tensor, vecs_sel: torch.Tensor,
+                        vecs: torch.Tensor, docs, lam: float, n_iter: int,
+                        tol=None, precision=None) -> torch.Tensor:
+    """The single-query kernel path: K3 (``cdist_exp``, K only) ->
+    ``torch.index_select`` gather of each doc's K columns -> K4
+    (``sinkhorn_fused_all``) -> wmd (N,). ``docs`` holds (N, L) ``idx`` and
+    ``val`` tensors on ``vecs``' device. GM is rebuilt from G inside K4,
+    so only one (v_r, N, L) array is materialized.
+
+    ``precision`` (a ``SolvePrecision`` or its spelling) plumbs the log
+    domain through both kernels: K3 emits unexponentiated log K, so no
+    column can underflow at any ``lam``. ``tol`` and bf16 are not ported
+    yet and raise."""
+    from repro_torch.core.sinkhorn_sparse import SolvePrecision, gather_columns
+    precision = SolvePrecision.parse(precision)
+    k = cdist_exp(vecs_sel, vecs, r, lam, k_only=True, gemm=precision.gemm,
+                  log_k=precision.log_domain)
+    g = gather_columns(k, docs.idx)
+    return sinkhorn_fused_all(g, docs.val, r, lam, n_iter, tol=tol,
+                              gemm=precision.gemm,
+                              log_domain=precision.log_domain)
+
+
+_COUNTED = (rwmd_min_cdist, sinkhorn_fused_all_batched, cdist_exp,
+            sinkhorn_fused_all, sddmm_spmm_step)
+
+
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
-    rwmd_min_cdist.launches = 0
-    sinkhorn_fused_all_batched.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launches() -> dict:
-    return {"rwmd_min_cdist": rwmd_min_cdist.launches,
-            "sinkhorn_fused_all_batched": sinkhorn_fused_all_batched.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -34,7 +34,11 @@ def _env():
 
 def test_port_imports_no_jax_and_no_reference_package():
     mods = list(_port_modules())
-    assert "repro_torch.kernels.ops" in mods and len(mods) >= 15
+    for m in ("repro_torch.kernels.ops", "repro_torch.core.wmd",
+              "repro_torch.core.exact_ot", "repro_torch.core.sinkhorn",
+              "repro_torch.core.sinkhorn_sparse"):
+        assert m in mods
+    assert len(mods) >= 17
     script = "\n".join(
         ["import importlib, sys",
          f"sys.path.insert(0, {str(ROOT)!r})",
@@ -72,6 +76,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         build_index(c.docs, c.vecs, device="cuda")
     index = build_index(c.docs, c.vecs, device="cpu")
     assert index.device == torch.device("cpu")
+    from repro_torch.core import one_to_many
+    with pytest.raises(RuntimeError, match="CUDA"):
+        one_to_many(c.queries[0], c.docs, c.vecs, 1.0, 3, impl="kernel")
+    out = one_to_many(c.queries[0], c.docs, c.vecs, 1.0, 3, impl="kernel",
+                      device="cpu")
+    assert out.device == torch.device("cpu")
 
 
 def test_serve_cli_runs_on_cpu():

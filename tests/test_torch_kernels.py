@@ -15,6 +15,9 @@ from repro_torch.kernels import ops, ref
 # as tests/test_kernels.py holds the reference kernels to their oracles
 K1_TOL = dict(rtol=5e-5, atol=5e-5)
 K2_TOL = dict(rtol=1e-5, atol=1e-5)
+K3_TOL = dict(rtol=2e-3, atol=5e-3)
+K4_TOL = K1_TOL
+K5_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _k2_inputs(rng, q=3, b=10, w=16, v=200):
@@ -154,8 +157,15 @@ def test_cpu_tensors_leave_launch_counts_at_zero(rng):
     g, val, r, lam = _k1_inputs(rng, False, n=16)
     ops.sinkhorn_fused_all_batched(*map(torch.from_numpy, (g, val, r)),
                                    lam, 2)
+    gt, vt, rt = map(torch.from_numpy, (g[0], val, r[0]))
+    ops.cdist_exp(torch.from_numpy(a[0]), torch.from_numpy(b),
+                  torch.ones(a.shape[1]), lam)
+    ops.sinkhorn_fused_all(gt, vt, rt, lam, 2)
+    ops.sddmm_spmm_step(gt, gt, vt, torch.ones(gt.shape[:2]))
     assert ops.launches() == {"rwmd_min_cdist": 0,
-                              "sinkhorn_fused_all_batched": 0}
+                              "sinkhorn_fused_all_batched": 0,
+                              "cdist_exp": 0, "sinkhorn_fused_all": 0,
+                              "sddmm_spmm_step": 0}
 
 
 @pytest.mark.parametrize("kwargs", [dict(tol=1e-3), dict(resmask=True),
@@ -190,3 +200,169 @@ def test_wrappers_validate_inputs(rng):
     with pytest.raises(ValueError, match="at most 64 x 64"):
         ops.sinkhorn_fused_all_batched(wide, vt, torch.ones((1, 65)), lam, 2,
                                        tile="registers")
+
+
+# ----------------------------------------------------------- K3 cdist_exp
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.array(x)) for x in arrays)
+
+
+@pytest.mark.parametrize("v_r,v,w", [(8, 256, 128), (19, 512, 300),
+                                     (43, 384, 64), (5, 128, 32),
+                                     (64, 1024, 256)])
+@pytest.mark.parametrize("mode", ["full", "k_only", "log_k"])
+def test_cdist_exp_plain_matches_pallas(rng, v_r, v, w, mode):
+    """tests/test_kernels.py's shapes and tolerances, in the three modes
+    (lam=5; log_k emits -lam*M, so its tolerance scales by lam)."""
+    a = rng.standard_normal((v_r, w)).astype(np.float32)
+    b = rng.standard_normal((v, w)).astype(np.float32)
+    r = rng.uniform(0.01, 1.0, v_r).astype(np.float32)
+    lam, k_only, log_k = 5.0, mode != "full", mode == "log_k"
+    got = ops.cdist_exp(*_t(a, b, r), lam, k_only=k_only, log_k=log_k)
+    want = ref_ops.cdist_exp(jnp.asarray(a), jnp.asarray(b), jnp.asarray(r),
+                             lam, interpret=True, k_only=k_only, log_k=log_k)
+    if k_only:
+        tol = dict(rtol=2e-3, atol=lam * 5e-3) if log_k else K3_TOL
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+        return
+    for g, wnt, tol in zip(got, want, (K3_TOL, K3_TOL,
+                                       dict(rtol=2e-3, atol=5e-2))):
+        assert g.shape == (v_r, v)
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **tol)
+
+
+def test_cdist_exp_k_only_matches_full(rng):
+    a, b = rng.standard_normal((16, 128)), rng.standard_normal((256, 128))
+    a, b, r = _t(a.astype(np.float32), b.astype(np.float32),
+                 rng.uniform(0.1, 1.0, 16).astype(np.float32))
+    _, k_full, _ = ops.cdist_exp(a, b, r, 4.0)
+    assert torch.equal(ops.cdist_exp(a, b, r, 4.0, k_only=True), k_full)
+
+
+# ------------------------------------------- K4 sinkhorn_fused_all
+def _k4_inputs(rng, v_r, n, length, log_domain, lam=7.0):
+    g = rng.uniform(0.02, 1.0, (v_r, n, length)).astype(np.float32)
+    if log_domain:
+        g = np.log(g)                        # log K, as K3's log_k gives
+    val = np.abs(rng.standard_normal((n, length)))
+    val = np.where(val > 0.5, val, 0.0)
+    val[:, 0] = 1.0                          # every doc has >= 1 word
+    r = rng.uniform(0.1, 1.0, v_r).astype(np.float32)
+    return g, val.astype(np.float32), r, lam
+
+
+@pytest.mark.parametrize("log_domain", [False, True])
+@pytest.mark.parametrize("v_r,n,length,n_iter,block_n", [
+    (19, 128, 40, 15, 64), (8, 64, 16, 5, 32), (43, 256, 64, 25, 128)])
+def test_sinkhorn_fused_all_plain_matches_pallas(rng, log_domain, v_r, n,
+                                                 length, n_iter, block_n):
+    g, val, r, lam = _k4_inputs(rng, v_r, n, length, log_domain)
+    got, iters = ops.sinkhorn_fused_all(*_t(g, val, r), lam, n_iter,
+                                        block_n=block_n,
+                                        log_domain=log_domain,
+                                        with_iters=True)
+    want, want_iters = ref_ops.sinkhorn_fused_all(
+        jnp.asarray(g), jnp.asarray(val), jnp.asarray(r), lam, n_iter,
+        block_n=block_n, log_domain=log_domain, interpret=True,
+        with_iters=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **K4_TOL)
+    np.testing.assert_array_equal(iters.numpy(), np.asarray(want_iters))
+
+
+@pytest.mark.parametrize("log_domain", [False, True])
+def test_sinkhorn_fused_all_padded_rows_and_docs_are_inert(rng,
+                                                           log_domain):
+    """The reference's test_fused_all_handles_padded_rows, plus all-pad
+    docs (val == 0), against the Pallas kernel on the same padded input."""
+    v_r, n, length = 10, 64, 16
+    g, val, r, lam = _k4_inputs(rng, v_r, n, length, log_domain, lam=5.0)
+    val[-8:] = 0.0                                    # all-pad docs
+    base = ops.sinkhorn_fused_all(*_t(g, val, r), lam, 10,
+                                  log_domain=log_domain)
+    pad = np.full((6, n, length), -np.inf if log_domain else 0.0,
+                  np.float32)
+    g2 = np.concatenate([g, pad])
+    r2 = np.concatenate([r, np.ones(6, np.float32)])
+    padded = ops.sinkhorn_fused_all(*_t(g2, val, r2), lam, 10,
+                                    log_domain=log_domain)
+    np.testing.assert_allclose(padded.numpy(), base.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert np.all(padded.numpy()[-8:] == 0.0)
+    want = ref_ops.sinkhorn_fused_all(
+        jnp.asarray(g2), jnp.asarray(val), jnp.asarray(r2), lam, 10,
+        log_domain=log_domain, interpret=True)
+    np.testing.assert_allclose(padded.numpy(), np.asarray(want), **K4_TOL)
+
+
+# ------------------------------------------------- K5 sddmm_spmm_step
+@pytest.mark.parametrize("v_r,n,length", [(8, 128, 128), (19, 64, 40),
+                                          (32, 256, 64), (3, 32, 8)])
+def test_sddmm_spmm_step_plain_matches_pallas(rng, v_r, n, length):
+    g = np.abs(rng.standard_normal((v_r, n, length))).astype(np.float32)
+    g += 0.1
+    gor = g * 1.7
+    val = np.abs(rng.standard_normal((n, length))).astype(np.float32)
+    val = np.where(val > 0.8, val, 0.0).astype(np.float32)
+    x = (np.abs(rng.standard_normal((v_r, n))) + 0.5).astype(np.float32)
+    x[0, :4] = 0.0                                    # guarded 1/x
+    got = ops.sddmm_spmm_step(*_t(g, gor, val, x))
+    want = ref_ops.sddmm_spmm_step(*map(jnp.asarray, (g, gor, val, x)),
+                                   block_n=32, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **K5_TOL)
+
+
+# ------------------------------------------------ the kernel path (K3 -> K4)
+@pytest.mark.parametrize("precision,lam", [("fp32", 2.0), ("log", 10.0)])
+def test_sinkhorn_wmd_kernel_matches_reference(small_corpus, precision,
+                                               lam):
+    """At lam=10 the linear path underflows on this corpus; the log
+    domain runs. P1 (ROADMAP queue 3) bounds the gap: ~2e-5 measured."""
+    from repro.core.sinkhorn import select_support as ref_select
+    from repro_torch.core.sparse import PaddedDocs
+    r, sel, _ = ref_select(small_corpus.queries[0], small_corpus.vecs)
+    docs = PaddedDocs(*_t(small_corpus.docs.idx, small_corpus.docs.val))
+    got = ops.sinkhorn_wmd_kernel(*_t(r, sel, small_corpus.vecs),
+                                  PaddedDocs(docs.idx.long(), docs.val),
+                                  lam, 15, precision=precision)
+    want = ref_ops.sinkhorn_wmd_kernel(r, sel, jnp.asarray(small_corpus.vecs),
+                                       small_corpus.docs, lam, 15,
+                                       interpret=True, precision=precision)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("call", ["cdist_exp", "sinkhorn_fused_all",
+                                  "sinkhorn_wmd_kernel"])
+def test_unported_one_query_options_raise(rng, call):
+    g, val, r, lam = _k4_inputs(rng, 4, 8, 3, False)
+    gt, vt, rt = _t(g, val, r)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        if call == "cdist_exp":
+            ops.cdist_exp(rt[:, None].contiguous(), rt[:, None].contiguous(),
+                          rt, lam, gemm="bf16")
+        elif call == "sinkhorn_fused_all":
+            ops.sinkhorn_fused_all(gt, vt, rt, lam, 2, tol=1e-3)
+        else:
+            from repro_torch.core.sparse import PaddedDocs
+            ops.sinkhorn_wmd_kernel(rt, rt[:, None].contiguous(),
+                                    rt[:, None].contiguous(),
+                                    PaddedDocs(torch.zeros((2, 1)).long(),
+                                               torch.ones((2, 1))),
+                                    lam, 2, precision="bf16")
+
+
+def test_one_query_wrappers_validate_inputs(rng):
+    g, val, r, lam = map(np.asarray, _k4_inputs(rng, 4, 8, 3, False))
+    gt, vt, rt = _t(g, val, r)
+    a = gt[:, 0].contiguous()                          # (4, 3)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.cdist_exp(a, gt[0].T.contiguous(), rt, lam)   # w differs
+    with pytest.raises(TypeError):
+        ops.cdist_exp(a.double(), a.double(), rt, lam)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.sinkhorn_fused_all(gt, vt[:, :2].contiguous(), rt, lam, 2)
+    with pytest.raises(ValueError, match="3-D"):
+        ops.sinkhorn_fused_all(gt[None], vt, rt, lam, 2)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ops.sddmm_spmm_step(gt, gt, vt, torch.ones((4, 7)))
