@@ -14,7 +14,11 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
   (``impl="kernel"`` runs K3 and K4), checked against ``impl="dense"``,
   and ``many_to_many`` against the per-query loop;
 - the fused step ``ops.sddmm_spmm_step`` (K5) looped as a solve,
-  checked against the sparse solver's iteration.
+  checked against the sparse solver's iteration;
+- on the reference benchmark's near-duplicate corpus at the same widths
+  (4992 documents, 4 queries), the IVF cascade ``search(prune="ivf+...",
+  nprobe=...)`` (K2s and K1) and ``mode="refine"``, checked against the
+  exhaustive top-k, and ``append_docs`` checked against a rebuild.
 
 Each path runs once with the launch counts set to 0 just before it and
 read just after. Prints one JSON object per phase; the line before the
@@ -39,8 +43,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.paper_wmd import CONFIG  # noqa: E402
 from repro_torch.core.index import (WmdEngine, _compute_kq,  # noqa: E402
-                                    _gather_g, build_index)
-from repro_torch.core import many_to_many, one_to_many  # noqa: E402
+                                    _gather_g, build_index,
+                                    default_n_clusters)
+from repro_torch.core import (append_docs, many_to_many,  # noqa: E402
+                              one_to_many)
+from repro_torch.core.prune import CascadePruner  # noqa: E402
 from repro_torch.core.sinkhorn import (LamUnderflowError,  # noqa: E402
                                        select_support)
 from repro_torch.core.sinkhorn_sparse import (_iterate,  # noqa: E402
@@ -48,7 +55,8 @@ from repro_torch.core.sinkhorn_sparse import (_iterate,  # noqa: E402
                                               precompute_sparse,
                                               sinkhorn_wmd_sparse)
 from repro_torch.core.sparse import PaddedDocs  # noqa: E402
-from repro_torch.data.corpus import make_corpus, paper_corpus  # noqa: E402
+from repro_torch.data.corpus import (dedup_corpus, make_corpus,  # noqa: E402
+                                     paper_corpus)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 FFMA
@@ -100,6 +108,17 @@ E2E_REPS = 15
 # spin-kernel cycles that hold the stream while time_ms enqueues its
 # launches (~25 ms at the H100's 1.98 GHz boost clock)
 HOLD_CYCLES = 50_000_000
+# the cascade phases: the reference benchmark's near-duplicate corpus at
+# the paper's widths (312 base documents x 16 variants = 4992 documents of
+# 19-43 words, 4 queries), top-10; the append phase builds on the first
+# APPEND_BASE documents and appends the rest
+DEDUP_DOCS, TOP_K, APPEND_BASE = 5000, 10, 4480
+CASCADE_SPECS = ("ivf", "ivf+wcd", "ivf+rwmd", "ivf+wcd+rwmd",
+                 "ivf+pivot+wcd+rwmd", "ivf+pivot+rwmd")
+NPROBES = (1, 4, 16, None)
+REFINE_FACTORS = (1, 2, 4)
+# the refine phases rank by the pivot cascade, as the serve CLI's example
+REFINE_PRUNE = "ivf+pivot+wcd+rwmd"
 
 
 def emit(obj) -> None:
@@ -242,6 +261,36 @@ def main_path_chunk(corpus, index):
     return eng._prep_chunk([qs[qi] for qi in chunk], width)
 
 
+def hold_min_cdist(name, got, want, a, mask, bsel) -> dict:
+    """K2's (and K2s's) output against its plain version: the same +inf
+    rows and pattern, and each finite entry within the squared-distance
+    tolerance of |a|^2max + |b_v|^2 (``bsel``: the b rows of the output's
+    columns). Raises on a miss; returns the largest errors."""
+    dead = mask.sum(dim=1) == 0
+    if not torch.isinf(got[dead]).all():
+        raise AssertionError(f"{name}: all-masked rows must come out +inf")
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        raise AssertionError(f"{name}: inf/NaN pattern differs from the "
+                             "plain version")
+    fin = torch.isfinite(want)
+    a2max = torch.where(mask > 0, (a * a).sum(-1),
+                        torch.zeros_like(mask)).max(dim=1).values
+    scale = a2max[:, None] + (bsel * bsel).sum(-1)[None, :]
+    err_sq = (got * got - want * want).abs()
+    bad = fin & (err_sq > K2_SQ_RTOL * scale)
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} entries outside the squared-distance "
+            f"tolerance; max |d^2 err| / scale "
+            f"{float((err_sq / scale)[fin].max())}")
+    err = (got[fin] - want[fin]).abs()
+    return {"max_abs_err": float(err.max()),
+            "max_rel_err": float((err / want[fin].abs().clamp(
+                min=1e-30)).max()),
+            "max_sq_err_over_scale": float((err_sq / scale)[fin].max()),
+            "sq_rtol": K2_SQ_RTOL, "masked_queries": int(dead.sum())}
+
+
 def phase_k2(index, sup, mask, label: str) -> dict:
     a = index.vecs[sup]                                  # (Q, B, 300)
     if label == "paper_max":
@@ -251,26 +300,7 @@ def phase_k2(index, sup, mask, label: str) -> dict:
     got = ops.rwmd_min_cdist(a, mask, b)
     torch.cuda.synchronize()
     want = ref.rwmd_min_cdist_ref(a, mask, b)
-    dead = mask.sum(dim=1) == 0
-    if not torch.isinf(got[dead]).all():
-        raise AssertionError("K2: all-masked rows must come out +inf")
-    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
-        raise AssertionError("K2: inf/NaN pattern differs from the plain "
-                             "version")
-    fin = torch.isfinite(want)
-    a2max = torch.where(mask > 0, (a * a).sum(-1),
-                        torch.zeros_like(mask)).max(dim=1).values
-    scale = a2max[:, None] + (b * b).sum(-1)[None, :]
-    err_sq = (got * got - want * want).abs()
-    bad = fin & (err_sq > K2_SQ_RTOL * scale)
-    if bad.any():
-        raise AssertionError(
-            f"K2: {int(bad.sum())} entries outside the squared-distance "
-            f"tolerance; max |d^2 err| / scale "
-            f"{float((err_sq / scale)[fin].max())}")
-    err = (got[fin] - want[fin]).abs()
-    abs_err = float(err.max())
-    rel_err = float((err / want[fin].abs().clamp(min=1e-30)).max())
+    errs = hold_min_cdist("K2", got, want, a, mask, b)
     q, bq, w = a.shape
     v = b.shape[0]
     # the bound counts what this run's data needs: the live support rows
@@ -282,10 +312,8 @@ def phase_k2(index, sup, mask, label: str) -> dict:
     rec = {"phase": "k2", "name": "rwmd_min_cdist", "inputs": label,
            "shape": {"Q": q, "B": bq, "w": w, "V": v,
                      "live_rows": int(live_rows),
-                     "masked_queries": int(dead.sum())},
-           "max_abs_err": abs_err, "max_rel_err": rel_err,
-           "max_sq_err_over_scale": float((err_sq / scale)[fin].max()),
-           "sq_rtol": K2_SQ_RTOL,
+                     "masked_queries": errs.pop("masked_queries")},
+           **errs,
            "ms": time_ms(lambda: ops.rwmd_min_cdist(a, mask, b)),
            "launch_ms": launch_ms(lambda: ops.rwmd_min_cdist(a, mask, b)),
            "plain_ms": time_ms(lambda: ref.rwmd_min_cdist_ref(a, mask, b),
@@ -796,7 +824,11 @@ def profile_record(phase: str, wall_us, dev_ev, host, busy_us, reps,
                 "device_time": "not measured (no device events traced)"}
     top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:12]
     top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]
+    api = {e.key: e.count / reps for e in host
+           if e.key in ("cudaStreamSynchronize", "cudaMemcpyAsync",
+                        "cudaLaunchKernel")}
     return {"phase": phase, **extra, "calls": reps,
+            "runtime_calls_per_call": api,
             "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "kernels": [{"name": e.key[:80], "count": e.count / reps,
@@ -821,11 +853,243 @@ def phase_profile_one_to_many(corpus, dev, reps: int = 5) -> None:
                         lam=1.0))
 
 
+class CapturingCascade(CascadePruner):
+    """The cascade as a user would pass it to ``search``, recording the
+    inputs of each of its K2s calls: the (sup, mask) of the staging and
+    the padded candidate vocabulary of the RWMD stage."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.calls = []
+
+    def _rwmd_prep(self, index, sup, mask, ids_pad, n_real):
+        staged = self._rwmd_vocab(index, ids_pad, n_real)
+        if staged is not None:
+            self.calls.append((sup, mask, torch.as_tensor(
+                staged[0], device=index.device)))
+        return super()._rwmd_prep(index, sup, mask, ids_pad, n_real)
+
+
+def phase_k2s(index, sup, mask, vids, label: str) -> dict:
+    """K2s against its plain version on one (sup, mask, vocab_ids)."""
+    a = index.vecs[sup]
+    b = index.vecs
+
+    def kernel():
+        return ops.rwmd_min_cdist(a, mask, b, vocab_ids=vids)
+
+    def plain():
+        return ref.rwmd_min_cdist_subset_ref(a, mask, b, vids)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    errs = hold_min_cdist("K2s", got, plain(), a, mask, b[vids])
+    q, bq, w = a.shape
+    vc = vids.numel()
+    n_rows = int(torch.unique(vids).numel())
+    live_rows = float(mask.sum())
+    # what this run's data needs: the live support rows of a, each distinct
+    # vocabulary row once (the padded tail repeats vids[0]), the ids, and
+    # the (Q, Vc) output; the product over the distinct rows
+    n_bytes = (4.0 * (live_rows * w + mask.numel() + n_rows * w + q * vc)
+               + 8.0 * vc)
+    n_flops = 2.0 * live_rows * w * n_rows + 2.0 * (n_rows + live_rows) * w
+    bms, by = bound_ms(n_bytes, n_flops)
+    rec = {"phase": "k2s", "name": "rwmd_min_cdist_subset", "inputs": label,
+           "shape": {"Q": q, "B": bq, "w": w, "V": b.shape[0], "Vc": vc,
+                     "distinct_rows": n_rows, "live_rows": int(live_rows),
+                     "masked_queries": errs.pop("masked_queries")},
+           **errs, "ms": time_ms(kernel), "launch_ms": launch_ms(kernel),
+           "plain_ms": time_ms(plain, reps=5, warmup=1),
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "library": "none: no single PyTorch call computes it "
+                      "(index_select of the rows, torch.cdist and a masked "
+                      "min are three)"}
+    emit(rec)
+    return rec
+
+
+def build_dedup(dev):
+    """The dedup corpus and its index with n_clusters="auto": (corpus,
+    index, build seconds)."""
+    corpus = dedup_corpus(DEDUP_DOCS, vocab=CONFIG.vocab_size,
+                          embed_dim=CONFIG.embed_dim, seed=0)
+    t0 = time.perf_counter()
+    index = build_index(corpus.docs, corpus.vecs, device=dev,
+                        n_clusters="auto")
+    torch.cuda.synchronize()
+    return corpus, index, time.perf_counter() - t0
+
+
+def recall(res, ex) -> float:
+    return float(np.mean([len(set(res.indices[qi]) & set(ex.indices[qi]))
+                          / ex.indices.shape[1]
+                          for qi in range(ex.indices.shape[0])]))
+
+
+def hold_topk(res, want, name: str) -> None:
+    """The same top-k ids, and distances at E2E_RTOL."""
+    if not np.array_equal(res.indices, want.indices):
+        raise AssertionError(f"{name}: top-{TOP_K} ids differ")
+    np.testing.assert_allclose(res.distances, want.distances, rtol=E2E_RTOL,
+                               atol=0, err_msg=name)
+
+
+def monotone(values: list, name: str) -> None:
+    if any(b < a - 1e-12 for a, b in zip(values, values[1:])):
+        raise AssertionError(f"{name}: recall not monotone: {values}")
+
+
+def phase_cascade(corpus, index, build_s: float) -> dict:
+    """The IVF cascade and refine search on the dedup corpus: exactness
+    gates at precision="log" (lam=10) and fp32 (lam=1), solved counts,
+    recall over nprobe and refine_factor, the launches of one
+    "ivf+wcd+rwmd" search, and the wall times of the log searches."""
+    t0 = time.perf_counter()
+    qs = list(corpus.queries)
+    n = index.n_docs
+    rec = {"phase": "cascade", "n_docs": n, "vocab": index.vocab_size,
+           "embed_dim": index.embed_dim, "queries": len(qs), "k": TOP_K,
+           "n_iter": CONFIG.n_iter, "n_clusters_auto":
+               index.clusters.n_clusters,
+           "default_n_clusters": default_n_clusters(n),
+           "build_seconds": build_s}
+    cover = -(-n // TOP_K)
+    for precision, lam in (("log", CONFIG.lam), ("fp32", 1.0)):
+        eng = WmdEngine(index, lam=lam, n_iter=CONFIG.n_iter,
+                        precision=precision)
+        ex = eng.search(qs, TOP_K, prune=None)
+        if not np.isfinite(ex.distances).all():
+            raise AssertionError(f"{precision}: non-finite distances")
+        out = {"lam": lam, "solved": {}}
+        for spec in CASCADE_SPECS + ("rwmd",):
+            res = eng.search(qs, TOP_K, prune=spec)
+            hold_topk(res, ex, f"{precision} {spec} nprobe=None")
+            out["solved"][spec] = res.solved.tolist()
+        exact = eng.search(qs, TOP_K, prune=REFINE_PRUNE)
+        hold_topk(eng.search(qs, TOP_K, prune=REFINE_PRUNE, mode="refine",
+                             refine_factor=cover), exact,
+                  f"{precision} refine at the covering factor {cover}")
+        out["recall_by_nprobe"] = {}
+        for nprobe in NPROBES:
+            res = eng.search(qs, TOP_K, prune="ivf+wcd+rwmd", nprobe=nprobe)
+            out["recall_by_nprobe"][str(nprobe or "all")] = {
+                "recall": recall(res, ex), "solved": res.solved.tolist()}
+        vals = [v["recall"] for v in out["recall_by_nprobe"].values()]
+        monotone(vals, f"{precision} nprobe")
+        if vals[-1] != 1.0:
+            raise AssertionError(f"{precision}: recall {vals[-1]} at "
+                                 "nprobe=all")
+        out["recall_by_refine_factor"] = {}
+        for rf in REFINE_FACTORS + (cover,):
+            res = eng.search(qs, TOP_K, prune=REFINE_PRUNE, mode="refine",
+                             refine_factor=rf)
+            out["recall_by_refine_factor"][str(rf)] = {
+                "recall": recall(res, ex), "solved": res.solved.tolist()}
+        monotone([v["recall"] for v in
+                  out["recall_by_refine_factor"].values()],
+                 f"{precision} refine_factor")
+        rec[precision] = out
+        if precision == "log":
+            torch.cuda.synchronize()
+            ops.reset_launches()      # the path: one "ivf+wcd+rwmd" search
+            eng.search(qs, TOP_K, prune="ivf+wcd+rwmd")
+            torch.cuda.synchronize()
+            rec["launches_per_search"] = ops.launches()
+            for name in ("rwmd_min_cdist_subset",
+                         "sinkhorn_fused_all_batched"):
+                if rec["launches_per_search"][name] <= 0:
+                    raise AssertionError(f"{name} was not launched by the "
+                                         "cascade search")
+            timings = {}
+            for key, kw in (
+                    ("exhaustive", dict(prune=None)),
+                    ("rwmd", dict(prune="rwmd")),
+                    ("ivf+wcd+rwmd", dict(prune="ivf+wcd+rwmd")),
+                    ("ivf+wcd+rwmd_nprobe4", dict(prune="ivf+wcd+rwmd",
+                                                  nprobe=4)),
+                    ("ivf+pivot+wcd+rwmd", dict(prune="ivf+pivot+wcd+rwmd")),
+                    ("refine_4", dict(prune=REFINE_PRUNE, mode="refine",
+                                      refine_factor=4))):
+                eng.search(qs, TOP_K, **kw)                # warm-up
+                timings[key] = wall_ms(lambda kw=kw: eng.search(qs, TOP_K,
+                                                                **kw))
+            rec["wall_ms_log"] = timings
+            rec["median_ms_log"] = {key: v["median"]
+                                    for key, v in timings.items()}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
+def phase_k2s_from_search(index, corpus) -> dict:
+    """K2s at the shapes the cascade gives it: the inputs of the widest
+    RWMD stage of a real log-domain "ivf+wcd+rwmd" search."""
+    t0 = time.perf_counter()
+    eng = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
+                    precision="log")
+    casc = CapturingCascade(stages=("wcd", "rwmd"))
+    eng.search(list(corpus.queries), TOP_K, prune=casc)
+    if not casc.calls:
+        raise AssertionError("the cascade search made no K2s call")
+    sup, mask, vids = max(casc.calls, key=lambda c: c[2].numel())
+    rec = phase_k2s(index, sup, mask, vids, "cascade_search")
+    rec["calls_captured"] = len(casc.calls)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def phase_profile_cascade(corpus, index, reps: int = 5) -> None:
+    """Where the time of an "ivf+wcd+rwmd" search of the dedup queries
+    goes (log, lam=10), as phase ``profile`` reports the main path."""
+    t0 = time.perf_counter()
+    eng = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
+                    precision="log")
+    out = profile_window(lambda: eng.search(list(corpus.queries), TOP_K,
+                                            prune="ivf+wcd+rwmd"), reps)
+    rec = profile_record("profile_cascade", *out, reps, precision="log",
+                         lam=CONFIG.lam, prune="ivf+wcd+rwmd")
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+
+
+def phase_append(corpus, dev) -> None:
+    """append_docs: an index built on the first APPEND_BASE dedup documents
+    with the rest appended returns, for every query, the top-10 of a
+    rebuild on all of them (nprobe=None)."""
+    t0 = time.perf_counter()
+    docs = corpus.docs
+    head = PaddedDocs(idx=docs.idx[:APPEND_BASE], val=docs.val[:APPEND_BASE])
+    tail = PaddedDocs(idx=docs.idx[APPEND_BASE:], val=docs.val[APPEND_BASE:])
+    base = build_index(head, corpus.vecs, device=dev, n_clusters="auto")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    appended = append_docs(base, tail)
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t1
+    rebuilt = build_index(docs, corpus.vecs, device=dev, n_clusters="auto")
+    qs = list(corpus.queries)
+    rec = {"phase": "append", "base_docs": APPEND_BASE,
+           "appended_docs": int(tail.idx.shape[0]),
+           "n_clusters": appended.clusters.n_clusters,
+           "append_seconds": append_s}
+    for prune in ("ivf+wcd+rwmd", "rwmd"):
+        got, want = (WmdEngine(ix, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
+                               precision="log").search(qs, TOP_K, prune=prune)
+                     for ix in (appended, rebuilt))
+        hold_topk(got, want, f"append then {prune} vs rebuild")
+        rec[f"max_dist_rel_diff_{prune}"] = float(np.max(
+            np.abs(got.distances - want.distances) / np.abs(want.distances)))
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     info = phase_device()
     phase_build()
 
@@ -885,13 +1149,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_many_to_many(corpus, dev)
     phase_profile_one_to_many(corpus, dev)
+    del corpus
+    torch.cuda.empty_cache()
+
+    # the IVF cascade, refine and appends on the dedup corpus
+    dedup, dindex, build_s = build_dedup(dev)
+    k2s = phase_k2s_from_search(dindex, dedup)
+    # a query wider than one K2s launch's 128 support rows
+    sup, _, mask = paper_chunk(dindex.vocab_size, dev, width=200, q=2,
+                               seed=3)
+    vids = torch.as_tensor(np.random.default_rng(5).choice(
+        dindex.vocab_size, 2048, replace=False), device=dev)
+    phase_k2s(dindex, sup, mask, vids, "wide_200")
+    casc = phase_cascade(dedup, dindex, build_s)
+    phase_profile_cascade(dedup, dindex)
+    del dindex
+    torch.cuda.empty_cache()
+    phase_append(dedup, dev)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     path_launches = {**otm["launches_per_kernel_call"],
                      "rwmd_min_cdist": e2e_log["launches"]["rwmd_min_cdist"],
                      "sinkhorn_fused_all_batched":
                          e2e_log["launches"]["sinkhorn_fused_all_batched"],
                      "sddmm_spmm_step":
-                         k5["path"]["launches"]["sddmm_spmm_step"]}
+                         k5["path"]["launches"]["sddmm_spmm_step"],
+                     "rwmd_min_cdist_subset":
+                         casc["launches_per_search"]["rwmd_min_cdist_subset"]}
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for rec, src, replaces in (
@@ -901,7 +1185,8 @@ def main() -> int:
             (k3[1], "cdist_exp.cu", "src/repro/kernels/cdist_exp.py:60"),
             (k4[0], "sinkhorn_fused.cu",
              "src/repro/kernels/sddmm_spmm.py:202"),
-            (k5, "sddmm_spmm_step.cu", "src/repro/kernels/sddmm_spmm.py:76")):
+            (k5, "sddmm_spmm_step.cu", "src/repro/kernels/sddmm_spmm.py:76"),
+            (k2s, "rwmd_min_cdist.cu", "src/repro/kernels/rwmd.py:83")):
         kernels.append({
             "name": rec["name"], "route": "cuda", "source": csrc + src,
             "replaces": replaces, "launches": path_launches[rec["name"]],
@@ -911,8 +1196,10 @@ def main() -> int:
             "library": rec["library"], "shape": rec["shape"],
             "launch_ms": rec["launch_ms"]})
     # K1's entry is the search path's log-domain lam=10 solve, K3's and
-    # K4's the one_to_many(impl="kernel") path's fp32 lam=1 calls; their
-    # other variants ride along under their own keys
+    # K4's the one_to_many(impl="kernel") path's fp32 lam=1 calls, K2s's
+    # the widest RWMD stage of a log "ivf+wcd+rwmd" search of the dedup
+    # queries (its launches: per such search); other variants ride along
+    # under their own keys
     keys = ("max_abs_err", "ms", "launch_ms", "plain_ms", "bound_ms",
             "bound_by")
     kernels[1]["fp32_lam1"] = {key: k1_lin[key] for key in keys}

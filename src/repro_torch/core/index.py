@@ -21,14 +21,18 @@
     solver K1 (:func:`repro_torch.kernels.ops.sinkhorn_fused_all_batched`).
     ``search`` is the staged exact top-k: RWMD (or WCD) bounds through the
     Hopper kernel K2, a seed solve that sets each query's threshold, a
-    survivor solve, and a rank. On a CPU index the same code calls the
-    kernels' plain versions.
+    survivor solve, and a rank. With an IVF cascade (``prune="ivf+..."``)
+    the bounds run cheapest-first over a shrinking candidate set, the RWMD
+    stage through K2s; ``mode="refine"`` ranks by the bound and solves
+    each query's best ``refine_factor * k``. On a CPU index the same code
+    calls the kernels' plain versions.
 
 Ported so far: ``impl="kernel"`` with fixed ``n_iter`` in fp32 or the log
-domain (``precision="log"``), ``query_batch``, ``search(mode="exact")``
-with ``prune=None|"wcd"|"rwmd"|"wcd+rwmd"``. The einsum impl, ``tol``,
-``scope``, ``warm_start``, bf16, the K-column cache, the IVF cascade and
-refine mode raise ``NotImplementedError`` (ROADMAP queue 1).
+domain (``precision="log"``), ``query_batch``, ``search`` in both modes
+with every prune spec of the reference (full sweeps and IVF cascades, with
+``nprobe``), :func:`append_docs` and ``build_index(n_clusters="auto")``.
+The einsum impl, ``tol``, ``scope``, ``warm_start``, bf16 and the
+K-column cache raise ``NotImplementedError`` (ROADMAP queue 1).
 
 fp32 policy: every product here is full fp32. PyTorch's default on the
 card (``torch.backends.cuda.matmul.allow_tf32 is False``) is relied on,
@@ -231,21 +235,90 @@ def _membership(assign: np.ndarray, n_clusters: int):
     return order, starts
 
 
+MEMBER_CHUNK = 4096     # docs per distance block in _member_dists
+
+
+def _member_dists(centroids: torch.Tensor, centers: torch.Tensor,
+                  assign: np.ndarray) -> np.ndarray:
+    """(N,) host distances from each doc centroid to its assigned center."""
+    assign_dev = torch.as_tensor(assign.astype(np.int64),
+                                 device=centers.device)
+    out = [torch.linalg.norm(centroids[lo:lo + MEMBER_CHUNK]
+                             - centers[assign_dev[lo:lo + MEMBER_CHUNK]],
+                             dim=1)
+           for lo in range(0, assign.shape[0], MEMBER_CHUNK)]
+    if not out:
+        return np.zeros(0, np.float64)
+    return torch.cat(out).cpu().numpy().astype(np.float64)
+
+
 def _cluster_radii(centroids: torch.Tensor, centers: torch.Tensor,
                    assign: np.ndarray, n_clusters: int) -> np.ndarray:
     """(C,) max member distance per cluster (0 for empty clusters)."""
     radii = np.zeros(n_clusters, np.float64)
     if assign.size:
-        own = centers[torch.as_tensor(assign.astype(np.int64),
-                                      device=centers.device)]
-        d = torch.linalg.norm(centroids - own, dim=1)
-        np.maximum.at(radii, assign, d.cpu().numpy().astype(np.float64))
+        np.maximum.at(radii, assign, _member_dists(centroids, centers,
+                                                   assign))
     return radii
 
 
 def default_n_clusters(n_docs: int) -> int:
     """sqrt(N) coarse-quantizer heuristic (classic IVF sizing)."""
     return max(1, min(n_docs, int(round(float(np.sqrt(max(n_docs, 1)))))))
+
+
+# auto_n_clusters' sweep: at most AUTO_SAMPLE doc centroids, AUTO_SWEEP_ITERS
+# k-means iterations per count, and a doubling that shrinks the weighted
+# mean radius below AUTO_DROP of the previous one is a collapse
+AUTO_SAMPLE = 2048
+AUTO_SWEEP_ITERS = 4
+AUTO_DROP = 0.7
+
+
+def auto_n_clusters(centroids, seed: int = 0) -> int:
+    """Data-tuned cluster count from cluster-radius statistics (the
+    reference's rule, on the port's torch k-means).
+
+    Once the cluster count reaches a dedup-style corpus' near-duplicate
+    group count, the mass-weighted mean cluster radius collapses; a
+    diffuse corpus has no such elbow. So: sweep cluster counts by doubling
+    over an ``AUTO_SAMPLE``-capped subset of the doc centroids (a short
+    k-means each), and return the largest count whose doubling shrank the
+    weighted mean radius below ``AUTO_DROP`` of the previous one, scaled
+    back to the full corpus size; with no collapse below ``m // 8``, the
+    sqrt default.
+    ``centroids`` is a (N, w) tensor (its device runs the sweep) or
+    array. Spelled ``n_clusters="auto"`` in :func:`build_index` and the
+    serve CLI. The torch k-means may settle near-ties differently from the
+    reference's, so the count can differ from the reference's on some
+    corpora."""
+    pts = (centroids if isinstance(centroids, torch.Tensor)
+           else torch.from_numpy(np.array(centroids, np.float32)))
+    n = pts.shape[0]
+    if n <= 4:
+        return max(1, n)
+    rng = np.random.default_rng(seed)
+    if n > AUTO_SAMPLE:
+        pick = np.sort(rng.choice(n, size=AUTO_SAMPLE, replace=False))
+        pts = pts[torch.as_tensor(pick, device=pts.device)]
+    m = pts.shape[0]
+    best = prev = None
+    c = 2
+    while c <= max(4, m // 8):
+        centers, assign = _kmeans(pts, c, n_iters=AUTO_SWEEP_ITERS,
+                                  seed=seed)
+        radii = _cluster_radii(pts, centers, assign, c)
+        sizes = np.bincount(assign, minlength=c)
+        wmean = float((sizes * radii).sum() / max(m, 1))
+        if prev is not None and wmean < AUTO_DROP * prev:
+            best = c
+        prev = wmean
+        c *= 2
+    if best is None:
+        # no collapse: the sqrt default of the full corpus
+        return default_n_clusters(n)
+    # a collapse point is a density statement about the sample: scale it
+    return max(1, min(n, int(round(best * n / m))))
 
 
 # ------------------------------------------------------------ index build
@@ -280,12 +353,14 @@ def build_index(docs: PaddedDocs, vecs, device=None, doc_groups: int = 4,
     per-doc centroids, the IVF k-means (torch, on the device), the
     cluster-major storage permutation, nnz groups and pivot distances.
 
-    ``clusters=(centers, assign)`` skips the k-means and freezes the given
-    quantizer. The index is lossless: engine results over it do not depend
-    on ``doc_groups``, ``n_clusters``, ``n_pivots`` or the storage
-    permutation, which only steer pruning — so this k-means may settle
-    near-tie assignments differently from the reference's and the
-    distances stay the same."""
+    ``n_clusters`` is an int, ``None`` (the sqrt(N) default), ``"auto"``
+    (:func:`auto_n_clusters`'s radius sweep) or a numeric string (CLI
+    passthrough). ``clusters=(centers, assign)`` skips the k-means and
+    freezes the given quantizer. The index is lossless: engine results
+    over it do not depend on ``doc_groups``, ``n_clusters``, ``n_pivots``
+    or the storage permutation, which only steer pruning — so this k-means
+    may settle near-tie assignments differently from the reference's and
+    the distances stay the same."""
     dev = resolve_device(device)
     vecs_t = torch.as_tensor(np.asarray(_host(vecs), np.float32), device=dev)
     idx_np, val_np = _compact_slots(docs)
@@ -308,13 +383,12 @@ def build_index(docs: PaddedDocs, vecs, device=None, doc_groups: int = 4,
     else:
         if isinstance(n_clusters, str):
             if n_clusters == "auto":
-                raise NotImplementedError(
-                    "n_clusters='auto' is not ported yet (ROADMAP queue 1, "
-                    "item 5)")
-            if not n_clusters.isdigit():
-                raise ValueError(f"n_clusters must be an int or None, got "
-                                 f"{n_clusters!r}")
-            n_clusters = int(n_clusters)
+                n_clusters = auto_n_clusters(centroids, seed=ivf_seed)
+            elif n_clusters.isdigit():
+                n_clusters = int(n_clusters)        # CLI passthrough
+            else:
+                raise ValueError(f"n_clusters must be an int, None, or "
+                                 f"'auto', got {n_clusters!r}")
         elif n_clusters is None:
             n_clusters = default_n_clusters(n_docs)
         n_clusters = max(1, min(int(n_clusters), max(n_docs, 1)))
@@ -420,6 +494,113 @@ def index_from_arrays(arrays: dict, device=None) -> CorpusIndex:
     return _assemble(np.asarray(arrays["idx"]), np.asarray(arrays["val"]),
                      t("vecs"), t("centroids"), int(arrays["n_groups"]),
                      clusters, ext_ids, remap, pivots, doc_pivot_d)
+
+
+def _pad_width(a, width: int):
+    """Right-pad axis 1 with zeros; numpy in -> numpy out, tensor in ->
+    tensor out."""
+    if a.shape[1] >= width:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.nn.functional.pad(a, (0, width - a.shape[1]))
+    return np.pad(a, ((0, 0), (0, width - a.shape[1])))
+
+
+def append_docs(index: CorpusIndex, new_docs: PaddedDocs) -> CorpusIndex:
+    """Streaming index update: add documents without a rebuild.
+
+    New docs get ids ``[n_docs, n_docs + n_new)`` and join the group with
+    the fewest members (widened only if they are longer than its trim);
+    every other group is reused as it is. The device side is concatenated
+    on the device and the host mirror on the host, so only the new docs
+    cross. ``search``/``query_batch`` after an append equal a rebuild:
+    per-doc solves are independent and grouping and ELL padding are inert.
+
+    IVF clusters and pivots are frozen: each new doc goes to its nearest
+    existing center, only the grown clusters' radii can expand, and only
+    the new rows of the pivot table are computed. The grown group is
+    re-sorted cluster-major. Exact search (``nprobe=None``) is unaffected;
+    smaller-``nprobe`` recall degrades as far as the frozen centers drift
+    from the grown corpus. Raises ``ValueError`` for word ids outside the
+    index's vocabulary."""
+    n_new = new_docs.idx.shape[0]
+    if n_new == 0:
+        return index
+    new_idx, new_val = _compact_slots(new_docs)
+    if int(new_idx.max(initial=0)) >= index.vocab_size:
+        raise ValueError("new docs reference word ids outside the index "
+                         f"vocabulary ({index.vocab_size})")
+    nnz = (new_val > 0).sum(1)
+    lg_new = max(1, int(nnz.max(initial=0)))
+    new_idx, new_val = new_idx[:, :lg_new], new_val[:, :lg_new]
+    n_old = index.n_docs
+    dev = index.device
+
+    def up(idx_np, val_np, width):
+        return (torch.as_tensor(_pad_width(idx_np, width), dtype=torch.int64,
+                                device=dev),
+                torch.as_tensor(_pad_width(val_np, width), device=dev))
+
+    width = max(index.docs.idx.shape[1], lg_new)
+    new_idx_dev, new_val_dev = up(new_idx, new_val, width)
+    docs = PaddedDocs(
+        idx=torch.cat([_pad_width(index.docs.idx, width), new_idx_dev]),
+        val=torch.cat([_pad_width(index.docs.val, width), new_val_dev]))
+    docs_host = PaddedDocs(
+        idx=np.concatenate([_pad_width(index.docs_host.idx, width),
+                            _pad_width(new_idx, width)]),
+        val=np.concatenate([_pad_width(index.docs_host.val, width),
+                            _pad_width(new_val, width)]))
+
+    cent_new = _doc_centroids(new_idx_dev[:, :lg_new],
+                              new_val_dev[:, :lg_new], index.vecs)
+    clusters = index.clusters
+    assign = None
+    if clusters is not None:
+        assign_new = _assign_clusters(cent_new, clusters.centers).cpu() \
+            .numpy().astype(np.int32)
+        assign = np.concatenate([clusters.assign, assign_new])
+        c_order, c_starts = _membership(assign, clusters.n_clusters)
+        radii = clusters.radii.copy()
+        np.maximum.at(radii, assign_new,
+                      _member_dists(cent_new, clusters.centers, assign_new))
+        clusters = clusters._replace(
+            assign=assign, order=c_order, starts=c_starts, radii=radii,
+            assign_dev=torch.as_tensor(assign, device=dev))
+
+    # grow only the smallest group; all others are reused untouched
+    gi = int(np.argmin([g.cols.shape[0] for g in index.groups]))
+    grp = index.groups[gi]
+    gw = max(grp.docs.idx.shape[1], lg_new)
+    g_new_idx, g_new_val = up(new_idx, new_val, gw)
+    g_idx = torch.cat([_pad_width(grp.docs.idx, gw), g_new_idx])
+    g_val = torch.cat([_pad_width(grp.docs.val, gw), g_new_val])
+    g_cols = np.concatenate([grp.cols,
+                             np.arange(n_old, n_old + n_new, dtype=np.int32)])
+    if assign is not None:
+        # keep the grown group cluster-major: one device gather per append
+        gorder = np.argsort(assign[g_cols], kind="stable")
+        if not np.array_equal(gorder, np.arange(gorder.size)):
+            gd = torch.as_tensor(gorder, device=dev)
+            g_idx, g_val, g_cols = g_idx[gd], g_val[gd], g_cols[gorder]
+    groups = tuple(DocGroup(docs=PaddedDocs(idx=g_idx, val=g_val),
+                            cols=g_cols.astype(np.int32)) if i == gi else g
+                   for i, g in enumerate(index.groups))
+
+    tail_ids = np.arange(n_old, n_old + n_new, dtype=np.int32)
+    ext_ids = (np.concatenate([index.ext_ids, tail_ids])
+               if index.ext_ids is not None else None)
+    remap = (np.concatenate([index.remap, tail_ids])
+             if index.remap is not None else None)
+    doc_pivot_d = index.doc_pivot_d
+    if index.pivots is not None:
+        doc_pivot_d = torch.cat([index.doc_pivot_d,
+                                 _pivot_dists(cent_new, index.pivots)])
+    return index._replace(
+        docs=docs, groups=groups, docs_host=docs_host,
+        centroids=torch.cat([index.centroids, cent_new]),
+        clusters=clusters, ext_ids=ext_ids, remap=remap,
+        doc_pivot_d=doc_pivot_d)
 
 
 # ------------------------------------------------------------------ engine
@@ -648,33 +829,55 @@ class WmdEngine:
 
     # ------------------------------------------------------------ search
     def search(self, queries: Sequence, k: int, prune: object = "rwmd",
-               nprobe: int | None = None,
-               mode: str = "exact") -> SearchResult:
-        """Staged exact top-k retrieval: prune -> solve -> rank.
+               nprobe: int | None = None, mode: str = "exact",
+               refine_factor: int = 4) -> SearchResult:
+        """Staged top-k retrieval: prune -> solve -> rank.
 
         ``prune=None`` scores exhaustively (:meth:`query_batch` + stable
-        argsort). Otherwise, per chunk: admissible bounds on every (query,
-        doc) pair (``"rwmd"``, ``"wcd"``, ``"wcd+rwmd"`` or a
-        :class:`~repro_torch.core.prune.Pruner`); an exact solve of the
-        union of each query's k best-bounded docs, whose kth distance is
-        the query's threshold; an exact solve of the docs whose bound
-        passes it (+ ``prune_slack``); a rank over the solved docs. With
-        ``"rwmd"`` the result equals the exhaustive top-k (up to tie
-        order). Raises ``ValueError`` for ``k <= 0`` or an unknown spec,
-        ``NotImplementedError`` for ``mode="refine"`` and the IVF cascades,
-        and :class:`LamUnderflowError` when ``exp(-lam*M)`` underflows for
-        a solved pair."""
+        argsort). Otherwise ``prune`` names a lower bound (``"wcd"``,
+        ``"rwmd"``, ``"wcd+rwmd"``, a cascade ``"ivf[+pivot][+wcd][+rwmd]"``)
+        or is a :class:`~repro_torch.core.prune.Pruner` /
+        :class:`~repro_torch.core.prune.CascadePruner` instance.
+
+        ``mode="exact"``: admissible bounds (a full sweep per chunk, or the
+        cascade's shrinking candidate set over the ``nprobe`` nearest
+        clusters per query, ``None`` = all); an exact solve of the union of
+        each query's k best-bounded docs, whose kth distance is the query's
+        threshold; an exact solve of the docs whose bound passes it (+
+        ``prune_slack``); a rank over the solved docs. With an RWMD stage
+        and every cluster probed the result equals the exhaustive top-k (up
+        to tie order). A cascade at ``nprobe < n_clusters`` is approximate:
+        un-probed clusters are never scored, recall is monotone in
+        ``nprobe``, and a query with fewer than k reachable candidates pads
+        its row with -1 / NaN.
+
+        ``mode="refine"`` ranks every candidate by the pruner's tightest
+        bound and solves only each query's best ``refine_factor * k``; each
+        query is ranked over its own picks, so recall is monotone in
+        ``refine_factor``, every returned distance is exact, and at a
+        factor covering the candidate universe the result equals
+        ``mode="exact"``. ``solved`` is then each query's own pick count.
+
+        Raises ``ValueError`` for ``k <= 0``, an unknown ``mode`` or spec,
+        ``refine_factor < 1``, or ``mode="refine"`` with ``prune=None``;
+        :class:`LamUnderflowError` when ``exp(-lam*M)`` underflows for a
+        solved pair."""
         queries = [np.asarray(q) for q in queries]
         n = self.index.n_docs
         if k <= 0:
             raise ValueError(f"k must be positive, got {k}")
-        if mode != "exact":
-            if mode == "refine":
-                raise NotImplementedError(
-                    "mode='refine' is not ported yet (ROADMAP queue 1, "
-                    "item 6)")
+        if mode not in ("exact", "refine"):
             raise ValueError(f"mode must be 'exact' or 'refine', "
                              f"got {mode!r}")
+        if mode == "refine":
+            if prune is None:
+                raise ValueError(
+                    "mode='refine' ranks candidates by a pruner's lower "
+                    "bound; prune=None has no bound to rank by — use "
+                    "mode='exact' for the exhaustive path")
+            if int(refine_factor) < 1:
+                raise ValueError(f"refine_factor must be >= 1, "
+                                 f"got {refine_factor}")
         k = min(int(k), n)
         nq = len(queries)
         out_i = np.full((nq, k), -1, np.int32)
@@ -693,9 +896,19 @@ class WmdEngine:
                 solved[qi] = n
             return SearchResult(out_i, out_d, solved)
 
-        from .prune import resolve_pruner
+        from .prune import CascadePruner, resolve_pruner
         pruner = resolve_pruner(prune, nprobe=nprobe)
         _, chunks = self._plan(queries)
+        if mode == "refine":
+            if chunks:
+                self._search_refine(queries, k, pruner, nprobe, chunks,
+                                    int(refine_factor), out_i, out_d, solved)
+            return SearchResult(out_i, out_d, solved)
+        if isinstance(pruner, CascadePruner):
+            if chunks:
+                self._search_cascade(queries, k, pruner, nprobe, chunks,
+                                     out_i, out_d, solved)
+            return SearchResult(out_i, out_d, solved)
         for chunk, width in chunks:
             cq = [queries[qi] for qi in chunk]
             qc = len(chunk)
@@ -752,6 +965,158 @@ class WmdEngine:
             return cand, d_seed
         return cand, np.concatenate([d_seed, solve(surv)], axis=1)
 
+    # The cascade and refine drivers below are the reference's without its
+    # adaptive-solve branches: the per-query residual masks (qmask_seed,
+    # qmask_surv, qmask_own) and the warm start (warm) are only taken with
+    # ``tol`` set, which this engine refuses at construction. They come
+    # with ``tol`` (ROADMAP queue 2, K1 options).
+    def _stage_all(self, queries, chunks):
+        """Stage every live query once, at the widest chunk's width (the
+        bound stages read the (Q, B) support arrays directly, so one prune
+        pass covers the whole set): (live_q, sup, r, mask)."""
+        live_q = [qi for chunk, _ in chunks for qi in chunk]
+        width_g = max(width for _, width in chunks)
+        return (live_q, *self._prep_chunk([queries[qi] for qi in live_q],
+                                          width_g))
+
+    def _make_solver(self, queries, chunks, live_q):
+        """Stage every v_r chunk once (sup/r/mask and its K block) and
+        return ``solve_all(doc_ids)``, the chunk-looped exact solve over
+        one candidate id array shared by the cascade and refine drivers:
+        a (len(live_q), |ids|) host array with rows in ``live_q`` order.
+        Every chunk's solve is launched before the results come back in
+        one copy; a NaN row raises :class:`LamUnderflowError`."""
+        row_of = {qi: g for g, qi in enumerate(live_q)}
+        prepped = []
+        for chunk, width in chunks:
+            cq = [queries[qi] for qi in chunk]
+            sup, r, mask = self._prep_chunk(cq, width)
+            prepped.append(([row_of[qi] for qi in chunk], cq, r,
+                            self._kq(sup, mask)))
+
+        def solve_all(doc_ids):
+            # one gather shared by the chunks; cascade ids are
+            # cluster-sorted storage ids, a near-contiguous host slice
+            grp = self.index.subset(doc_ids, storage=True)
+            w_all = torch.cat([
+                self._solve_group(kq, r, grp)[:len(rows), :doc_ids.size]
+                for rows, _, r, kq in prepped]).cpu().numpy()
+            out = np.empty((len(live_q), doc_ids.size), self.dtype)
+            lo = 0
+            for rows, cq, _, _ in prepped:
+                w = w_all[lo:lo + len(rows)]
+                lo += len(rows)
+                self._raise_if_nan(w, cq)
+                out[rows] = w
+            return out
+
+        return solve_all
+
+    def _search_refine(self, queries, k, pruner, nprobe, chunks,
+                       refine_factor, out_i, out_d, solved):
+        """Rank-then-refine (``mode="refine"``): one bound pass ranks the
+        candidate universe, then one solve covers the union of each
+        query's best ``k' = refine_factor * k`` picks. The ranking bound
+        is a cascade's tightest (last) stage over the probed clusters'
+        members, or a full-sweep pruner's own bound over every doc. Each
+        query is ranked over its own picks only."""
+        from .prune import CascadePruner, _pad_pow2_ids, _smallest
+        index = self.index
+        live_q, sup_g, r_g, mask_g = self._stage_all(queries, chunks)
+        qg = len(live_q)
+        if isinstance(pruner, CascadePruner):
+            _, pm, qcent = pruner.probe(index, sup_g, r_g, mask_g, nprobe)
+            # candidate universe = union of the probed clusters' members
+            keep_c = (np.ones(index.clusters.n_clusters, bool) if pm is None
+                      else pm[:qg].any(dim=0).cpu().numpy())
+            cand = pruner.cluster_members(index, keep_c)
+            if cand.size == 0:
+                return
+            sp = _pad_pow2_ids(cand)
+            lb = pruner.stage_bounds(
+                pruner.stages[-1], index, sup_g, r_g, mask_g, sp, cand.size,
+                pruner.id_qmask(index, pm, sp, cand.size,
+                                qp=sup_g.shape[0]), qcent=qcent)
+        else:
+            cand = np.arange(index.n_docs, dtype=np.int32)
+            sp = cand
+            lb = pruner.lower_bounds(index, sup_g, r_g, mask_g)
+        kp = min(refine_factor * k, cand.size)
+        vals, pos = _smallest(lb[:qg], kp)
+        vals, pos = vals.cpu().numpy(), pos.cpu().numpy()
+        # per-query own picks; +inf bounds are non-candidates (a query
+        # whose probed universe holds fewer than k' docs)
+        own = []
+        for g in range(qg):
+            p = pos[g][np.isfinite(vals[g])]
+            p = p[p < cand.size]
+            own.append(np.unique(sp[p]).astype(np.int32))
+        ids = np.unique(np.concatenate(own))
+        if ids.size == 0:
+            return
+        qmask_own = np.stack([np.isin(ids, o) for o in own])
+        d = self._make_solver(queries, chunks, live_q)(ids)
+        # rank each query over its own picks only, so the pick-set nesting
+        # (and with it recall monotonicity) holds per query
+        dm = np.where(qmask_own, d, np.inf)
+        ids_ext = self._ext(ids)
+        for g, qi in enumerate(live_q):
+            n_own = int(qmask_own[g].sum())
+            order = np.argsort(dm[g], kind="stable")[:min(k, n_own)]
+            out_i[qi, :order.size] = ids_ext[order]
+            out_d[qi, :order.size] = d[g, order]
+            solved[qi] = n_own
+
+    def _search_cascade(self, queries, k, pruner, nprobe, chunks,
+                        out_i, out_d, solved):
+        """The cascade driver, one prune pass for the whole query set:
+
+        1. cluster probe and seed candidates from each query's nearest
+           probed clusters (just enough to cover k docs);
+        2. first-stage bounds on the seed candidates -> each query's best k
+           -> exact seed solve (per solve chunk) -> threshold t_q (on the
+           device);
+        3. ``pruner.survivors``: the cluster-radius filter drops whole
+           clusters, then the per-doc stages cheapest-first;
+        4. exact solve of the survivors, rank.
+        """
+        from .prune import _pad_pow2_ids, _smallest
+        index = self.index
+        live_q, sup_g, r_g, mask_g = self._stage_all(queries, chunks)
+        qg = len(live_q)
+        cdists, pm, qcent = pruner.probe(index, sup_g, r_g, mask_g, nprobe)
+        seed_cand = pruner.seed_candidates(index, cdists, mask_g, k, pm)
+        if seed_cand.size == 0:
+            return
+        sp = _pad_pow2_ids(seed_cand)
+        lb = pruner.stage_bounds(
+            pruner.stages[0], index, sup_g, r_g, mask_g, sp, seed_cand.size,
+            pruner.id_qmask(index, pm, sp, seed_cand.size,
+                            qp=sup_g.shape[0]), qcent=qcent)
+        vals, seed_pos = _smallest(lb[:qg], min(k, seed_cand.size))
+        # +inf picks are non-candidates (a query with fewer candidates)
+        pos_seed = torch.unique(seed_pos[torch.isfinite(vals)]).cpu().numpy()
+        pos_seed = pos_seed[pos_seed < seed_cand.size]
+        if pos_seed.size == 0:
+            return
+        seed = sp[pos_seed]
+        # the solve stays v_r-bucketed: per-chunk staging, reused for the
+        # seed and survivor solves
+        solve_all = self._make_solver(queries, chunks, live_q)
+        d_seed = solve_all(seed)
+        thresh = self._threshold(torch.as_tensor(d_seed, device=self.device),
+                                 k, seed.size)
+        surv = pruner.survivors(index, sup_g, r_g, mask_g, cdists, pm,
+                                qcent, thresh, exclude=seed)
+        cand = np.concatenate([seed, surv])
+        d_cand = (np.concatenate([d_seed, solve_all(surv)], axis=1)
+                  if surv.size else d_seed)
+        cand_ext = self._ext(cand)           # storage -> caller doc ids
+        for g, qi in enumerate(live_q):
+            order = np.argsort(d_cand[g], kind="stable")[:k]
+            out_i[qi, :order.size] = cand_ext[order]
+            out_d[qi, :order.size] = d_cand[g, order]
+            solved[qi] = cand.size
 
 def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):

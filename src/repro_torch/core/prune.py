@@ -18,13 +18,26 @@ the bound cannot exclude.
     EMD, near-exact for the truncated score (see the reference's notes).
 
 ``MaxPruner`` takes the elementwise max of several admissible bounds.
-The IVF cascade is not ported yet.
+
+``CascadePruner`` runs the stages cheapest-first over a shrinking
+candidate set instead: IVF cluster probe and cluster-radius filter, pivot
+triangle bounds, WCD on the shortlist, and RWMD only on the WCD survivors
+and only over the vocabulary those survivors use, through the Hopper
+kernel K2s (:func:`repro_torch.kernels.ops.rwmd_min_cdist_subset`). See
+its docstring for the exactness-vs-``nprobe`` contract.
+
+Host and device: the stage functions below are plain torch on the
+index's device. What the reference reads back with ``np.asarray`` the
+port reads back with ``.cpu()``, which syncs; the drivers keep those
+reads to compact id arrays and bool masks, and thresholds stay on the
+device.
 """
 from __future__ import annotations
 
 import functools
 from typing import Protocol, Sequence, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -66,6 +79,11 @@ class WcdPruner:
                            index.centroids)
 
 
+def _finite(minm: torch.Tensor) -> torch.Tensor:
+    """+inf (all-pad filler rows) -> 0: those rows carry no live mass."""
+    return torch.where(torch.isfinite(minm), minm, torch.zeros_like(minm))
+
+
 def _rwmd_gather(minm: torch.Tensor, idx: torch.Tensor,
                  val: torch.Tensor) -> torch.Tensor:
     """(Qp, V) min distances -> (Qp, N) bounds: gather at each doc's words,
@@ -82,9 +100,7 @@ class RwmdPruner:
         a = index.vecs[sup]                          # (Qp, B, w)
         minm = ops.rwmd_min_cdist(a, mask, index.vecs)
         # all-pad filler rows have minm == +inf; they are sliced off later
-        minm = torch.where(torch.isfinite(minm), minm,
-                           torch.zeros_like(minm))
-        return _rwmd_gather(minm, index.docs.idx, index.docs.val)
+        return _rwmd_gather(_finite(minm), index.docs.idx, index.docs.val)
 
 
 class MaxPruner:
@@ -100,24 +116,452 @@ class MaxPruner:
 
 
 def _keep_any(lbm: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
-    """Columns any live query still needs: lbm (Qp, S), thresh (qc,)
-    margined thresholds -> (S,) bool."""
+    """Columns any live query still needs: lbm (Qp, S) with +inf at
+    non-candidates, thresh (qc,) margined thresholds -> (S,) bool."""
     return (lbm[:thresh.shape[0]] <= thresh[:, None]).any(dim=0)
 
 
-PRUNERS = ("wcd", "rwmd", "wcd+rwmd")
+# ---------------------------------------------------------------- cascade
+# survivors(): when the cluster filter keeps at least this share of the
+# corpus, the speculative dense first-stage pass replaces the gathered one
+DENSE_CUTOFF = 0.25
+
+
+def _pad_pow2_ids(ids: np.ndarray, min_size: int = 8) -> np.ndarray:
+    """Pow2-pad a host id array (pad slots get id 0, a valid row whose
+    bounds the candidacy masks exclude), as the reference does to bound
+    its compiled shapes; kept so both packages stage the same arrays."""
+    n_pad = min_size
+    while n_pad < ids.size:
+        n_pad *= 2
+    out = np.zeros(n_pad, np.int32)
+    out[:ids.size] = ids
+    return out
+
+
+def _smallest(x: torch.Tensor, k: int):
+    """(values, indices) of the k smallest entries of each row, ties to
+    the lower index: the order ``jax.lax.top_k(-x, k)`` gives (a plain
+    ``torch.topk`` leaves the tie order open)."""
+    vals, idx = torch.sort(x, dim=1, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def _live_slots(n: int, n_real: int, device) -> torch.Tensor:
+    return torch.arange(n, device=device) < n_real
+
+
+def _wcd_stage(qcent, centroids, ids_pad, qmask):
+    """Centroid bounds for a candidate id array (device), +inf where
+    ``qmask`` is False."""
+    lb = _wcd_bounds(qcent, centroids[ids_pad])
+    return torch.where(qmask, lb, torch.full_like(lb, float("inf")))
+
+
+def _wcd_dense_sq(qcent, centroids, qc: int) -> torch.Tensor:
+    q = qcent[:qc]
+    d2 = ((q * q).sum(1)[:, None] + (centroids * centroids).sum(1)[None, :]
+          - 2.0 * (q @ centroids.T))
+    return torch.clamp(d2, min=0.0)
+
+
+def _wcd_dense_keep_all(qcent, centroids, thresh):
+    """Dense WCD threshold pass over every doc, exhaustive probe: squared
+    distances against squared thresholds (sqrt is monotone)."""
+    d2 = _wcd_dense_sq(qcent, centroids, thresh.shape[0])
+    return (d2 <= torch.square(thresh)[:, None]).any(dim=0)
+
+
+def _wcd_dense_keep(qcent, centroids, pm, assign, thresh):
+    """Dense WCD threshold pass with candidacy through the doc ->
+    probed-cluster lookup (``assign`` is the device mirror)."""
+    qc = thresh.shape[0]
+    d2 = _wcd_dense_sq(qcent, centroids, qc)
+    cand = pm[:qc][:, assign]                            # (qc, N)
+    return (cand & (d2 <= torch.square(thresh)[:, None])).any(dim=0)
+
+
+def _pivot_lb(qd, dd) -> torch.Tensor:
+    """max_p |d(q, p) - d(n, p)|: (Qp, P) x (S, P) -> (Qp, S)."""
+    return (qd[:, None, :] - dd[None, :, :]).abs().amax(dim=-1)
+
+
+def _pivot_stage(qd, dd, ids_pad, qmask):
+    """Pivot triangle bounds for a candidate id array, +inf where
+    ``qmask`` is False."""
+    lb = _pivot_lb(qd, dd[ids_pad])
+    return torch.where(qmask, lb, torch.full_like(lb, float("inf")))
+
+
+def _pivot_dense_keep(qd, dd, pm, assign, thresh):
+    """Dense pivot threshold pass over every doc, with candidacy."""
+    qc = thresh.shape[0]
+    lb = _pivot_lb(qd[:qc], dd)
+    return (pm[:qc][:, assign] & (lb <= thresh[:, None])).any(dim=0)
+
+
+def _pivot_dense_keep_all(qd, dd, thresh):
+    """Exhaustive-probe variant of :func:`_pivot_dense_keep`."""
+    lb = _pivot_lb(qd[:thresh.shape[0]], dd)
+    return (lb <= thresh[:, None]).any(dim=0)
+
+
+def _rwmd_epilogue(minm, rel, val, qmask):
+    """RWMD gather + doc-mass contraction + candidacy fold: (Qp, Vc)
+    subset min distances, rel/val (Sp, L) -> (Qp, Sp), +inf where
+    ``qmask`` is False."""
+    lb = _rwmd_gather(_finite(minm), rel, val)
+    return torch.where(qmask, lb, torch.full_like(lb, float("inf")))
+
+
+def _rwmd_keep(minm, rel, val, pm, assign_ids, n_real, thresh):
+    """:func:`_rwmd_epilogue` fused with the candidacy lookup and the
+    threshold test -> (Sp,) bool."""
+    qc = thresh.shape[0]
+    lb = _rwmd_gather(_finite(minm[:qc]), rel, val)
+    cand = (pm[:qc][:, assign_ids]
+            & _live_slots(assign_ids.shape[0], n_real, lb.device)[None, :])
+    return (cand & (lb <= thresh[:, None])).any(dim=0)
+
+
+def _rwmd_keep_all(minm, rel, val, n_real, thresh):
+    """Exhaustive-probe variant of :func:`_rwmd_keep` (only the pad tail
+    is masked)."""
+    qc = thresh.shape[0]
+    lb = _rwmd_gather(_finite(minm[:qc]), rel, val)
+    keep = (lb <= thresh[:, None]).any(dim=0)
+    return keep & _live_slots(rel.shape[0], n_real, lb.device)
+
+
+def _cluster_keep_fused(cdists, radii, pm, thresh):
+    """Cluster-radius filter: triangle bound + candidacy + threshold test
+    -> (C,) bool of clusters some live query still needs."""
+    lbm = cdists - radii[None, :]
+    return _keep_any(torch.where(pm, lbm, torch.full_like(lbm, float("inf"))),
+                     thresh)
+
+
+def _cluster_keep_all(cdists, radii, thresh):
+    """Exhaustive-probe variant of :func:`_cluster_keep_fused`."""
+    return _keep_any(cdists - radii[None, :], thresh)
+
+
+def _probe_dists(sup, r, mask, vecs, centers):
+    """Query centroids and cluster-center distances: (cdists (Qp, C),
+    qcent (Qp, w), reused by the WCD and pivot stages)."""
+    qcent = _query_centroids(sup, r, mask, vecs)
+    return _wcd_bounds(qcent, centers), qcent
+
+
+def _probe_mask(cdists, nprobe: int) -> torch.Tensor:
+    """(Qp, C) bool: True at each query's ``nprobe`` nearest clusters
+    (ties to the lower cluster id, as the reference's ``top_k``)."""
+    _, idx = _smallest(cdists, nprobe)
+    pm = torch.zeros(cdists.shape, dtype=torch.bool, device=cdists.device)
+    return pm.scatter_(1, idx, True)
+
+
+def _ids_qmask(pm, assign_ids, n_real):
+    """Per-query candidacy for a padded doc-id array: the doc's cluster
+    must be probed by the query, and the slot must be real."""
+    return (pm[:, assign_ids]
+            & _live_slots(assign_ids.shape[0], n_real, pm.device)[None, :])
+
+
+class CascadePruner:
+    """Cheapest-first cascade over a shrinking candidate set: IVF cluster
+    probe + cluster-radius filter -> pivot triangle bounds -> per-doc WCD
+    -> RWMD min-cdist (the reference's ``CascadePruner``).
+
+    1. *ivf probe*: one (Q, n_clusters) distance block against the frozen
+       k-means centers. ``nprobe`` nearest clusters per query define the
+       candidate universe (all clusters when ``nprobe=None``, the exact
+       mode). Seed docs come from each query's nearest probed clusters,
+       just enough to cover k members.
+    2. *ivf radius filter*: after the seed solve fixes the threshold t_q,
+       ``wcd(q, n) >= ||qcent - center_c|| - radius_c`` drops whole
+       clusters.
+    3. *pivot* (optional): ``max_p |d(q, p) - d(n, p)|`` over the index's
+       pivot words, a lower bound on WCD at O(P) per pair.
+    4. *wcd*: the centroid bound on the surviving clusters' members.
+    5. *rwmd*: the tight bound, on the WCD survivors only, over the
+       vocabulary those survivors use (Hopper kernel K2s).
+
+    At ``nprobe = n_clusters`` the exact-top-k story is that of
+    ``"wcd+rwmd"`` (guaranteed through RWMD, near-exact through WCD's
+    truncated-iteration caveat). At smaller ``nprobe`` un-probed clusters
+    are never scored: approximate retrieval whose recall is monotone in
+    ``nprobe`` for a fixed query batch. The driver is
+    :meth:`repro_torch.core.index.WmdEngine.search`; this class owns the
+    stage computations.
+    """
+
+    def __init__(self, stages: Sequence[str] = ("wcd", "rwmd"),
+                 nprobe: int | None = None):
+        stages = tuple(stages)
+        if not stages or any(s not in ("pivot", "wcd", "rwmd")
+                             for s in stages):
+            raise ValueError(f"cascade stages must be drawn from "
+                             f"('pivot', 'wcd', 'rwmd'), got {stages!r}")
+        self.stages = stages
+        self.nprobe = nprobe
+        self.name = "+".join(("ivf",) + stages)
+
+    # -------------------------------------------------------- stage 0: ivf
+    def probe(self, index, sup, r, mask, nprobe: int | None = None):
+        """Cluster probe for one query staging: (cdists (Qp, C), pm (Qp,
+        C) bool or ``None`` for the exhaustive probe, qcent (Qp, w)), all
+        on the device. ``nprobe=None`` uses the pruner's own, which itself
+        defaults to all clusters."""
+        cl = index.clusters
+        if cl is None:
+            raise ValueError(
+                "CorpusIndex has no IVF clusters — rebuild with "
+                "build_index() (clusters are built by default)")
+        if nprobe is None:
+            nprobe = self.nprobe
+        c = cl.n_clusters
+        np_eff = c if nprobe is None else max(1, min(int(nprobe), c))
+        cdists, qcent = _probe_dists(sup, r, mask, index.vecs, cl.centers)
+        # pm None == exhaustive probe: the stages skip the candidacy lookups
+        pm = None if np_eff == c else _probe_mask(cdists, np_eff)
+        return cdists, pm, qcent
+
+    def seed_candidates(self, index, cdists, mask, k: int,
+                        pm) -> np.ndarray:
+        """Seed-candidate doc ids: per live query, walk probed clusters
+        nearest-first until they cover k members; the union across the
+        staging, cluster-sorted (host, O(Q * C))."""
+        cl = index.clusters
+        sizes = cl.sizes
+        c = cl.n_clusters
+        # one device -> host copy for cdists, the live rows and pm
+        parts = [cdists, mask.sum(dim=1, keepdim=True).to(cdists.dtype)]
+        if pm is not None:
+            parts.append(pm.to(cdists.dtype))
+        host = torch.cat(parts, dim=1).cpu().numpy()
+        cd, live = host[:, :c], host[:, c] > 0
+        pm_np = None if pm is None else host[:, c + 1:] > 0
+        chosen = np.zeros(c, bool)
+        for q in np.nonzero(live)[0]:
+            covered = 0
+            for ci in np.argsort(cd[q], kind="stable"):
+                if (pm_np is not None and not pm_np[q, ci]) or sizes[ci] == 0:
+                    continue
+                chosen[ci] = True
+                covered += sizes[ci]
+                if covered >= k:
+                    break
+        return self.cluster_members(index, chosen)
+
+    def id_qmask(self, index, pm, ids_pad: np.ndarray, n_real: int,
+                 qp: int | None = None) -> torch.Tensor:
+        """(Qp, Sp) candidacy for a padded id array (see _ids_qmask).
+        ``pm=None`` (exhaustive probe) needs ``qp`` to shape the mask."""
+        dev = index.device
+        if pm is None:
+            valid = _live_slots(ids_pad.size, n_real, dev)
+            return valid[None, :].expand(qp, ids_pad.size)
+        assign_ids = torch.as_tensor(
+            index.clusters.assign[ids_pad].astype(np.int64), device=dev)
+        return _ids_qmask(pm, assign_ids, n_real)
+
+    def cluster_keep(self, index, cdists, pm, thresh) -> np.ndarray:
+        """(C,) host bool: clusters some live query still needs, by the
+        cluster-radius triangle bound against the threshold."""
+        radii = self._radii(index)
+        if pm is None:
+            return _cluster_keep_all(cdists, radii, thresh).cpu().numpy()
+        return _cluster_keep_fused(cdists, radii, pm, thresh).cpu().numpy()
+
+    def cluster_members(self, index, keep_c: np.ndarray) -> np.ndarray:
+        """Cluster-sorted doc ids of the kept clusters (host slice concat,
+        a near-contiguous storage run under the cluster-major layout)."""
+        cl = index.clusters
+        kept = np.nonzero(keep_c[:cl.n_clusters])[0]
+        if kept.size == 0:
+            return np.zeros(0, np.int32)
+        return np.concatenate(
+            [cl.order[cl.starts[c]:cl.starts[c + 1]] for c in kept])
+
+    @staticmethod
+    def _radii(index) -> torch.Tensor:
+        return torch.as_tensor(index.clusters.radii.astype(np.float32),
+                               device=index.device)
+
+    # --------------------------------------- post-threshold survivor pass
+    def survivors(self, index, sup, r, mask, cdists, pm, qcent, thresh,
+                  exclude: np.ndarray | None = None) -> np.ndarray:
+        """The post-threshold prune pass, cheapest-first: cluster-radius
+        filter, then the per-doc stages on what remains. Returns surviving
+        doc ids (``exclude``, typically the solved seeds, removed).
+
+        The cluster filter and a speculative dense first-stage pass over
+        every doc are issued together and read back in one copy: when the
+        cluster filter keeps at least ``DENSE_CUTOFF`` of the corpus the
+        dense result replaces the gathered first stage (the radius bound
+        under-estimates every member's WCD, so the dense test subsumes the
+        cluster filter), else it is discarded."""
+        cl = index.clusters
+        radii = self._radii(index)
+        stages = self.stages
+        qd = _query_pivot_dists(index, qcent) if stages[0] == "pivot" else None
+        keep_d_dev = None
+        if pm is None:
+            keep_c_dev = _cluster_keep_all(cdists, radii, thresh)
+            if stages[0] == "wcd":
+                keep_d_dev = _wcd_dense_keep_all(qcent, index.centroids,
+                                                 thresh)
+            elif qd is not None:
+                keep_d_dev = _pivot_dense_keep_all(qd, index.doc_pivot_d,
+                                                   thresh)
+        else:
+            keep_c_dev = _cluster_keep_fused(cdists, radii, pm, thresh)
+            if stages[0] == "wcd":
+                keep_d_dev = _wcd_dense_keep(qcent, index.centroids, pm,
+                                             cl.assign_dev, thresh)
+            elif qd is not None:
+                keep_d_dev = _pivot_dense_keep(qd, index.doc_pivot_d, pm,
+                                               cl.assign_dev, thresh)
+        c = keep_c_dev.shape[0]
+        both = (keep_c_dev if keep_d_dev is None
+                else torch.cat([keep_c_dev, keep_d_dev])).cpu().numpy()
+        keep_c = both[:c]
+        kept_docs = int(cl.sizes[keep_c[:cl.n_clusters]].sum())
+        if (keep_d_dev is not None
+                and kept_docs >= DENSE_CUTOFF * index.n_docs):
+            surv = np.nonzero(both[c:])[0].astype(np.int32)
+            stages = stages[1:]
+        else:
+            surv = self.cluster_members(index, keep_c)
+        if exclude is not None and exclude.size and surv.size:
+            surv = surv[~np.isin(surv, exclude)]
+        for stage in stages:
+            if surv.size == 0:
+                break
+            sp = _pad_pow2_ids(surv)
+            if stage == "rwmd":
+                prep = self._rwmd_prep(index, sup, mask, sp, surv.size)
+                if prep is None:
+                    break
+                minm, rel, val = _upload_prep(prep, index.device)
+                if pm is None:
+                    keep = _rwmd_keep_all(minm, rel, val, surv.size, thresh)
+                else:
+                    assign_ids = torch.as_tensor(
+                        cl.assign[sp].astype(np.int64), device=index.device)
+                    keep = _rwmd_keep(minm, rel, val, pm, assign_ids,
+                                      surv.size, thresh)
+            else:
+                lbm = self.stage_bounds(
+                    stage, index, sup, r, mask, sp, surv.size,
+                    self.id_qmask(index, pm, sp, surv.size,
+                                  qp=sup.shape[0]), qcent=qcent)
+                keep = _keep_any(lbm, thresh)
+            surv = surv[keep.cpu().numpy()[:surv.size]]
+        return surv
+
+    # ----------------------------------------------------- bounded stages
+    def stage_bounds(self, stage: str, index, sup, r, mask,
+                     ids_pad: np.ndarray, n_real: int, qmask: torch.Tensor,
+                     qcent: torch.Tensor | None = None) -> torch.Tensor:
+        """Masked lower bounds for one cascade stage on a candidate id
+        array: (Qp, Sp) on the device, +inf wherever ``qmask`` is False
+        (pad slots and per-query non-candidates). Pass the ``qcent`` the
+        probe computed to skip recomputing the query centroids."""
+        if stage in ("wcd", "pivot"):
+            if qcent is None:
+                qcent = _query_centroids(sup, r, mask, index.vecs)
+            ids = torch.as_tensor(ids_pad.astype(np.int64),
+                                  device=index.device)
+            if stage == "pivot":
+                return _pivot_stage(_query_pivot_dists(index, qcent),
+                                    index.doc_pivot_d, ids, qmask)
+            return _wcd_stage(qcent, index.centroids, ids, qmask)
+        return self._rwmd_subset(index, sup, mask, ids_pad, n_real, qmask)
+
+    @staticmethod
+    def _rwmd_vocab(index, ids_pad, n_real):
+        """Host staging of the RWMD subset, numpy as in the reference:
+        gather the candidate rows of the host mirror and map their word ids
+        into the compact candidate vocabulary. Returns (vids_pad (Vc_pad,)
+        int64, rel (Sp, L), val (Sp, L)) or None when the subset has no
+        live word. The reference pads the candidate vocabulary to a power
+        of two (>= 128) repeating vids[0]; the padded columns are computed
+        and never gathered. Kept so both packages run the same shapes."""
+        idx = index.docs_host.idx[ids_pad]
+        val = index.docs_host.val[ids_pad].copy()
+        val[n_real:] = 0.0                    # pad rows out of the vocab
+        nnz = (val > 0).sum(axis=1)
+        lg = max(1, int(nnz.max(initial=0)))
+        lg = min(-(-lg // 8) * 8, idx.shape[1])
+        idx, val = idx[:, :lg], val[:, :lg]
+        live = val > 0
+        vids = np.unique(idx[live])
+        if vids.size == 0:
+            return None
+        if vids[0] < 0 or vids[-1] >= index.vocab_size:
+            # K2s on the card does not check its ids: do it here, on the host
+            raise ValueError(f"candidate word ids outside the vocabulary "
+                             f"[0, {index.vocab_size})")
+        rel = np.searchsorted(vids, idx).astype(np.int32)
+        rel[~live] = 0
+        vids_pad = _pad_pow2_ids(vids, min_size=128).astype(np.int64)
+        vids_pad[vids.size:] = vids[0]
+        return vids_pad, rel, val
+
+    def _rwmd_prep(self, index, sup, mask, ids_pad, n_real):
+        """The RWMD subset stage's producer: :meth:`_rwmd_vocab`, then K2s
+        on the candidate vocabulary's embedding rows only, so the (Q*B, V)
+        block shrinks to (Q*B, Vc). Returns (minm device (Qp, Vc_pad), rel
+        np, val np) or None when the subset has no live word."""
+        staged = self._rwmd_vocab(index, ids_pad, n_real)
+        if staged is None:
+            return None
+        vids_pad, rel, val = staged
+        minm = ops.rwmd_min_cdist(
+            index.vecs[sup], mask, index.vecs,
+            vocab_ids=torch.as_tensor(vids_pad, device=index.device))
+        return minm, rel, val
+
+    def _rwmd_subset(self, index, sup, mask, ids_pad, n_real, qmask):
+        """Masked RWMD bounds on a candidate subset (see _rwmd_prep)."""
+        prep = self._rwmd_prep(index, sup, mask, ids_pad, n_real)
+        if prep is None:
+            return torch.where(qmask, 0.0, float("inf"))
+        return _rwmd_epilogue(*_upload_prep(prep, index.device), qmask)
+
+
+def _query_pivot_dists(index, qcent) -> torch.Tensor:
+    """(Qp, P) query-centroid distances to the index's pivot words."""
+    if index.pivots is None:
+        raise ValueError("cascade has a 'pivot' stage but the index has no "
+                         "pivot words — rebuild with build_index("
+                         "n_pivots > 0)")
+    from .index import _pivot_dists
+    return _pivot_dists(qcent, index.pivots)
+
+
+def _upload_prep(prep, device):
+    minm, rel, val = prep
+    return (minm, torch.as_tensor(rel.astype(np.int64), device=device),
+            torch.as_tensor(val, device=device))
+
+
+PRUNERS = ("wcd", "rwmd", "wcd+rwmd", "ivf", "ivf+wcd", "ivf+rwmd",
+           "ivf+wcd+rwmd", "ivf+pivot+wcd+rwmd", "ivf+pivot+rwmd")
 
 
 def resolve_pruner(spec, nprobe: int | None = None):
-    """Turn a spec (``"wcd"``, ``"rwmd"``, ``"wcd+rwmd"``) or a
-    :class:`Pruner` instance into a pruner. The IVF cascades
-    (``"ivf..."``) are not ported yet and raise ``NotImplementedError``."""
+    """Turn a spec (``"wcd"``, ``"rwmd"``, ``"wcd+rwmd"``, a cascaded
+    ``"ivf[+pivot][+wcd][+rwmd]"``, or a :class:`Pruner` /
+    :class:`CascadePruner` instance) into a pruner. ``nprobe`` applies to
+    cascades only (``None`` probes every cluster, the exact mode)."""
     if isinstance(spec, str):
         parts = [p.strip() for p in spec.replace(",", "+").split("+") if p]
         if parts and parts[0] == "ivf":
-            raise NotImplementedError(
-                f"prune={spec!r}: the IVF cascade is not ported yet "
-                "(ROADMAP queue 1, item 5)")
+            stages = tuple(parts[1:]) or ("wcd", "rwmd")
+            return CascadePruner(stages=stages, nprobe=nprobe)
         if nprobe is not None:
             raise ValueError(
                 f"nprobe={nprobe} only applies to ivf cascades; "
@@ -128,6 +572,11 @@ def resolve_pruner(spec, nprobe: int | None = None):
                 made.append(WcdPruner())
             elif p == "rwmd":
                 made.append(RwmdPruner())
+            elif p == "pivot":
+                raise ValueError(
+                    "the pivot prestage reads the index's precomputed "
+                    "doc_pivot_d table and runs inside the ivf cascade — "
+                    "spell it 'ivf+pivot+...'")
             else:
                 raise ValueError(
                     f"unknown pruner {p!r}; pick from {PRUNERS} or pass a "
@@ -135,6 +584,12 @@ def resolve_pruner(spec, nprobe: int | None = None):
         if not made:
             raise ValueError(f"empty pruner spec {spec!r}")
         return made[0] if len(made) == 1 else MaxPruner(made)
+    if isinstance(spec, CascadePruner):
+        if nprobe is not None and spec.nprobe != nprobe:
+            raise ValueError(
+                f"nprobe={nprobe} conflicts with the CascadePruner's own "
+                f"nprobe={spec.nprobe}; set it on the pruner")
+        return spec
     if isinstance(spec, Pruner):
         if nprobe is not None:
             raise ValueError(

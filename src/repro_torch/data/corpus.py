@@ -73,3 +73,42 @@ def shard_balanced(docs: PaddedDocs, n_shards: int) -> PaddedDocs:
     shards = [order[s::n_shards] for s in range(n_shards)]
     new_order = np.concatenate(shards)
     return PaddedDocs(idx=idx[new_order], val=val[new_order])
+
+
+# near-duplicate variants per base document, and queries, of the dedup
+# corpus (the reference's benchmarks/fig8_topk_prune.py)
+DUP = 16
+DEDUP_QUERIES = 4
+
+
+def dedup_corpus(n_docs: int, vocab: int = 8192, embed_dim: int = 64,
+                 seed: int = 0) -> WmdCorpus:
+    """Near-duplicate corpus: ``n_docs // DUP`` base documents of 19-43
+    words, ``DUP`` perturbed variants each (jittered counts, one word
+    swapped), and ``DEDUP_QUERIES`` queries drawn as further variants, so
+    each query has ~``DUP`` genuinely similar documents and everything else
+    is prunable. The port's own copy of the reference benchmark's
+    ``dedup_corpus`` (the same numpy RNG stream: byte-identical arrays for
+    every seed)."""
+    n_base = n_docs // DUP
+    base = make_corpus(vocab_size=vocab, embed_dim=embed_dim, n_docs=n_base,
+                       n_queries=0, words_per_doc=(19, 43), seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    idx0 = np.asarray(base.docs.idx)
+    val0 = np.asarray(base.docs.val)
+
+    def perturb(j):
+        live = val0[j] > 0
+        ids = idx0[j][live].copy()
+        counts = val0[j][live] * 100.0 + rng.uniform(0.0, 5.0, live.sum())
+        ids[rng.integers(0, ids.size)] = rng.integers(0, vocab)  # swap 1 word
+        return ids, counts
+
+    lists = [perturb(j) for j in range(n_base) for _ in range(DUP)]
+    docs = padded_docs_from_lists([i for i, _ in lists],
+                                  [c for _, c in lists])
+    queries = np.zeros((DEDUP_QUERIES, vocab), np.float32)
+    for qi, j in enumerate(rng.choice(n_base, DEDUP_QUERIES, replace=False)):
+        ids, counts = perturb(j)
+        queries[qi, ids] = counts / counts.sum()
+    return WmdCorpus(vecs=base.vecs, docs=docs, queries=queries)

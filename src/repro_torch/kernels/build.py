@@ -94,6 +94,9 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rwmd_min_cdist_launch.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.rwmd_min_cdist_launch.restype = i
+    lib.rwmd_min_cdist_subset_launch.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                 i, p]
+    lib.rwmd_min_cdist_subset_launch.restype = i
     lib.sinkhorn_fused_batched_launch.argtypes = [
         p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
     lib.sinkhorn_fused_batched_launch.restype = i

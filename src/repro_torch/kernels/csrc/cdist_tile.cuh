@@ -10,6 +10,13 @@
 // beyond B and vocabulary rows at or beyond V load as zeros; w is not
 // padded. Full fp32, no TF32: the products feed the prune bound and the
 // distances.
+//
+// With GATHER (K2s, the cascade's candidate-vocabulary subset), tile row v
+// is b's row rows[v] instead of row v: the gather happens in the load, so
+// no (V, w) copy of the selected rows is ever written. The ids are int64
+// (torch's index type); an id outside [0, Vb) loads as a zero row, so a
+// bad id gives a wrong column, never an out-of-bounds read. GATHER is a
+// template parameter so that K2's and K3's loads carry no test for it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,14 +37,19 @@ struct Staging {
 
 // acc[r][c] = a[kg*8+r] . b[v0+vg*8+c], b2[c] = |b[v0+vg*8+c]|^2 and, on
 // threads tid < BMAX, a2 = |a[tid]|^2 (0 on the others). a holds B rows
-// of W floats. Ends with every thread past its last read of `st`; the
-// caller synchronises before reusing it.
-template <int BMAX>
+// of W floats; V is the number of tile rows (b's rows, or with GATHER the
+// length of `rows`, which then indexes b's Vb rows). Ends with every
+// thread past its last read of `st`; the caller synchronises before
+// reusing it.
+template <int BMAX, bool GATHER = false>
 __device__ __forceinline__ void product(const float* __restrict__ a, int B,
                                         const float* __restrict__ b, int v0,
                                         int W, int V, Staging<BMAX>& st,
                                         float (&acc)[8][8], float (&b2)[8],
-                                        float& a2) {
+                                        float& a2,
+                                        const long long* __restrict__ rows =
+                                            nullptr,
+                                        int Vb = 0) {
   constexpr int NT = 2 * BMAX;
   const int tid = threadIdx.x;
   const int vg = tid % 16, kg = tid / 16;
@@ -59,9 +71,16 @@ __device__ __forceinline__ void product(const float* __restrict__ a, int B,
     }
     for (int i = tid; i < kTileV * kChunkW; i += NT) {
       int v = i / kChunkW, j = i % kChunkW;
-      st.bT[j * kStrideB + v] = (v0 + v < V && j < wc)
-                                    ? b[(size_t)(v0 + v) * W + j0 + j]
-                                    : 0.f;
+      float x = 0.f;
+      if (v0 + v < V && j < wc) {
+        if constexpr (GATHER) {
+          const long long row = rows[v0 + v];
+          if (row >= 0 && row < Vb) x = b[(size_t)row * W + j0 + j];
+        } else {
+          x = b[(size_t)(v0 + v) * W + j0 + j];
+        }
+      }
+      st.bT[j * kStrideB + v] = x;
     }
     __syncthreads();
     if (tid < BMAX)

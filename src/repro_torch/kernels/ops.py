@@ -4,10 +4,10 @@ path :func:`sinkhorn_wmd_kernel` built from them.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
 if the launch failed, and adds one to its ``launches`` counter for each
-kernel launch (``rwmd_min_cdist`` launches once per 128 support rows, the
-others once per call). A tensor on the CPU goes to the plain version in
-:mod:`.ref` instead (and does not count); a CUDA tensor always launches
-the kernel — there is no fallback.
+kernel launch (``rwmd_min_cdist`` and ``rwmd_min_cdist_subset`` launch
+once per 128 support rows, the others once per call). A tensor on the CPU
+goes to the plain version in :mod:`.ref` instead (and does not count); a
+CUDA tensor always launches the kernel — there is no fallback.
 """
 from __future__ import annotations
 
@@ -59,24 +59,36 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor,
-                   b: torch.Tensor) -> torch.Tensor:
-    """Masked min-over-support cdist (the RWMD prune stage).
-    a (Q, B, w), mask (Q, B), b (V, w) -> minM (Q, V); all-masked rows
-    come out +inf. On the card, B > 128 runs as one launch per 128-row
-    chunk, each folding its min into the output."""
+def _rwmd_checks(a, mask, b) -> None:
     dev = a.device
     for name, t, nd in (("a", a, 3), ("mask", mask, 2), ("b", b, 2)):
         _check(name, t, nd, torch.float32, dev)
     q, bq, w = a.shape
-    v = b.shape[0]
     if mask.shape != (q, bq) or b.shape[1] != w:
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, mask "
                          f"{tuple(mask.shape)}, b {tuple(b.shape)}")
+    if dev.type != "cpu" and bq < 1:
+        raise ValueError("rwmd_min_cdist needs at least one support row")
+
+
+def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
+                   vocab_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked min-over-support cdist (the RWMD prune stage).
+    a (Q, B, w), mask (Q, B), b (V, w) -> minM (Q, V); all-masked rows
+    come out +inf. On the card, B > 128 runs as one launch per 128-row
+    chunk, each folding its min into the output.
+
+    ``vocab_ids`` (Vc,) int64 switches to K2s
+    (:func:`rwmd_min_cdist_subset`): only those rows of b, and the result
+    is (Q, Vc) in ``vocab_ids`` order."""
+    if vocab_ids is not None:
+        return rwmd_min_cdist_subset(a, mask, b, vocab_ids)
+    _rwmd_checks(a, mask, b)
+    dev = a.device
     if dev.type == "cpu":
         return ref.rwmd_min_cdist_ref(a, mask, b)
-    if bq < 1:
-        raise ValueError("rwmd_min_cdist needs at least one support row")
+    q, bq, w = a.shape
+    v = b.shape[0]
     out = torch.empty((q, v), dtype=torch.float32, device=dev)
     _raise_on(_lib().rwmd_min_cdist_launch(
         _ptr(a), _ptr(mask), _ptr(b), _ptr(out), q, bq, w, v,
@@ -86,6 +98,38 @@ def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor,
 
 
 rwmd_min_cdist.launches = 0
+
+
+def rwmd_min_cdist_subset(a: torch.Tensor, mask: torch.Tensor,
+                          b: torch.Tensor,
+                          vocab_ids: torch.Tensor) -> torch.Tensor:
+    """K2s, the cascade's candidate-vocabulary min-cdist: K2 over the rows
+    ``b[vocab_ids]`` only. a (Q, B, w), mask (Q, B), b (V, w), vocab_ids
+    (Vc,) int64 with every id in [0, V) -> (Q, Vc) in ``vocab_ids`` order.
+    The kernel gathers the rows in its load; no (Vc, w) copy is made. Vc
+    needs no padding. Launches as K2 does, once per 128 support rows.
+    On the CPU an id outside [0, V) raises ``ValueError``; the card does
+    not check them (that would cost a sync per launch), so a caller on the
+    card checks its ids on the host, as the cascade does."""
+    _rwmd_checks(a, mask, b)
+    dev = a.device
+    _check("vocab_ids", vocab_ids, 1, torch.int64, dev)
+    if dev.type == "cpu":
+        if vocab_ids.numel() and (int(vocab_ids.min()) < 0
+                                  or int(vocab_ids.max()) >= b.shape[0]):
+            raise ValueError(f"vocab_ids must lie in [0, {b.shape[0]})")
+        return ref.rwmd_min_cdist_subset_ref(a, mask, b, vocab_ids)
+    q, bq, w = a.shape
+    vc = vocab_ids.shape[0]
+    out = torch.empty((q, vc), dtype=torch.float32, device=dev)
+    _raise_on(_lib().rwmd_min_cdist_subset_launch(
+        _ptr(a), _ptr(mask), _ptr(b), _ptr(vocab_ids), _ptr(out), q, bq, w,
+        b.shape[0], vc, _stream(dev)), "rwmd_min_cdist_subset")
+    rwmd_min_cdist_subset.launches += -(-bq // RWMD_SUPPORT_CHUNK)
+    return out
+
+
+rwmd_min_cdist_subset.launches = 0
 
 
 def _refuse_unported(tol, resmask, gemm: str) -> None:
@@ -304,7 +348,7 @@ def sinkhorn_wmd_kernel(r: torch.Tensor, vecs_sel: torch.Tensor,
 
 
 _COUNTED = (rwmd_min_cdist, sinkhorn_fused_all_batched, cdist_exp,
-            sinkhorn_fused_all, sddmm_spmm_step)
+            sinkhorn_fused_all, sddmm_spmm_step, rwmd_min_cdist_subset)
 
 
 def reset_launches() -> None:

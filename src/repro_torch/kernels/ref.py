@@ -94,6 +94,14 @@ def rwmd_min_cdist_ref(a: torch.Tensor, mask: torch.Tensor,
     return d.min(dim=1).values
 
 
+def rwmd_min_cdist_subset_ref(a: torch.Tensor, mask: torch.Tensor,
+                              b: torch.Tensor,
+                              vocab_ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2s: K2 over the vocabulary rows ``b[vocab_ids]``
+    -> (Q, Vc) in ``vocab_ids`` order."""
+    return rwmd_min_cdist_ref(a, mask, b[vocab_ids])
+
+
 def reconstruct_gm_ref(g: torch.Tensor, lam: float) -> torch.Tensor:
     """GM = -G*log(G)/lam with G == 0 entries mapped to 0."""
     pos = g > 0

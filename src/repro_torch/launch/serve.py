@@ -3,12 +3,18 @@ server and the async serving runtime are not ported yet).
 
 Scores ``--batch-queries`` stream requests per step through the
 persistent engine: exhaustive ``query_batch`` by default, or the staged
-top-k retrieval (prune -> solve -> rank) with ``--top-k K``. Prints one
-JSON record with the per-batch latency and the card it ran on::
+top-k retrieval (prune -> solve -> rank) with ``--top-k K``; ``--prune
+ivf+...`` runs the IVF cascade (``--nprobe P`` clusters per query,
+``--n-clusters C|auto`` at index build) and ``--mode refine`` the
+rank-then-refine search (``--refine-factor F``). Prints one JSON record
+with the per-batch latency and the card it ran on::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
         --prune rwmd --n-docs 5000 --vocab 100000 --embed-dim 300 \\
         --precision log --lam 10
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
+        --prune ivf+wcd+rwmd --nprobe 4 --n-clusters auto --n-docs 5000 \\
+        --vocab 100000 --embed-dim 300 --precision log --lam 10
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --device cpu \\
         --n-docs 64 --vocab 512 --embed-dim 16 --steps 3   # host run
 """
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.index import WmdEngine, build_index
+from repro_torch.core.prune import PRUNERS
 from repro_torch.core.sinkhorn import LamUnderflowError
 from repro_torch.data.corpus import make_corpus
 from repro_torch.data.pipeline import wmd_request_stream
@@ -37,16 +44,20 @@ def serve_wmd(args) -> dict:
     device = resolve_device(args.device)
     corpus = make_corpus(vocab_size=args.vocab, embed_dim=args.embed_dim,
                          n_docs=args.n_docs, n_queries=8, seed=0)
-    index = build_index(corpus.docs, corpus.vecs, device=device)
+    index = build_index(corpus.docs, corpus.vecs, device=device,
+                        n_clusters=args.n_clusters)
     engine = WmdEngine(index, lam=args.lam, n_iter=args.n_iter,
                        impl=args.impl, precision=args.precision)
     reqs = wmd_request_stream(corpus)
     bq = max(1, args.batch_queries)
     prune = None if args.prune == "none" else args.prune
+    nprobe = args.nprobe if args.nprobe > 0 else None
 
     def score(batch):
         if args.top_k > 0:
-            return engine.search(batch, args.top_k, prune=prune)
+            return engine.search(batch, args.top_k, prune=prune,
+                                 nprobe=nprobe, mode=args.mode,
+                                 refine_factor=args.refine_factor)
         return engine.query_batch(batch)
 
     times, solved = [], []
@@ -95,8 +106,14 @@ def serve_wmd(args) -> dict:
     if args.top_k > 0:
         rec["top_k"] = args.top_k
         rec["prune"] = args.prune
+        if args.mode != "exact":
+            rec["mode"] = args.mode
+            rec["refine_factor"] = args.refine_factor
         if solved:
             rec["solved_frac"] = float(np.mean(solved)) / args.n_docs
+        if args.prune.startswith("ivf"):
+            rec["n_clusters"] = index.clusters.n_clusters
+            rec["nprobe"] = nprobe if nprobe else index.clusters.n_clusters
     print(json.dumps(rec))
     return rec
 
@@ -112,8 +129,23 @@ def main(argv=None) -> None:
                     help="> 0: staged top-k retrieval (prune->solve->rank) "
                          "instead of exhaustive scoring")
     ap.add_argument("--prune", default="rwmd",
-                    choices=["none", "wcd", "rwmd", "wcd+rwmd"],
-                    help="lower bound for the prune stage (with --top-k)")
+                    choices=["none", *PRUNERS],
+                    help="lower bound or IVF cascade for the prune stage "
+                         "(with --top-k)")
+    ap.add_argument("--nprobe", type=int, default=0,
+                    help="ivf cascades: probe this many clusters per query "
+                         "(0 = all = exact top-k)")
+    ap.add_argument("--mode", default="exact", choices=["exact", "refine"],
+                    help="with --top-k: 'refine' ranks candidates by the "
+                         "bound and solves only the best refine-factor*k "
+                         "per query")
+    ap.add_argument("--refine-factor", type=int, default=4,
+                    help="--mode refine: solve budget multiple (k' = "
+                         "refine_factor*k)")
+    ap.add_argument("--n-clusters", default=None,
+                    help="IVF cluster count at index build (default: "
+                         "sqrt(n_docs); 'auto' sweeps cluster-radius "
+                         "statistics)")
     ap.add_argument("--precision", default="fp32", choices=["fp32", "log"],
                     help="log: the log-domain solve (underflow-free at any "
                          "lam)")

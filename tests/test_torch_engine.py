@@ -158,9 +158,12 @@ def test_edge_queries_and_unported_options(small_corpus, carried):
                dict(scope="chunk")):
         with pytest.raises(NotImplementedError):
             WmdEngine(index, **kw)
-    with pytest.raises(NotImplementedError):
-        eng.search([small_corpus.queries[0]], 3, prune="ivf+wcd+rwmd")
-    with pytest.raises(NotImplementedError):
-        eng.search([small_corpus.queries[0]], 3, mode="refine")
+    # the IVF cascade and refine mode are ported (tests/test_torch_cascade.py)
+    casc = eng.search([small_corpus.queries[0], empty], 3,
+                      prune="ivf+wcd+rwmd")
+    np.testing.assert_array_equal(casc.indices[0], res.indices[0])
+    assert (casc.indices[1] == -1).all() and casc.solved[1] == 0
+    with pytest.raises(ValueError, match="refine"):
+        eng.search([small_corpus.queries[0]], 3, prune=None, mode="refine")
     with pytest.raises(ValueError):
         eng.search([small_corpus.queries[0]], 3, prune="nope")

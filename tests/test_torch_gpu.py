@@ -191,3 +191,87 @@ def test_one_to_many_on_card_matches_host(impl):
         assert got.device.type == "cuda"
         tol = 1e-3 if impl == "kernel" else 1e-4
         torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,vc", [(24, 1000), (48, 128), (200, 3000)])
+def test_rwmd_min_cdist_subset_matches_plain(rng, b, vc):
+    """K2s: ids in any order, with repeats (the cascade pads with
+    vids[0]) and a ragged last tile; b=200 runs as two launches."""
+    dev = _card()
+    q, w, v = 4, 300, 20000
+    a = torch.tensor(rng.standard_normal((q, b, w)), dtype=torch.float32,
+                     device=dev)
+    mask = torch.tensor(rng.random((q, b)) > 0.3, dtype=torch.float32,
+                        device=dev)
+    mask[:, 0] = 1.0
+    mask[-1] = 0.0                            # an all-masked (filler) row
+    vocab = torch.tensor(rng.standard_normal((v, w)), dtype=torch.float32,
+                         device=dev)
+    ids = rng.choice(v, vc, replace=False)
+    ids[-vc // 4:] = ids[0]                   # padded tail repeats ids[0]
+    ids = torch.tensor(ids, dtype=torch.int64, device=dev)
+    before = ops.rwmd_min_cdist_subset.launches
+    got = ops.rwmd_min_cdist(a, mask, vocab, vocab_ids=ids)
+    torch.cuda.synchronize()
+    assert ops.rwmd_min_cdist_subset.launches == before + -(-b // 128)
+    assert got.shape == (q, vc)
+    want = ref.rwmd_min_cdist_subset_ref(a, mask, vocab, ids)
+    assert torch.isinf(got[-1]).all()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+    # the same columns as the full sweep
+    full = ops.rwmd_min_cdist(a, mask, vocab)[:, ids]
+    torch.testing.assert_close(got[fin], full[fin], rtol=1e-5, atol=1e-4)
+
+
+def _carry_to(index, dev):
+    """The same index (clusters, pivots, storage order) on another device."""
+    from repro_torch.core.index import index_from_arrays
+    cl = index.clusters
+    arrays = {"idx": index.docs_host.idx, "val": index.docs_host.val,
+              "vecs": index.vecs.cpu().numpy(),
+              "centroids": index.centroids.cpu().numpy(),
+              "n_groups": len(index.groups),
+              "c_centers": cl.centers.cpu().numpy(), "c_assign": cl.assign,
+              "c_order": cl.order, "c_starts": cl.starts,
+              "c_radii": cl.radii, "ext_ids": index.ext_ids,
+              "remap": index.remap, "pivots": index.pivots.cpu().numpy(),
+              "doc_pivot_d": index.doc_pivot_d.cpu().numpy()}
+    return index_from_arrays(arrays, device=dev)
+
+
+@pytest.mark.gpu
+def test_cascade_and_refine_on_card_match_host():
+    """The IVF cascade and refine search on the card against the same
+    calls on the host (the kernels' plain versions), over one index
+    carried to both devices. The card's K block (cuBLAS) and the host's
+    GEMM sum in different orders, which at the dedup corpus' exact word
+    matches moves distances by ~1e-3 (ROADMAP queue 3, P1): held at the
+    reference's spread, R2."""
+    from repro_torch.core.index import WmdEngine, build_index
+    from repro_torch.data.corpus import dedup_corpus
+    dev = _card()
+    c = dedup_corpus(512, vocab=4096, embed_dim=64, seed=2)
+    host = build_index(c.docs, c.vecs, device="cpu", n_clusters="auto")
+    card = _carry_to(host, dev)
+    qs = list(c.queries)
+    calls = [dict(prune=p, nprobe=npb) for p in
+             ("ivf+wcd+rwmd", "ivf+pivot+wcd+rwmd", "ivf+rwmd")
+             for npb in (None, 2)]
+    calls += [dict(prune="ivf+pivot+wcd+rwmd", mode="refine",
+                   refine_factor=rf) for rf in (1, 4)]
+    for lam, precision in ((1.0, "fp32"), (10.0, "log")):
+        eh = WmdEngine(host, lam=lam, n_iter=15, precision=precision)
+        ec = WmdEngine(card, lam=lam, n_iter=15, precision=precision)
+        for kw in calls:
+            ops.reset_launches()
+            got = ec.search(qs, 10, **kw)
+            torch.cuda.synchronize()
+            assert ops.launches()["rwmd_min_cdist_subset"] > 0, kw
+            want = eh.search(qs, 10, **kw)
+            np.testing.assert_array_equal(got.indices, want.indices)
+            np.testing.assert_array_equal(got.solved, want.solved)
+            np.testing.assert_allclose(got.distances, want.distances,
+                                       rtol=1e-3, atol=5e-3)

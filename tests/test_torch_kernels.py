@@ -41,6 +41,45 @@ def test_rwmd_min_cdist_plain_matches_reference(rng):
     np.testing.assert_allclose(got, oracle, **K2_TOL)
 
 
+@pytest.mark.parametrize("b_rows", [12, 200])
+def test_rwmd_min_cdist_subset_plain_matches_pallas(rng, b_rows):
+    """K2s's plain version (and the wrapper's vocab_ids path on the CPU)
+    against the Pallas rwmd_min_cdist_subset in interpret mode, at
+    tests/test_ivf.py's shapes and tolerance; b_rows=200 is a query wider
+    than one launch's 128 support rows on the card."""
+    a = rng.standard_normal((3, b_rows, 40)).astype(np.float32)
+    b = rng.standard_normal((300, 40)).astype(np.float32)
+    mask = (rng.random((3, b_rows)) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    vids = np.unique(rng.integers(0, 300, 70)).astype(np.int32)
+    ta, tm, tb = map(torch.from_numpy, (a, mask, b))
+    tv = torch.from_numpy(vids.astype(np.int64))
+    got = ops.rwmd_min_cdist(ta, tm, tb, vocab_ids=tv).numpy()
+    plain = ref.rwmd_min_cdist_subset_ref(ta, tm, tb, tv).numpy()
+    pallas = np.asarray(ref_ops.rwmd_min_cdist(
+        jnp.asarray(a), jnp.asarray(mask), jnp.asarray(b), block_v=128,
+        interpret=True, vocab_ids=jnp.asarray(vids)))
+    assert got.shape == pallas.shape == (3, vids.size)
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-4)
+    full = ops.rwmd_min_cdist(ta, tm, tb).numpy()
+    np.testing.assert_allclose(got, full[:, vids], rtol=1e-6, atol=1e-6)
+
+
+def test_rwmd_min_cdist_subset_validates_ids(rng):
+    a, mask, b = map(torch.from_numpy, _k2_inputs(rng))
+    with pytest.raises(TypeError, match="int64"):
+        ops.rwmd_min_cdist(a, mask, b,
+                           vocab_ids=torch.arange(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="1-D"):
+        ops.rwmd_min_cdist(a, mask, b, vocab_ids=torch.zeros(
+            (2, 2), dtype=torch.int64))
+    for bad in (-1, b.shape[0]):
+        with pytest.raises(ValueError, match="vocab_ids must lie in"):
+            ops.rwmd_min_cdist(a, mask, b, vocab_ids=torch.tensor(
+                [0, bad], dtype=torch.int64))
+
+
 def _k1_inputs(rng, log_domain, q=2, v_r=8, n=256, length=8, lam=3.0):
     """G as the solver sees it: gathered K = exp(-lam*M), or log K; pad
     query rows (G 0 / -inf, r 1) and pad docs (val 0)."""
@@ -162,10 +201,13 @@ def test_cpu_tensors_leave_launch_counts_at_zero(rng):
                   torch.ones(a.shape[1]), lam)
     ops.sinkhorn_fused_all(gt, vt, rt, lam, 2)
     ops.sddmm_spmm_step(gt, gt, vt, torch.ones(gt.shape[:2]))
+    ops.rwmd_min_cdist(*map(torch.from_numpy, (a, mask, b)),
+                       vocab_ids=torch.arange(5))
     assert ops.launches() == {"rwmd_min_cdist": 0,
                               "sinkhorn_fused_all_batched": 0,
                               "cdist_exp": 0, "sinkhorn_fused_all": 0,
-                              "sddmm_spmm_step": 0}
+                              "sddmm_spmm_step": 0,
+                              "rwmd_min_cdist_subset": 0}
 
 
 @pytest.mark.parametrize("kwargs", [dict(tol=1e-3), dict(resmask=True),
