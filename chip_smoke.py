@@ -18,7 +18,14 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
 - on the reference benchmark's near-duplicate corpus at the same widths
   (4992 documents, 4 queries), the IVF cascade ``search(prune="ivf+...",
   nprobe=...)`` (K2s and K1) and ``mode="refine"``, checked against the
-  exhaustive top-k, and ``append_docs`` checked against a rebuild.
+  exhaustive top-k, and ``append_docs`` checked against a rebuild;
+- the adaptive and bf16 solve: K1 and K4 with ``tol``/``check_every``/
+  ``resmask`` and bf16 operands, K3 with bf16 operands, each against its
+  plain version; on the near-duplicate corpus ``search`` under ``tol``
+  (fig10's operating points, ``scope="query"`` and ``"chunk"``, fp32, log
+  and bf16) checked against the exhaustive top-k under the same ``tol``
+  and against the fixed-iteration top-k; and the one-query kernel path
+  under ``tol`` and bf16 against the sparse solver.
 
 Each path runs once with the launch counts set to 0 just before it and
 read just after. Prints one JSON object per phase; the line before the
@@ -119,6 +126,33 @@ NPROBES = (1, 4, 16, None)
 REFINE_FACTORS = (1, 2, 4)
 # the refine phases rank by the pivot cascade, as the serve CLI's example
 REFINE_PRUNE = "ivf+pivot+wcd+rwmd"
+# the adaptive solve's operating points: fig10's (lam=0.25, tol=3e-2, two
+# iterations per check, the paper's 15 as the cap) and its per-query
+# scope points (lam=1, and lam=10 in the log domain, tol=1e-2, cap 60)
+# (benchmarks/fig10_solve_adaptive.py)
+FIG10 = dict(lam=0.25, n_iter=15, tol=3e-2, check_every=2)
+PQ = dict(lam=1.0, n_iter=60, tol=1e-2, check_every=2)
+PQ_LOG = dict(lam=CONFIG.lam, n_iter=60, tol=1e-2, check_every=2,
+              precision="log")
+# fig10's bf16 tolerance against the fixed fp32 top-10: every doc a bf16
+# search returns lies within it of the fp32 10th distance
+BF16_RTOL = 5e-2
+# ... and fig10 holds every bf16 distance to fp32 at BF16_RTOL too, but
+# that tolerance was set at w=64: the bf16 operands of the K block's
+# w-long product move M by more at w=300, where the reference's own bf16
+# engine differs from fp32 by 7.4% (ROADMAP queue 3, R6), and in phase
+# adaptive the port's bf16 and bf16+log engines by up to 7.9% (on an H100
+# at 700 W). Distances are held at that size, rounded up
+BF16_W300_RTOL = 1e-1
+# K1 (K4) exits per document, the sparse solver and the reference's
+# kernel for all documents (a block) at once: a converged document stops
+# earlier, which moves its distance by up to 4.8e-2 relative on the CPU
+# dedup fixtures (ROADMAP queue 3, P3)
+P3_RTOL = 5e-2
+# the one-query kernel path with bf16 operands against the sparse solver:
+# K3 and cuBLAS sum M in another order (P1; 4.2e-4 measured on the card),
+# held at the reference's own spread R2
+BF16_P1_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -1084,6 +1118,372 @@ def phase_append(corpus, dev) -> None:
     emit(rec)
 
 
+def k1_inputs(index, sup, mask, lam: float, log_domain: bool = False,
+              gemm: str = "fp32"):
+    """K1's G and val for a staged chunk against every document of the
+    index, as the engine gathers them (N padded to a power of two)."""
+    grp = index.subset(np.arange(index.n_docs, dtype=np.int32),
+                       storage=True)
+    kq = _compute_kq(sup, mask, index.vecs, index.vecs_sq, lam, gemm=gemm,
+                     log_domain=log_domain)
+    return _gather_g(kq, grp.docs.idx), grp.docs.val
+
+
+def solve_bound(rows, val, counts, n_blocks: int) -> tuple[float, str]:
+    """K1's (K4's) bound from this run's data: G at live (query row, doc
+    slot) pairs read once, val at live slots, r, the outputs; per live
+    pair 4 flops per realized iteration of its doc (``counts`` (Q, N)),
+    plus the last SDDMM and the distance line. rows (Q,) live query rows,
+    val (N, L)."""
+    slots = (val > 0).sum(dim=1).double()
+    rows = rows.double()
+    q, n = counts.shape
+    n_bytes = 4.0 * (float(rows.sum() * slots.sum()) + float(slots.sum())
+                     + float(rows.numel()) + q * n + q * n_blocks)
+    pairs = rows[:, None] * slots[None, :]
+    n_flops = float((pairs * (4.0 * counts.double() + 4.0)).sum())
+    return bound_ms(n_bytes, n_flops)
+
+
+def phase_k1_adaptive(index, sup, r, mask, label: str) -> dict:
+    """K1's adaptive exit on one staged chunk at fig10's operating point:
+    tol=0 at the cap against fixed mode, tol=3e-2 against the plain
+    version (distances and per-block counts), the resmask contract, and
+    device time fixed against adaptive with the bounds from the realized
+    per-document counts."""
+    lam, n_iter = FIG10["lam"], FIG10["n_iter"]
+    tol, ce = FIG10["tol"], FIG10["check_every"]
+    g, val = k1_inputs(index, sup, mask, lam)
+    q, _, n, _ = g.shape
+
+    def fixed():
+        return ops.sinkhorn_fused_all_batched(g, val, r, lam, n_iter,
+                                              with_iters=True)
+
+    def adaptive(t=tol, resmask=None):
+        return ops.sinkhorn_fused_all_batched(
+            g, val, r, lam, n_iter, tol=t, check_every=ce, resmask=resmask,
+            with_iters=True)
+
+    w_fix, _ = fixed()
+    w_cap, it_cap = adaptive(0.0)
+    w_ad, it_ad = adaptive()
+    torch.cuda.synchronize()
+    # tol=0 stops only a doc whose residual is exactly 0 (an fp32 fixed
+    # point, or an empty scope: pad docs, filler queries); every other doc
+    # runs to the cap, and the distances are fixed mode's
+    live_docs = (val > 0).any(dim=1)
+    live_q = mask.sum(dim=1) > 0
+    cap_diff = float(((w_cap - w_fix).abs() / w_fix.abs().clamp(min=1e-30))
+                     [live_q][:, live_docs].max())
+    if cap_diff > 1e-6:
+        raise AssertionError(f"K1 tol=0 at the cap differs from fixed mode "
+                             f"by {cap_diff} relative (limit 1e-6)")
+    held = ref.hold_solve(w_ad, it_ad, g, val, r, lam, n_iter, K1_RTOL,
+                          K1_ATOL, tol=tol, check_every=ce)
+    w1, i1 = adaptive(resmask=torch.ones((q, n), device=g.device))
+    w0, i0 = adaptive(resmask=torch.zeros((q, n), device=g.device))
+    torch.cuda.synchronize()
+    # bit for bit, NaN where NaN (a filler query's linear-domain rows)
+    if not (torch.equal(w1.isnan(), w_ad.isnan())
+            and torch.equal(w1.nan_to_num(), w_ad.nan_to_num())
+            and torch.equal(i1, it_ad)):
+        raise AssertionError("K1: an all-ones resmask changed the result")
+    if not (i0 == 1 + ce).all():
+        raise AssertionError(f"K1: an empty scope did not stop at the "
+                             f"first check ({1 + ce})")
+    _, counts, _ = ref.solve_per_doc_ref(g, val, r, lam, n_iter, tol=tol,
+                                         check_every=ce)
+    rows = mask.sum(dim=1)
+    nb = it_ad.shape[1]
+    bms, by = solve_bound(rows, val, counts, nb)
+    fix_bms, fix_by = solve_bound(rows, val, torch.full_like(counts, n_iter),
+                                  nb)
+    rec = {"phase": "k1_adaptive", "name": "sinkhorn_fused_all_batched",
+           "inputs": label, **FIG10,
+           "shape": {"Q": q, "v_r": g.shape[1], "N": n, "L": g.shape[3],
+                     "live_docs": int(live_docs.sum()),
+                     "live_rows": int(rows.sum())},
+           "cap_equals_fixed_max_rel_diff": cap_diff,
+           "cap_blocks_before_cap": int((it_cap[live_q] < n_iter).sum()),
+           **held,
+           "rtol": K1_RTOL, "atol": K1_ATOL,
+           "mean_live_doc_iters": float(counts[:, live_docs].float().mean()),
+           "empty_scope_iters": 1 + ce,
+           "ms": time_ms(adaptive), "launch_ms": launch_ms(adaptive),
+           "fixed_ms": time_ms(fixed),
+           "plain_ms": time_ms(lambda: ref.sinkhorn_fused_all_batched_ref(
+               g, val, r, lam, n_iter, tol=tol, check_every=ce),
+               reps=3, warmup=1),
+           "bound_ms": bms, "bound_by": by, "fixed_bound_ms": fix_bms,
+           "fixed_bound_by": fix_by, "library_ms": None,
+           "library": "none: no single PyTorch call computes a Sinkhorn "
+                      "solve"}
+    emit(rec)
+    return rec
+
+
+def phase_k1_bf16(index, sup, r, mask) -> dict:
+    """K1 with bf16 operands against its plain version: fixed at lam=1
+    (fp32 K) and lam=10 (log domain), and adaptive at fig10's point."""
+    rec = {"phase": "k1_bf16", "name": "sinkhorn_fused_all_batched",
+           "gemm": "bf16", "rtol": K1_RTOL, "atol": K1_ATOL}
+    for key, lam, log_domain, opts in (
+            ("fixed_lam1", 1.0, False, {}),
+            ("fixed_log_lam10", CONFIG.lam, True, {}),
+            ("adaptive_fig10", FIG10["lam"], False,
+             dict(tol=FIG10["tol"], check_every=FIG10["check_every"]))):
+        g, val = k1_inputs(index, sup, mask, lam, log_domain, "bf16")
+        n_iter = CONFIG.n_iter
+
+        def kernel():
+            return ops.sinkhorn_fused_all_batched(
+                g, val, r, lam, n_iter, gemm="bf16", log_domain=log_domain,
+                with_iters=True, **opts)
+
+        got, it = kernel()
+        torch.cuda.synchronize()
+        held = ref.hold_solve(got, it, g, val, r, lam, n_iter, K1_RTOL,
+                              K1_ATOL, gemm="bf16", log_domain=log_domain,
+                              **opts)
+        _, counts, _ = ref.solve_per_doc_ref(g, val, r, lam, n_iter,
+                                             log_domain, gemm="bf16",
+                                             **opts)
+        bms, by = solve_bound(mask.sum(dim=1), val, counts, it.shape[1])
+        rec["shape"] = list(g.shape)
+        rec[key] = {"lam": lam, "log_domain": log_domain, **opts, **held,
+                    "ms": time_ms(kernel), "launch_ms": launch_ms(kernel),
+                    "plain_ms": time_ms(
+                        lambda: ref.sinkhorn_fused_all_batched_ref(
+                            g, val, r, lam, n_iter, log_domain=log_domain,
+                            gemm="bf16", **opts), reps=3, warmup=1),
+                    "bound_ms": bms, "bound_by": by}
+        del g
+    emit(rec)
+    return rec
+
+
+def phase_k3_bf16(vecs, a, r) -> list[dict]:
+    """K3 with bf16 operands in its three modes, held in squared distance
+    as the fp32 kernel is (P1)."""
+    recs = []
+    v_r, w = a.shape
+    v = vecs.shape[0]
+    for mode, lam, k_only, log_k in (("k_only", FIG10["lam"], True, False),
+                                     ("full", 1.0, False, False),
+                                     ("log_k", CONFIG.lam, True, True)):
+        def kernel():
+            return ops.cdist_exp(a, vecs, r, lam, k_only=k_only, log_k=log_k,
+                                 gemm="bf16")
+
+        def plain():
+            return ref.cdist_exp_ref(a, vecs, r, lam, k_only=k_only,
+                                     log_k=log_k, gemm="bf16")
+
+        got = kernel()
+        torch.cuda.synchronize()
+        errs = ref.hold_cdist_exp(got, a, vecs, r, lam, k_only, log_k,
+                                  gemm="bf16")
+        del got
+        bms, by = k3_bound(v_r, w, v, 1 if k_only else 3)
+        rec = {"phase": "k3_bf16", "name": "cdist_exp", "gemm": "bf16",
+               "mode": mode, "lam": lam,
+               "shape": {"v_r": v_r, "w": w, "V": v}, **errs,
+               "sq_rtol": ref.K3_SQ_RTOL, "ms": time_ms(kernel),
+               "launch_ms": launch_ms(kernel),
+               "plain_ms": time_ms(plain, reps=5, warmup=1),
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "library": "none: no single PyTorch call computes "
+                          "exp(-lam*cdist); torch.cdist gives M alone"}
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def phase_k4_adaptive(vecs, docs, r, vecs_sel) -> dict:
+    """K4 on one paper query's G against every document: the adaptive exit
+    at fig10's point (with a resmask on every other document) and bf16
+    operands (fixed and adaptive), each against its plain version."""
+    lam, n_iter = FIG10["lam"], FIG10["n_iter"]
+    opts = dict(tol=FIG10["tol"], check_every=FIG10["check_every"])
+    rec = {"phase": "k4_adaptive", "name": "sinkhorn_fused_all", **FIG10,
+           "rtol": K4_RTOL, "atol": K4_ATOL}
+    n = docs.val.shape[0]
+    half = (torch.arange(n, device=vecs.device) % 2 == 0).float()
+    for key, gemm, kw in (("adaptive", "fp32", opts),
+                          ("adaptive_resmask", "fp32",
+                           dict(opts, resmask=half)),
+                          ("bf16_fixed", "bf16", {}),
+                          ("bf16_adaptive", "bf16", opts)):
+        k = ref.cdist_exp_ref(vecs_sel, vecs, r, lam, k_only=True, gemm=gemm)
+        g = gather_columns(k, docs.idx)
+
+        def kernel():
+            return ops.sinkhorn_fused_all(g, docs.val, r, lam, n_iter,
+                                          gemm=gemm, with_iters=True, **kw)
+
+        got, it = kernel()
+        torch.cuda.synchronize()
+        held = ref.hold_solve(got, it, g, docs.val, r, lam, n_iter, K4_RTOL,
+                              K4_ATOL, gemm=gemm, **dict(kw))
+        rm = kw.get("resmask")
+        _, counts, _ = ref.solve_per_doc_ref(
+            g[None], docs.val, r[None], lam, n_iter, gemm=gemm,
+            tol=kw.get("tol"), check_every=FIG10["check_every"],
+            resmask=None if rm is None else rm[None])
+        bms, by = solve_bound(torch.tensor([float(g.shape[0])],
+                                           device=g.device),
+                              docs.val, counts, it.shape[0])
+        rec[key] = {"gemm": gemm, "resmask": rm is not None, **held,
+                    "ms": time_ms(kernel), "launch_ms": launch_ms(kernel),
+                    "plain_ms": time_ms(lambda: ref.sinkhorn_fused_all_ref(
+                        g, docs.val, r, lam, n_iter, gemm=gemm, **kw),
+                        reps=3, warmup=1),
+                    "bound_ms": bms, "bound_by": by}
+    rec["shape"] = {"v_r": g.shape[0], "N": n, "L": g.shape[2],
+                    "live_slots": int((docs.val > 0).sum())}
+    emit(rec)
+    return rec
+
+
+def phase_one_query_adaptive(corpus, dev) -> dict:
+    """The one-query kernel path (K3 -> gather -> K4) under tol and with
+    bf16 operands, on the widest paper query, against the sparse solver
+    with the same arguments, and the launches of each path."""
+    vecs = torch.as_tensor(corpus.vecs, device=dev)
+    docs = device_docs(corpus.docs, dev)
+    r, sel, _ = select_support(widest_query(corpus), vecs)
+    lam, n_iter = FIG10["lam"], FIG10["n_iter"]
+    adaptive = dict(tol=FIG10["tol"], check_every=FIG10["check_every"])
+    rec = {"phase": "one_query_adaptive", **FIG10, "launches": {},
+           "max_rel_gap": {}, "rtol": {}}
+    for key, kw, rtol in (("adaptive", adaptive, P3_RTOL),
+                          ("bf16", dict(precision="bf16"), BF16_P1_RTOL),
+                          ("bf16_adaptive", dict(adaptive, precision="bf16"),
+                           P3_RTOL)):
+        torch.cuda.synchronize()
+        ops.reset_launches()              # the path: one kernel-path call
+        got = ops.sinkhorn_wmd_kernel(r, sel, vecs, docs, lam, n_iter, **kw)
+        torch.cuda.synchronize()
+        rec["launches"][key] = ops.launches()
+        for name in ("cdist_exp", "sinkhorn_fused_all"):
+            if rec["launches"][key][name] <= 0:
+                raise AssertionError(f"{name} was not launched by the "
+                                     f"{key} kernel path")
+        want = sinkhorn_wmd_sparse(r, sel, vecs, docs, lam, n_iter, **kw)
+        rec["max_rel_gap"][key] = compare(got, want, rtol, 1e-4,
+                                          f"one query {key}")[1]
+        rec["rtol"][key] = rtol
+    emit(rec)
+    return rec
+
+
+def topk_tolerant(d_fixed, res, band: float, label: str) -> float:
+    """fig10's gate: every returned doc's fixed-mode distance is within
+    ``band`` (2*tol; BF16_RTOL for bf16) of the fixed-mode k-th distance
+    (near-ties may flip at the solve tolerance; nothing outside the band
+    may appear). Returns the worst returned doc's excess over the k-th
+    distance, relative."""
+    worst_rel = 0.0
+    for qi in range(d_fixed.shape[0]):
+        kth = np.sort(d_fixed[qi])[TOP_K - 1]
+        worst = d_fixed[qi, res.indices[qi]].max()
+        if worst > kth * (1.0 + band) + 1e-3:
+            raise AssertionError(f"{label} q{qi}: a returned doc lies "
+                                 f"outside {band} of the fixed top-{TOP_K}")
+        worst_rel = max(worst_rel, float(worst / kth - 1.0))
+    return worst_rel
+
+
+def phase_adaptive(corpus, index) -> dict:
+    """The adaptive solve through search on the dedup corpus at the
+    paper's widths: at fig10's three operating points, scope "query" and
+    "chunk", full-sweep RWMD and the cascade; the staged top-10 equals
+    the exhaustive top-10 under the same tol, every returned doc lies in
+    fig10's 2*tol band of the fixed-mode top-10, bf16 and bf16+log stay
+    within BF16_RTOL of fp32; realized counts per stage and latency fixed
+    against adaptive."""
+    t0 = time.perf_counter()
+    qs = list(corpus.queries)
+    rec = {"phase": "adaptive", "n_docs": index.n_docs, "queries": len(qs),
+           "k": TOP_K, "points": {}}
+    for name, point in (("fig10", FIG10), ("pq_lam1", PQ),
+                        ("pq_log_lam10", PQ_LOG)):
+        base = {k: v for k, v in point.items()
+                if k in ("lam", "n_iter", "precision")}
+        fixed = WmdEngine(index, **base)
+        d_fixed = fixed.query_batch(qs).numpy()
+        out = {"stages": {}, "band_worst_rel": {}, "solved": {}}
+        for scope in ("query", "chunk"):
+            eng = WmdEngine(index, scope=scope, **point)
+            full = eng.query_batch(qs).numpy()
+            ex_i = np.argsort(full, axis=1, kind="stable")[:, :TOP_K]
+            ex_d = np.take_along_axis(full, ex_i, axis=1)
+            for prune in ("rwmd", "ivf+wcd+rwmd"):
+                eng.reset_iter_stats()
+                res = eng.search(qs, TOP_K, prune=prune)
+                label = f"{name} {scope} {prune}"
+                if not np.array_equal(res.indices, ex_i):
+                    raise AssertionError(f"{label}: staged top-{TOP_K} ids "
+                                         "differ from the exhaustive top-"
+                                         f"{TOP_K} under the same tol")
+                np.testing.assert_allclose(res.distances, ex_d,
+                                           rtol=E2E_RTOL, atol=0,
+                                           err_msg=label)
+                out["band_worst_rel"][f"{scope} {prune}"] = topk_tolerant(
+                    d_fixed, res, 2.0 * point["tol"], label)
+                out["solved"][f"{scope} {prune}"] = res.solved.tolist()
+                out["stages"][f"{scope} {prune}"] = {
+                    st: {"mean": float(a.mean()), "max": int(a.max()),
+                         "n": int(a.size)}
+                    for st, a in eng.iter_stats_by_stage().items()}
+        rec["points"][name] = {**point, **out}
+    # bf16 and bf16+log at fig10's point against the fixed fp32 engine,
+    # as fig10 holds them: the search's returned docs within BF16_RTOL of
+    # the fp32 top-10, every distance within BF16_W300_RTOL (R6)
+    d32 = WmdEngine(index, lam=FIG10["lam"],
+                    n_iter=FIG10["n_iter"]).query_batch(qs).numpy()
+    rec["bf16"] = {"band": BF16_RTOL, "rtol": BF16_W300_RTOL}
+    for precision in ("bf16", "bf16+log"):
+        eng = WmdEngine(index, precision=precision, **FIG10)
+        d = eng.query_batch(qs).numpy()
+        out = {"max_rel_diff": float(np.max(np.abs(d - d32) / np.abs(d32)))}
+        for prune in ("rwmd", "ivf+wcd+rwmd"):
+            res = eng.search(qs, TOP_K, prune=prune)
+            out[f"band_worst_rel {prune}"] = topk_tolerant(
+                d32, res, BF16_RTOL, f"{precision} {prune}")
+            out[f"top10_max_rel_diff {prune}"] = float(np.max(np.abs(
+                res.distances - np.take_along_axis(d32, res.indices, 1))
+                / np.take_along_axis(d32, res.indices, 1)))
+        rec["bf16"][precision] = out
+        np.testing.assert_allclose(d, d32, rtol=BF16_W300_RTOL, atol=1e-3,
+                                   err_msg=precision)
+    # the path: one adaptive "ivf+wcd+rwmd" search, launches counted
+    eng = WmdEngine(index, **FIG10)
+    eng.search(qs, TOP_K, prune="ivf+wcd+rwmd")          # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    eng.search(qs, TOP_K, prune="ivf+wcd+rwmd")
+    torch.cuda.synchronize()
+    rec["launches_per_search"] = ops.launches()
+    if rec["launches_per_search"]["sinkhorn_fused_all_batched"] <= 0:
+        raise AssertionError("K1 was not launched by the adaptive search")
+    # latency, fixed against adaptive, fig10's point, both prune specs
+    timings = {}
+    for prune in ("rwmd", "ivf+wcd+rwmd"):
+        for key, e in (("fixed", WmdEngine(index, lam=FIG10["lam"],
+                                           n_iter=FIG10["n_iter"])),
+                       ("adaptive", eng)):
+            e.search(qs, TOP_K, prune=prune)             # warm-up
+            timings[f"{key} {prune}"] = wall_ms(
+                lambda e=e, prune=prune: e.search(qs, TOP_K, prune=prune))
+    rec["wall_ms"] = timings
+    rec["median_ms"] = {k: v["median"] for k, v in timings.items()}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1114,6 +1514,8 @@ def main() -> int:
     k1_lin = phase_k1(index, sup, r, mask, False, 1.0, "main_path")
     k1_log = phase_k1(index, sup, r, mask, True, CONFIG.lam, "main_path")
     phase_k1_tiles(index, sup, r, mask)
+    k1_ad = phase_k1_adaptive(index, sup, r, mask, "main_path")
+    phase_k1_bf16(index, sup, r, mask)
     phase_k1_wide(index, dev)
     # a query wider than one K2 launch's 128 support rows
     phase_k2(index, *paper_chunk(index.vocab_size, dev, width=200, q=2,
@@ -1134,6 +1536,8 @@ def main() -> int:
              torch.as_tensor(rw / rw.sum(), dtype=torch.float32, device=dev),
              "wide_200")
     k4 = phase_k4(vecs, docs, r0, sel0)
+    k3_bf16 = phase_k3_bf16(vecs, sel0, r0)
+    k4_ad = phase_k4_adaptive(vecs, docs, r0, sel0)
     k5 = phase_k5(vecs, docs, r0, sel0)
     del vecs, docs
     torch.cuda.empty_cache()
@@ -1149,6 +1553,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_many_to_many(corpus, dev)
     phase_profile_one_to_many(corpus, dev)
+    oq_ad = phase_one_query_adaptive(corpus, dev)
     del corpus
     torch.cuda.empty_cache()
 
@@ -1163,6 +1568,8 @@ def main() -> int:
     phase_k2s(dindex, sup, mask, vids, "wide_200")
     casc = phase_cascade(dedup, dindex, build_s)
     phase_profile_cascade(dedup, dindex)
+    phase_k1_adaptive(dindex, *main_path_chunk(dedup, dindex), "dedup_chunk")
+    adapt = phase_adaptive(dedup, dindex)
     del dindex
     torch.cuda.empty_cache()
     phase_append(dedup, dev)
@@ -1206,6 +1613,26 @@ def main() -> int:
     kernels[2]["full"] = {key: k3[0][key] for key in keys}
     kernels[2]["log_k_lam10"] = {key: k3[2][key] for key in keys}
     kernels[3]["log_lam10"] = {key: k4[1][key] for key in keys}
+    # the adaptive and bf16 modes: K1's adaptive exit on the main path's
+    # widest chunk, launched by an adaptive "ivf+wcd+rwmd" search of the
+    # dedup queries; K3's and K4's bf16 operands and K4's adaptive exit,
+    # launched by the one-query kernel path with precision="bf16" / tol
+    kernels[1]["adaptive_fig10"] = {
+        **{key: k1_ad[key] for key in keys}, "plain_ms": k1_ad["plain_ms"],
+        "fixed_ms": k1_ad["fixed_ms"], "fixed_bound_ms":
+            k1_ad["fixed_bound_ms"],
+        "mean_live_doc_iters": k1_ad["mean_live_doc_iters"],
+        "library_ms": None,
+        "launches": adapt["launches_per_search"][
+            "sinkhorn_fused_all_batched"]}
+    kernels[2]["bf16_k_only"] = {
+        **{key: k3_bf16[0][key] for key in keys}, "library_ms": None,
+        "launches": oq_ad["launches"]["bf16"]["cdist_exp"]}
+    for mode, launches in (("adaptive", oq_ad["launches"]["adaptive"]),
+                           ("bf16_fixed", oq_ad["launches"]["bf16"])):
+        kernels[3][mode] = {**{key: k4_ad[mode][key] for key in keys},
+                            "library_ms": None,
+                            "launches": launches["sinkhorn_fused_all"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

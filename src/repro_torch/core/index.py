@@ -27,12 +27,14 @@
     each query's best ``refine_factor * k``. On a CPU index the same code
     calls the kernels' plain versions.
 
-Ported so far: ``impl="kernel"`` with fixed ``n_iter`` in fp32 or the log
-domain (``precision="log"``), ``query_batch``, ``search`` in both modes
-with every prune spec of the reference (full sweeps and IVF cascades, with
-``nprobe``), :func:`append_docs` and ``build_index(n_clusters="auto")``.
-The einsum impl, ``tol``, ``scope``, ``warm_start``, bf16 and the
-K-column cache raise ``NotImplementedError`` (ROADMAP queue 1).
+Ported so far: ``impl="kernel"`` with a fixed ``n_iter`` or the adaptive
+solve (``tol``, ``check_every``, ``scope``; ``iter_stats`` counts the
+realized iterations), in every precision (fp32, bf16, log, bf16+log),
+``query_batch``, ``search`` in both modes with every prune spec of the
+reference (full sweeps and IVF cascades, with ``nprobe``),
+:func:`append_docs` and ``build_index(n_clusters="auto")``. The einsum
+impl (``impl="sparse"``) and the K-column cache (``kcache_slots``) raise
+``NotImplementedError`` (ROADMAP queue 1).
 
 fp32 policy: every product here is full fp32. PyTorch's default on the
 card (``torch.backends.cuda.matmul.allow_tf32 is False``) is relied on,
@@ -41,13 +43,15 @@ digits and would move both the prune bounds and the distances.
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from .device import resolve_device
-from .sinkhorn import LamUnderflowError, select_support, underflow_report
+from .sinkhorn import (LamUnderflowError, gemm_round, select_support,
+                       underflow_report)
 from .sinkhorn_sparse import SolvePrecision, gather_columns
 from .sparse import PaddedDocs
 
@@ -629,7 +633,7 @@ def _prepare_query(q, bucket: int, dtype=np.float32):
 
 
 def _compute_kq(sup: torch.Tensor, mask: torch.Tensor, vecs: torch.Tensor,
-                vecs_sq: torch.Tensor, lam: float,
+                vecs_sq: torch.Tensor, lam: float, gemm: str = "fp32",
                 log_domain: bool = False) -> torch.Tensor:
     """Stacked cdist GEMM -> K for one query chunk: (Q, B) ids -> (Q, B, V).
 
@@ -638,11 +642,14 @@ def _compute_kq(sup: torch.Tensor, mask: torch.Tensor, vecs: torch.Tensor,
     the layout the kernel's gather wants (the reference computes the
     transposed product and transposes back for its kernel). Padded rows
     (mask == 0) come out as all-zero K rows, or -inf rows of log K under
-    ``log_domain``."""
+    ``log_domain``. ``gemm="bf16"`` rounds both operands of the product to
+    bf16 (:func:`~.sinkhorn.gemm_round`); the product, its sums and the
+    norms stay fp32."""
     q, b = sup.shape
     a = vecs[sup].reshape(q * b, -1)                     # (Q*B, w)
     a2 = (a * a).sum(-1)                                 # (Q*B,)
-    ab = torch.matmul(a, vecs.T)                         # (Q*B, V)
+    gd = torch.bfloat16 if gemm == "bf16" else None
+    ab = torch.matmul(gemm_round(a, gd), gemm_round(vecs, gd).T)  # (Q*B, V)
     m = torch.sqrt(torch.clamp(a2[:, None] + vecs_sq[None, :] - 2.0 * ab,
                                min=0.0))
     live = mask.reshape(-1, 1) > 0
@@ -681,39 +688,54 @@ class WmdEngine:
     device.
 
     Parameters are the reference's: ``lam``/``n_iter`` (Sinkhorn strength
-    and fixed iteration count), ``min_bucket``, ``max_batch`` (queries per
-    solve chunk), ``pad_q`` (round a chunk's Q up to a power of two with
-    inert fillers), ``prune_slack`` (relative fp margin on the prune
-    threshold) and ``precision`` (``"fp32"`` or ``"log"``). The knobs
-    whose solver paths are not ported yet (``impl="sparse"``, ``tol``,
-    ``scope="chunk"``, ``warm_start``, ``kcache_slots``, bf16) raise
-    ``NotImplementedError``.
+    and iteration count), ``min_bucket``, ``max_batch`` (queries per solve
+    chunk), ``pad_q`` (round a chunk's Q up to a power of two with inert
+    fillers), ``prune_slack`` (relative fp margin on the prune threshold)
+    and ``precision`` (``"fp32"``, ``"bf16"``, ``"log"``, ``"bf16+log"``:
+    bf16 operands with fp32 sums in the K block GEMM and the solve, and/or
+    the underflow-free log domain).
+
+    ``tol`` switches to the adaptive solve: ``n_iter`` becomes a cap, and
+    the solver K1 checks every ``check_every`` iterations, per document,
+    whether the doc-marginal residual (relative to the doc's own scale) is
+    at most ``tol``; realized counts land on ``1 + k*check_every``.
+    ``scope="query"`` (the default) narrows each query's exit test in
+    :meth:`search`'s survivor and refine solves to its own candidates (a
+    survivor outside the scope stops at the first check: its bound keeps
+    it above the threshold at any truncation) and records one realized
+    count per live query; ``scope="chunk"`` tests every doc and records
+    one count per dispatch. ``warm_start`` is accepted and inert, as on
+    the reference's kernel impl (only its einsum impl warm-starts).
+    Realized counts: :meth:`iter_stats`, kept in a ring of
+    ``iter_stats_maxlen`` dispatches.
+
+    ``impl="sparse"`` (the einsum impl) and ``kcache_slots`` are not
+    ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(self, index: CorpusIndex, lam: float = 10.0,
                  n_iter: int = 15, impl: str = "kernel",
                  min_bucket: int = 8, max_batch: int = 4,
                  pad_q: bool = True, prune_slack: float = 1e-3,
-                 tol: float | None = None, precision=None,
-                 scope: str = "query", warm_start: bool = False,
+                 tol: float | None = None, check_every: int = 4,
+                 precision=None, scope: str = "query",
+                 warm_start: bool = False, iter_stats_maxlen: int = 4096,
                  kcache_slots: int | None = None):
         if impl not in ENGINE_IMPLS:
             raise NotImplementedError(
                 f"impl={impl!r}: only the kernel impl is ported; the einsum "
-                "impl 'sparse' comes in a later slice (ROADMAP queue 1)")
+                "impl 'sparse' comes in the next slice, with warm_start's "
+                "effective branch and the K-column cache (ROADMAP queue 1)")
+        if kcache_slots:
+            raise NotImplementedError(
+                "kcache_slots: the K-column cache needs the einsum impl "
+                "'sparse', which comes in the next slice (ROADMAP queue 1)")
         if scope not in ("chunk", "query"):
             raise ValueError(f"scope must be 'chunk' or 'query', "
                              f"got {scope!r}")
+        if tol is not None and int(check_every) < 1:
+            raise ValueError(f"check_every must be >= 1, got {check_every}")
         self.precision = SolvePrecision.parse(precision)
-        for name, unported in (
-                ("tol", tol is not None), ("scope", scope != "query"),
-                ("warm_start", bool(warm_start)),
-                ("kcache_slots", bool(kcache_slots)),
-                ("precision", self.precision.gemm != "fp32")):
-            if unported:
-                raise NotImplementedError(
-                    f"{name} is not ported yet: this engine runs the fixed "
-                    "n_iter fp32/log solve (ROADMAP queue 1, items 2 and 5)")
         self.index = index
         self.device = index.device
         self.lam = float(lam)
@@ -723,7 +745,73 @@ class WmdEngine:
         self.max_batch = int(max_batch)
         self.pad_q = bool(pad_q)
         self.prune_slack = float(prune_slack)
+        self.tol = None if tol is None else float(tol)
+        self.check_every = int(check_every)
+        self.scope = scope
+        self.warm_start = bool(warm_start)
         self.dtype = np.dtype(np.float32)
+        # bounded ring of (stage, iters, per_query, n_live) dispatch
+        # records; iters stays on the device until iter_stats reads it
+        self._iters_pending = collections.deque(
+            maxlen=max(1, int(iter_stats_maxlen)))
+        self._iters_dropped = 0
+
+    # -------------------------------------------------- realized iterations
+    def reset_iter_stats(self) -> None:
+        """Drop the realized-iteration log and the dropped-record count."""
+        self._iters_pending.clear()
+        self._iters_dropped = 0
+
+    @property
+    def iter_stats_dropped(self) -> int:
+        """Dispatch records the bounded ring discarded since the last
+        :meth:`reset_iter_stats`: nonzero means :meth:`iter_stats` is a
+        window over the most recent ``iter_stats_maxlen`` dispatches."""
+        return self._iters_dropped
+
+    def _record_iters(self, stage: str, iters: torch.Tensor,
+                      per_query: bool, n_live: int) -> None:
+        """Log one dispatch's (Qp, blocks) realized counts, unsynced:
+        :meth:`iter_stats` reduces them to one count per live query
+        (``per_query``) or one per dispatch."""
+        if len(self._iters_pending) == self._iters_pending.maxlen:
+            self._iters_dropped += 1    # ring full: the oldest goes
+        self._iters_pending.append((stage, iters, per_query, n_live))
+
+    def iter_stats(self, stage: str | None = None) -> np.ndarray:
+        """Realized Sinkhorn iteration counts since the last
+        :meth:`reset_iter_stats` (the device values are read here, not on
+        the hot path). A query's count in a dispatch is the largest of its
+        docs'. Per-query dispatches (``scope="query"`` with ``tol``) give
+        one entry per live query; the others give the dispatch's largest
+        count once per live query, so both count iterations per query.
+        With ``tol=None`` every entry is ``n_iter``. ``stage`` keeps one
+        solve stage: ``"batch"`` (:meth:`query_batch`), ``"seed"``,
+        ``"survivor"`` or ``"refine"`` (:meth:`search`)."""
+        out = []
+        for st, iters, per_query, n_live in self._iters_pending:
+            if stage is not None and st != stage:
+                continue
+            if per_query:
+                arr = iters.max(dim=1).values.cpu().numpy()[:n_live]
+            else:
+                arr = np.full(n_live, int(iters.max()))
+            out.append(arr.astype(np.int64))
+        if not out:
+            return np.zeros((0,), np.int64)
+        return np.concatenate(out)
+
+    def iter_stats_by_stage(self) -> dict:
+        """:meth:`iter_stats` split by solve stage, in first-seen order."""
+        stages = []
+        for st, *_ in self._iters_pending:
+            if st not in stages:
+                stages.append(st)
+        return {st: self.iter_stats(stage=st) for st in stages}
+
+    def _scoped(self) -> bool:
+        """Per-query residual scoping active for this engine's solves?"""
+        return self.tol is not None and self.scope == "query"
 
     def _ext(self, storage_ids) -> np.ndarray:
         return self.index.to_external(np.asarray(storage_ids))
@@ -775,17 +863,27 @@ class WmdEngine:
 
     def _kq(self, sup, mask) -> torch.Tensor:
         return _compute_kq(sup, mask, self.index.vecs, self.index.vecs_sq,
-                           self.lam, log_domain=self.precision.log_domain)
+                           self.lam, gemm=self.precision.gemm,
+                           log_domain=self.precision.log_domain)
 
-    def _solve_group(self, kq, r, grp: DocGroup) -> torch.Tensor:
+    def _solve_group(self, kq, r, grp: DocGroup, n_live: int,
+                     stage: str = "batch",
+                     qdoc_mask: torch.Tensor | None = None) -> torch.Tensor:
         """Solve one staged chunk against one doc group (a device tensor
         (Qp, N_g), not synced): gather the group's K columns, one launch of
-        the fused solver."""
+        the fused solver. The realized counts go to :meth:`iter_stats`
+        under ``stage``. ``qdoc_mask`` (Qp, N_g) bool scopes each query's
+        adaptive exit to its own candidate docs (``scope="query"``)."""
         from repro_torch.kernels.ops import sinkhorn_fused_all_batched
         g = _gather_g(kq, grp.docs.idx)
-        return sinkhorn_fused_all_batched(
-            g, grp.docs.val, r, self.lam, self.n_iter,
-            log_domain=self.precision.log_domain)
+        scoped = self._scoped()
+        wmd, iters = sinkhorn_fused_all_batched(
+            g, grp.docs.val, r, self.lam, self.n_iter, tol=self.tol,
+            check_every=self.check_every, gemm=self.precision.gemm,
+            log_domain=self.precision.log_domain,
+            resmask=qdoc_mask if scoped else None, with_iters=True)
+        self._record_iters(stage, iters, scoped, n_live)
+        return wmd
 
     def _raise_if_nan(self, wmd_np: np.ndarray, chunk_queries: list) -> None:
         """Every chunk query has support, so NaN here means the lam-driven
@@ -814,8 +912,9 @@ class WmdEngine:
             sup, r, mask = self._prep_chunk([queries[qi] for qi in chunk],
                                             width)
             kq = self._kq(sup, mask)
-            pending.append((chunk, [(grp, self._solve_group(kq, r, grp))
-                                    for grp in self.index.groups]))
+            pending.append((chunk, [
+                (grp, self._solve_group(kq, r, grp, len(chunk)))
+                for grp in self.index.groups]))
         out = np.zeros((len(queries), self.index.n_docs), self.dtype)
         for qi in range(len(queries)):
             if vr[qi] == 0:
@@ -915,10 +1014,12 @@ class WmdEngine:
             sup, r, mask = self._prep_chunk(cq, width)
             kq = self._kq(sup, mask)              # shared by both solves
 
-            def solve(doc_ids):
+            def solve(doc_ids, qmask=None, stage="seed"):
                 # -> (qc, |ids|) host array, NaN-checked
                 grp = self.index.subset(doc_ids, storage=True)
-                w = self._solve_group(kq, r, grp)
+                qm = (None if qmask is None else self._pad_qdoc(
+                    qmask, r.shape[0], grp.docs.idx.shape[0]))
+                w = self._solve_group(kq, r, grp, qc, stage, qm)
                 w = w[:qc, :doc_ids.size].cpu().numpy()
                 self._raise_if_nan(w, cq)
                 return w
@@ -932,6 +1033,15 @@ class WmdEngine:
                 out_d[qi, :order.size] = d_cand[ci, order]
                 solved[qi] = cand.size
         return SearchResult(out_i, out_d, solved)
+
+    def _pad_qdoc(self, qmask, qp: int, n_pad: int) -> torch.Tensor:
+        """A (qc, |ids|) per-query candidate mask (host array or device
+        tensor) padded on the device to the solve's (Qp, N_pad) shape:
+        fillers and pad docs are outside every scope."""
+        out = torch.zeros((qp, n_pad), dtype=torch.bool, device=self.device)
+        out[:qmask.shape[0], :qmask.shape[1]] = torch.as_tensor(
+            qmask, device=self.device)
+        return out
 
     def _threshold(self, d_seed: torch.Tensor, k: int,
                    n_seed: int) -> torch.Tensor:
@@ -949,7 +1059,14 @@ class WmdEngine:
         query's k best-bounded docs (chunk union), threshold, survivor
         solve. Seed picking and the threshold test run on the device; only
         compact id arrays cross to the host. Returns (candidate storage
-        ids, (qc, |cand|) exact distances)."""
+        ids, (qc, |cand|) exact distances).
+
+        With per-query scoping the seed solve's exit covers every seed (any
+        chunkmate's seed can contend for any query's top-k once thresholds
+        exist), and each query's survivor solve covers only the docs whose
+        bound passed its own threshold: a survivor outside that scope stays
+        out of its top-k at any truncation, since RWMD bounds the computed
+        score from below."""
         from .prune import _keep_any
         lb = pruner.lower_bounds(self.index, sup, r, mask)   # (Qp, N)
         seed_pos = torch.topk(-lb[:qc], k, dim=1).indices
@@ -963,13 +1080,18 @@ class WmdEngine:
         cand = np.concatenate([seed, surv])
         if not surv.size:
             return cand, d_seed
-        return cand, np.concatenate([d_seed, solve(surv)], axis=1)
+        qmask_surv = None
+        if self._scoped():
+            surv_dev = torch.as_tensor(surv.astype(np.int64),
+                                       device=lb.device)
+            qmask_surv = lb[:qc, surv_dev] <= thresh[:qc, None]
+        return cand, np.concatenate(
+            [d_seed, solve(surv, qmask_surv, "survivor")], axis=1)
 
-    # The cascade and refine drivers below are the reference's without its
-    # adaptive-solve branches: the per-query residual masks (qmask_seed,
-    # qmask_surv, qmask_own) and the warm start (warm) are only taken with
-    # ``tol`` set, which this engine refuses at construction. They come
-    # with ``tol`` (ROADMAP queue 2, K1 options).
+    # The cascade and refine drivers below are the reference's kernel-impl
+    # paths. Its warm start, and the per-query seed masks that feed only
+    # the warm-start profile, belong to the einsum impl (not ported): the
+    # seed solves run unscoped, as the reference's do.
     def _stage_all(self, queries, chunks):
         """Stage every live query once, at the widest chunk's width (the
         bound stages read the (Q, B) support arrays directly, so one prune
@@ -981,11 +1103,14 @@ class WmdEngine:
 
     def _make_solver(self, queries, chunks, live_q):
         """Stage every v_r chunk once (sup/r/mask and its K block) and
-        return ``solve_all(doc_ids)``, the chunk-looped exact solve over
-        one candidate id array shared by the cascade and refine drivers:
-        a (len(live_q), |ids|) host array with rows in ``live_q`` order.
-        Every chunk's solve is launched before the results come back in
-        one copy; a NaN row raises :class:`LamUnderflowError`."""
+        return ``solve_all(doc_ids, qmask=None, stage="seed")``, the
+        chunk-looped exact solve over one candidate id array shared by the
+        cascade and refine drivers: a (len(live_q), |ids|) host array with
+        rows in ``live_q`` order. ``qmask`` (len(live_q), |ids|) bool, a
+        host array or device tensor, is each query's residual scope under
+        ``scope="query"``. Every chunk's
+        solve is launched before the results come back in one copy; a NaN
+        row raises :class:`LamUnderflowError`."""
         row_of = {qi: g for g, qi in enumerate(live_q)}
         prepped = []
         for chunk, width in chunks:
@@ -994,12 +1119,17 @@ class WmdEngine:
             prepped.append(([row_of[qi] for qi in chunk], cq, r,
                             self._kq(sup, mask)))
 
-        def solve_all(doc_ids):
+        def solve_all(doc_ids, qmask=None, stage="seed"):
             # one gather shared by the chunks; cascade ids are
             # cluster-sorted storage ids, a near-contiguous host slice
             grp = self.index.subset(doc_ids, storage=True)
+            n_pad = grp.docs.idx.shape[0]
             w_all = torch.cat([
-                self._solve_group(kq, r, grp)[:len(rows), :doc_ids.size]
+                self._solve_group(
+                    kq, r, grp, len(rows), stage,
+                    None if qmask is None else self._pad_qdoc(
+                        qmask[rows], r.shape[0], n_pad))[
+                    :len(rows), :doc_ids.size]
                 for rows, _, r, kq in prepped]).cpu().numpy()
             out = np.empty((len(live_q), doc_ids.size), self.dtype)
             lo = 0
@@ -1055,7 +1185,8 @@ class WmdEngine:
         if ids.size == 0:
             return
         qmask_own = np.stack([np.isin(ids, o) for o in own])
-        d = self._make_solver(queries, chunks, live_q)(ids)
+        d = self._make_solver(queries, chunks, live_q)(
+            ids, qmask_own if self._scoped() else None, "refine")
         # rank each query over its own picks only, so the pick-set nesting
         # (and with it recall monotonicity) holds per query
         dm = np.where(qmask_own, d, np.inf)
@@ -1109,8 +1240,22 @@ class WmdEngine:
         surv = pruner.survivors(index, sup_g, r_g, mask_g, cdists, pm,
                                 qcent, thresh, exclude=seed)
         cand = np.concatenate([seed, surv])
-        d_cand = (np.concatenate([d_seed, solve_all(surv)], axis=1)
-                  if surv.size else d_seed)
+        d_cand = d_seed
+        if surv.size:
+            qmask_surv = None
+            if self._scoped():
+                # each query's scope: the final survivors re-bounded by the
+                # cascade's tightest stage (one more dispatch) against its
+                # own threshold
+                sps = _pad_pow2_ids(surv)
+                lbs = pruner.stage_bounds(
+                    pruner.stages[-1], index, sup_g, r_g, mask_g, sps,
+                    surv.size,
+                    pruner.id_qmask(index, pm, sps, surv.size,
+                                    qp=sup_g.shape[0]), qcent=qcent)
+                qmask_surv = lbs[:qg, :surv.size] <= thresh[:qg, None]
+            d_cand = np.concatenate(
+                [d_seed, solve_all(surv, qmask_surv, "survivor")], axis=1)
         cand_ext = self._ext(cand)           # storage -> caller doc ids
         for g, qi in enumerate(live_q):
             order = np.argsort(d_cand[g], kind="stable")[:k]

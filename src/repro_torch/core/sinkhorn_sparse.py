@@ -1,6 +1,6 @@
-"""Sparse Sinkhorn-Knopp WMD — the paper's contribution (§4) — and the
-solve-stage numeric policy (port of ``repro.core.sinkhorn_sparse``; the
-adaptive loops, ``tol``/``check_every``, are not ported yet).
+"""Sparse Sinkhorn-Knopp WMD — the paper's contribution (§4) — the
+solve-stage numeric policy and the convergence-adaptive loops (port of
+``repro.core.sinkhorn_sparse``).
 
 The dense hot line ``v = c.multiply(1 / (K.T @ u))`` computes a (V, N)
 product and throws away all but nnz(c) of it. With
@@ -12,6 +12,14 @@ loop-invariant), each iteration is
     x[k, n] = sum_l G[k, n, l] / r[k] * w[n, l] # SpMM
 
 which is 4*N*L*v_r flops per iteration against the dense 4*N*V*v_r.
+
+The adaptive loops (:func:`adaptive_loop`, :func:`adaptive_loop_scoped`)
+replace the reference's ``lax.while_loop``, which has no eager
+counterpart, with a Python loop that syncs to the host once per check
+(``bool(res > tol)``), i.e. once every ``check_every`` iterations. The
+window is seeded with one iteration, so realized counts land on
+``1 + k*check_every`` and overshoot the ``n_iter`` cap by at most
+``check_every - 1``, as in the reference.
 """
 from __future__ import annotations
 
@@ -153,6 +161,86 @@ def _spmm(g_over_r, w, gemm_dtype=None):
                         gemm_round(w, gemm_dtype))
 
 
+def marginal_residual(w, w_prev, mask) -> torch.Tensor:
+    """Relative doc-marginal residual, the adaptive loops' exit
+    statistic: ``max_doc max_slot |w - w_prev| / max_slot |w|`` over the
+    ``mask``-live slots (the last axis is the slot axis). Masked slots add
+    0 to both the diff and the scale, so pad docs and queries can neither
+    stall the loop nor release it early; an all-masked doc's 0/1e-30 is
+    exactly 0. A NaN propagates (and then ends the loop, as in the
+    reference, whose ``res > tol`` is false for NaN)."""
+    return _doc_ratio(w, w_prev, mask).max()
+
+
+def marginal_residual_per_query(w, w_prev, mask) -> torch.Tensor:
+    """The :func:`marginal_residual` statistic reduced per QUERY: ``w`` is
+    (Q, ..., L) with a leading query axis; each doc's diff is normalized
+    by that doc's own scale before the max over the query's docs. Returns
+    (Q,). ``mask`` is each query's residual scope: a query whose scope is
+    empty reduces to exactly 0 and converges at the first check."""
+    ratio = _doc_ratio(w, w_prev, mask)
+    return ratio.reshape(ratio.shape[0], -1).max(dim=1).values
+
+
+def _doc_ratio(w, w_prev, mask) -> torch.Tensor:
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    diff = torch.where(mask, (w - w_prev).abs(), zero).max(dim=-1).values
+    scale = torch.where(mask, w.abs(), zero).max(dim=-1).values
+    return diff / torch.clamp(scale, min=1e-30)
+
+
+def adaptive_loop(step, residual, x0, n_iter: int, tol: float,
+                  check_every: int):
+    """Convergence-adaptive driver shared by the sparse solvers:
+    ``step(x) -> (x, w)`` runs one iteration and ``residual(w, w_prev)``
+    reduces to the scalar exit statistic (:func:`marginal_residual` with
+    the caller's mask). One seeded iteration, then windows of
+    ``check_every`` iterations until the residual is no longer above
+    ``tol`` or the count reaches ``n_iter``. Returns (x, realized count),
+    the count on ``1 + k*check_every``. One host sync per check."""
+    x, w_prev = step(x0)
+    i = 1
+    while i < n_iter:
+        for _ in range(check_every):
+            x, w = step(x)
+        i += check_every
+        if not bool(residual(w, w_prev) > tol):
+            break
+        w_prev = w
+    return x, i
+
+
+def adaptive_loop_scoped(step, residual, x0, n_iter: int, tol: float,
+                         check_every: int, live_q):
+    """Per-query convergence-adaptive driver: a (Q,) residual vector and
+    a per-query convergence state. ``step(x, active) -> (x, w)`` runs one
+    iteration with the (Q,) bool ``active`` mask; ``residual(w, w_prev)``
+    returns (Q,) (:func:`marginal_residual_per_query`). A query freezes
+    its x (axis 0 is the query axis) once converged, for good; the loop
+    ends when every ``live_q`` query has converged or the count reaches
+    ``n_iter``. Returns ``(x, iters_q)``, iters_q (Q,) int32: the
+    iterations each query's x absorbed (fillers stay at the seed's 1).
+    One host sync per check."""
+    bshape = (-1,) + (1,) * (x0.ndim - 1)
+    x, w_prev = step(x0, live_q)
+    conv = torch.zeros_like(live_q)
+    iters_q = torch.ones(live_q.shape, dtype=torch.int32,
+                         device=live_q.device)
+    i = 1
+    while i < n_iter and bool((live_q & ~conv).any()):
+        active = live_q & ~conv
+        act_b = active.reshape(bshape)
+        for _ in range(check_every):
+            x_new, w = step(x, active)
+            x = torch.where(act_b, x_new, x)
+        i += check_every
+        res = residual(w, w_prev)
+        iters_q = torch.where(active, i, iters_q)
+        conv = conv | (active & (res <= tol))
+        w_prev = w
+    return x, iters_q
+
+
 def _inv(x, guarded: bool):
     """``1/x``; the guarded form maps non-positive entries to 0. The
     linear path keeps the raw division on purpose: an underflowed K
@@ -173,49 +261,85 @@ def _select(live, val, t, guarded: bool):
     return torch.where(ok, val / torch.where(ok, t, 1.0), 0.0)
 
 
+def _step(pre, x, gemm_dtype, guarded: bool):
+    """One fused SDDMM -> SpMM iteration: (x', w)."""
+    w = _select(pre.val > 0, pre.val,
+                _sddmm(pre.G, _inv(x, guarded), gemm_dtype), guarded)
+    return _spmm(pre.G_over_r, w, gemm_dtype), w
+
+
+def _x0(pre) -> torch.Tensor:
+    v_r, n = pre.G.shape[:2]
+    return torch.full((v_r, n), 1.0 / v_r, dtype=torch.float32,
+                      device=pre.G.device)
+
+
 def _iterate(pre, n_iter: int, gemm_dtype=None,
              guarded: bool = False) -> torch.Tensor:
     """The fixed ``n_iter`` fused SDDMM -> SpMM loop from x = 1/v_r."""
-    v_r, n = pre.G.shape[:2]
-    live = pre.val > 0
-    x = torch.full((v_r, n), 1.0 / v_r, dtype=torch.float32,
-                   device=pre.G.device)
+    x = _x0(pre)
     for _ in range(n_iter):
-        w = _select(live, pre.val, _sddmm(pre.G, _inv(x, guarded),
-                                          gemm_dtype), guarded)
-        x = _spmm(pre.G_over_r, w, gemm_dtype)
+        x, _ = _step(pre, x, gemm_dtype, guarded)
     return x
+
+
+def _iterate_adaptive(pre, n_iter: int, tol: float, check_every: int,
+                      gemm_dtype=None, guarded: bool = False,
+                      doc_mask=None):
+    """Convergence-adaptive loop (:func:`adaptive_loop`): ``n_iter`` is a
+    cap and the exit statistic is the doc-marginal residual over live
+    slots, narrowed by ``doc_mask`` (N,) to the docs the caller needs
+    (the others keep iterating but cannot hold the loop open). Returns
+    (x, realized count)."""
+    mask = pre.val > 0
+    if doc_mask is not None:
+        mask = mask & doc_mask[:, None]
+    return adaptive_loop(
+        lambda x: _step(pre, x, gemm_dtype, guarded),
+        lambda w, wp: marginal_residual(w, wp, mask),
+        _x0(pre), n_iter, tol, check_every)
 
 
 def sinkhorn_wmd_sparse(r: torch.Tensor, vecs_sel: torch.Tensor,
                         vecs: torch.Tensor, docs, lam: float, n_iter: int,
                         check_underflow: bool = True, tol=None,
-                        precision=None, return_iters: bool = False):
+                        check_every: int = 4, precision=None,
+                        return_iters: bool = False, doc_mask=None):
     """Sparse fused Sinkhorn WMD: the same distances as the dense Alg. 1.
     ``docs`` holds (N, L) ``idx``/``val`` tensors on ``vecs``' device; pad
     slots (val == 0) give w == 0 and contribute nothing.
 
     ``precision`` is a :class:`SolvePrecision` or its spelling. ``tol``
-    (the convergence-adaptive loop) is not ported yet and raises
-    ``NotImplementedError``; the loop runs ``n_iter`` iterations.
-    ``return_iters=True`` also returns that count.
+    switches to the convergence-adaptive loop (:func:`adaptive_loop`):
+    ``n_iter`` becomes a cap, the residual is checked every
+    ``check_every`` iterations, and realized counts land on
+    ``1 + k*check_every``. ``doc_mask`` (N,) bool narrows the exit test
+    to the docs the caller will read; the distances of the others are
+    still returned, they just cannot delay the exit.
+    ``return_iters=True`` also returns the realized count.
 
     A ``K = exp(-lam*M)`` underflow raises
     :class:`~.sinkhorn.LamUnderflowError` with a host-side diagnosis
     instead of returning NaN distances. The check syncs the (N,) result;
     ``check_underflow=False`` skips it (``one_to_many`` runs its own)."""
-    if tol is not None:
-        raise NotImplementedError(
-            "tol (the adaptive solve) is not ported yet; the sparse solver "
-            "runs a fixed n_iter (ROADMAP queue 1, item 5)")
     precision = SolvePrecision.parse(precision)
     gd = precision.gemm_dtype
     guarded = precision.log_domain
+    if tol is not None and int(check_every) < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
     if precision.log_domain:
         pre = precompute_sparse_log(r, vecs_sel, vecs, docs, lam, gd)
     else:
         pre = precompute_sparse(r, vecs_sel, vecs, docs, lam, gd)
-    u = _inv(_iterate(pre, n_iter, gd, guarded), guarded)
+    if tol is None:
+        x, iters = _iterate(pre, n_iter, gd, guarded), n_iter
+    else:
+        if doc_mask is not None:
+            doc_mask = torch.as_tensor(doc_mask, dtype=torch.bool,
+                                       device=pre.val.device)
+        x, iters = _iterate_adaptive(pre, n_iter, float(tol),
+                                     int(check_every), gd, guarded, doc_mask)
+    u = _inv(x, guarded)
     w = _select(pre.val > 0, pre.val, _sddmm(pre.G, u, gd), guarded)
     # wmd[n] = sum_k u[k,n] * sum_l GM[k,n,l] w[n,l]  (the paper's final
     # line); GM rebuilt from G, never stored
@@ -224,7 +348,7 @@ def sinkhorn_wmd_sparse(r: torch.Tensor, vecs_sel: torch.Tensor,
         wmd = wmd + log_shift_correction(pre.shift, pre.val, lam)
     if check_underflow and r.shape[0] > 0 and bool(torch.isnan(wmd).any()):
         raise LamUnderflowError(underflow_report(lam, vecs_sel, vecs, docs))
-    return (wmd, n_iter) if return_iters else wmd
+    return (wmd, iters) if return_iters else wmd
 
 
 def sinkhorn_wmd_sparse_unfused(r: torch.Tensor, vecs_sel: torch.Tensor,

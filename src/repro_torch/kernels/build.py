@@ -98,14 +98,11 @@ def load() -> ctypes.CDLL:
                                                  i, p]
     lib.rwmd_min_cdist_subset_launch.restype = i
     lib.sinkhorn_fused_batched_launch.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
+        p, p, p, p, p, p, i, i, i, i, i, f, i, i, f, i, i, i, p]
     lib.sinkhorn_fused_batched_launch.restype = i
-    lib.sinkhorn_fused_launch.argtypes = [
-        p, p, p, p, p, i, i, i, i, f, i, i, i, p]
-    lib.sinkhorn_fused_launch.restype = i
     lib.sinkhorn_fused_smem_bytes.argtypes = [i, i, i]
     lib.sinkhorn_fused_smem_bytes.restype = ctypes.c_longlong
-    lib.cdist_exp_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
+    lib.cdist_exp_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, p]
     lib.cdist_exp_launch.restype = i
     lib.sddmm_spmm_step_launch.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.sddmm_spmm_step_launch.restype = i

@@ -9,7 +9,9 @@
 //   K[k, v]  = exp(-lam M[k, v])      (-lam M[k, v] under log_k)
 //   KR[k, v] = K[k, v] / r[k]
 // for query words a (VR, W), vocabulary b (V, W) and weights r (VR,);
-// under k_only only K is written. fp32 throughout, no TF32.
+// under k_only only K is written. fp32 throughout, no TF32; with bf16 the
+// operands of a_k.b_v are rounded to bf16 (the reference's gemm="bf16"),
+// its products and sums and the norms stay fp32.
 //
 // What bounds it on the H100: reading b. At the paper's shape (VR ~ 24,
 // W = 300, V = 100 000) b is 120 MB, ~36 us at 3.35 TB/s; k_only writes
@@ -50,7 +52,7 @@ __device__ __forceinline__ void store8(float* out, const float (&v)[8],
     if (c < n) out[c] = v[c];
 }
 
-template <int BMAX>
+template <int BMAX, bool BF16>
 __global__ void __launch_bounds__(2 * BMAX)
 cdist_exp_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  const float* __restrict__ r, float* __restrict__ m_out,
@@ -68,8 +70,8 @@ cdist_exp_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int vg = tid % 16, kg = tid / 16;
 
   float acc[8][8], b2[8], a2;
-  cdist_tile::product<BMAX>(a + (size_t)k0 * W, B, b, v0, W, V, st, acc,
-                            b2, a2);
+  cdist_tile::product<BMAX, false, BF16>(a + (size_t)k0 * W, B, b, v0, W,
+                                         V, st, acc, b2, a2);
   if (tid < BMAX) {
     a2s[tid] = a2;
     rs[tid] = tid < B ? r[k0 + tid] : 1.f;
@@ -102,7 +104,7 @@ cdist_exp_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <int BMAX>
+template <int BMAX, bool BF16>
 cudaError_t launch(const float* a, const float* b, const float* r, float* m,
                    float* k, float* kr, int VR, int W, int V, float lam,
                    int log_k, cudaStream_t stream) {
@@ -110,31 +112,49 @@ cudaError_t launch(const float* a, const float* b, const float* r, float* m,
   const long long blocks =
       (long long)row_tiles * ((V + kTileV - 1) / kTileV);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cdist_exp_kernel<BMAX><<<(unsigned)blocks, 2 * BMAX, 0, stream>>>(
+  cdist_exp_kernel<BMAX, BF16><<<(unsigned)blocks, 2 * BMAX, 0, stream>>>(
       a, b, r, m, k, kr, VR, W, V, row_tiles, lam, log_k);
   return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_rows(const float* a, const float* b, const float* r,
+                        float* m, float* k, float* kr, int VR, int W, int V,
+                        float lam, int log_k, cudaStream_t s) {
+  switch (VR >= kMaxRows ? kMaxRows : ((VR + 7) / 8) * 8) {
+    case 8:
+      return launch<8, BF16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
+    case 16:
+      return launch<16, BF16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
+    case 24:
+      return launch<24, BF16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
+    case 32:
+      return launch<32, BF16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
+    case 40:
+      return launch<40, BF16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
+    case 48:
+      return launch<48, BF16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
+    case 56:
+      return launch<56, BF16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
+    case 64:
+      return launch<64, BF16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // a (VR, W), b (V, W), r (VR,) -> k (VR, V), and m, kr (VR, V) unless
-// m is null (k_only); fp32, contiguous, on the device. Returns the
-// cudaError_t of the launch.
+// m is null (k_only); fp32, contiguous, on the device; bf16 != 0 rounds
+// the product's operands to bf16. Returns the cudaError_t of the launch.
 extern "C" int cdist_exp_launch(const float* a, const float* b,
                                 const float* r, float* m, float* k,
                                 float* kr, int VR, int W, int V, float lam,
-                                int log_k, void* stream) {
+                                int log_k, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (VR == 0 || V == 0) return 0;
-  switch (VR >= kMaxRows ? kMaxRows : ((VR + 7) / 8) * 8) {
-    case 8: return launch<8>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
-    case 16: return launch<16>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
-    case 24: return launch<24>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
-    case 32: return launch<32>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
-    case 40: return launch<40>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
-    case 48: return launch<48>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
-    case 56: return launch<56>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
-    case 64: return launch<64>(a, b, r, m, k, kr, VR, W, V, lam, log_k, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return (int)(bf16 ? launch_rows<true>(a, b, r, m, k, kr, VR, W, V, lam,
+                                        log_k, s)
+                    : launch_rows<false>(a, b, r, m, k, kr, VR, W, V, lam,
+                                         log_k, s));
 }

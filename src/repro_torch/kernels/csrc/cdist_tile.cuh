@@ -17,8 +17,15 @@
 // (torch's index type); an id outside [0, Vb) loads as a zero row, so a
 // bad id gives a wrong column, never an out-of-bounds read. GATHER is a
 // template parameter so that K2's and K3's loads carry no test for it.
+//
+// With BF16 (K3's gemm="bf16") each product's operands are rounded to bf16
+// (round to nearest even) as they leave shared memory, and the FFMAs
+// accumulate in fp32; the squared norms a2 and b2 stay the unrounded fp32
+// sums, as the reference keeps them. A template parameter, so that K2's
+// and K2s's instantiations compile to the code they compiled to before.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cdist_tile {
@@ -41,7 +48,7 @@ struct Staging {
 // length of `rows`, which then indexes b's Vb rows). Ends with every
 // thread past its last read of `st`; the caller synchronises before
 // reusing it.
-template <int BMAX, bool GATHER = false>
+template <int BMAX, bool GATHER = false, bool BF16 = false>
 __device__ __forceinline__ void product(const float* __restrict__ a, int B,
                                         const float* __restrict__ b, int v0,
                                         int W, int V, Staging<BMAX>& st,
@@ -101,10 +108,25 @@ __device__ __forceinline__ void product(const float* __restrict__ a, int B,
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int c = 0; c < 8; ++c) b2[c] = fmaf(bv[c], bv[c], b2[c]);
+      if constexpr (BF16) {
+        float ar[8], br[8];
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+        for (int c = 0; c < 8; ++c) {
+          ar[c] = __bfloat162float(__float2bfloat16_rn(av[c]));
+          br[c] = __bfloat162float(__float2bfloat16_rn(bv[c]));
+        }
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[r][c] = fmaf(ar[r], br[c], acc[r][c]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      }
     }
   }
 }

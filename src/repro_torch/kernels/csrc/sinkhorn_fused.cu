@@ -7,10 +7,10 @@
 // repro.kernels.ops.sinkhorn_fused_all_batched; and sinkhorn_fused_all
 // (K4; body _fused_kernel -> the same _solve_block), reached from
 // repro.core.wmd.one_to_many(impl="kernel") through
-// repro.kernels.ops.sinkhorn_wmd_kernel. K4 is K1 for one query: its entry
-// point, sinkhorn_fused_launch, launches the same kernels on an (N, 1)
-// grid. Fixed n_iter, fp32, linear or log domain; the adaptive exit
-// (tol/resmask) and bf16 operands are not ported yet.
+// repro.kernels.ops.sinkhorn_wmd_kernel. K4 is K1 for one query: its
+// wrapper launches the same kernels on an (N, 1) grid. Fixed n_iter or the
+// adaptive exit (tol, check_every, resmask); fp32 or bf16 operands; linear
+// or log domain.
 //
 // Per (query q, doc n), with G = g[q, :, n, :] (v_r x L):
 //   x0[k] = 1/(live rows) on rows with any G != 0, else 0
@@ -20,17 +20,42 @@
 //                   x[k] = sum_l (G[k,l]/r[k]) w[l]          (SpMM)
 //   wmd = sum_k u[k] sum_l GM[k,l] w[l],  GM = -G log G / lam (G > 0)
 // Under log_domain g holds log K (pad rows -inf): the tile is shifted by
-// its per-column max and exponentiated in shared memory, and the distance
-// gets the exact correction -sum_l shift[l] val[l] / lam.
+// its per-column max and exponentiated on chip, and the distance gets the
+// exact correction -sum_l shift[l] val[l] / lam.
 //
-// Docs are independent in fixed-iteration mode. The reference starts x
-// from 1/(live rows of a block of block_n docs); here the count is the
-// doc's own. The two differ by a constant factor per doc, which scales x,
-// u and w and cancels in the distance line, so the result does not depend
-// on block_n. In the linear domain w = val/t is not guarded: a K column
-// that underflowed to all zero turns the distance NaN, which the engine
-// raises as LamUnderflowError (the reference's einsum path does the same;
-// its kernel path hides the fault, see ROADMAP queue 3).
+// Adaptive mode (check_every > 0) exits PER DOC. After one seeded
+// iteration and then every check_every iterations the block reduces
+// max_l |w - w_prev| and max_l |w| over the doc's slots in scope (the live
+// slots, val > 0, of a doc whose resmask entry is > 0; every doc without
+// resmask) and stops once diff / max(scale, 1e-30) is not above tol (a NaN
+// stops it, as the reference's res > tol does) or the count reaches
+// n_iter; counts land on 1 + k*check_every. An empty scope gives 0, so
+// such a doc stops at the first check. The reference exits per grid block
+// of 128 docs, which CUDA blocks cannot agree on without a grid-wide sync:
+// here each doc folds its count into its block's iters entry with
+// atomicMax, so the entry is the block's largest, the reference's count
+// wherever the residuals fall monotonically once below tol. The
+// reductions propagate NaN as torch.max does, so each stop decision is the
+// plain version's (kernels/ref.py) up to the order of the sums.
+//
+// bf16 (template BF16): G and G/r are rounded to bf16 once (round to
+// nearest even, __float2bfloat16_rn, as torch's and JAX's casts), after
+// the log-domain shift; u is rounded as the SDDMM operand and w as the
+// SpMM operand; products and sums stay fp32, and the residual and the
+// distance line read the unrounded w, u and G. The register variant
+// rounds each operand once, where it is made: its registers hold round(G)
+// (column threads) and round(G/r) (row threads), u and w are stored both
+// unrounded and rounded, and the distance line rebuilds G from the tile
+// still in shared memory; the shared-memory variant rounds as it reads.
+//
+// Docs are independent. The reference starts x from 1/(live rows of a
+// block of block_n docs); here the count is the doc's own. The two differ
+// by a constant factor per doc, which scales x, u and w and cancels in the
+// distance line and the residual ratio, so the result does not depend on
+// block_n. In the linear domain w = val/t is not guarded: a K column that
+// underflowed to all zero turns the distance NaN, which the engine raises
+// as LamUnderflowError (the reference's einsum path does the same; its
+// kernel path hides the fault, see ROADMAP queue 3).
 //
 // What bounds it on the H100: reading G once. At the paper's widest chunk
 // shape (Q = 4, v_r = 48, N = 8192, L = 48) G is 302 MB, ~90 us at 3.35
@@ -48,10 +73,13 @@
 // the SpMM's row-per-thread reads hit distinct banks) for wider tiles, up
 // to the 227 KB per-block limit. At the main path's widest chunk, on an
 // H100 80GB HBM3 at 700 W, the register variant is 1.28x (log) and 1.61x
-// (linear) faster (chip_smoke.py phase k1_tiles). Both are latency-bound, not bound by
-// bytes: 16 dependent passes per doc, each with block barriers.
+// (linear) faster (chip_smoke.py phase k1_tiles). Both are latency-bound,
+// not bound by bytes: 16 dependent passes per doc, each with block
+// barriers.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 namespace {
@@ -62,14 +90,69 @@ __device__ __forceinline__ float safe_inv(float x) {
   return x > 0.f ? 1.f / x : 0.f;
 }
 
+// x rounded to bf16 and back under BF16 (the operand policy), else x
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (BF16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+// max that propagates NaN, as torch.max does
+__device__ __forceinline__ float nanmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The residual check: the block-wide max of every thread's diff and scale
+// (0 on a thread without a slot in scope), reduced in one order on every
+// thread, and whether the doc stops: its ratio is not above tol. red holds
+// 2 * NT / 32 floats. Every thread of the block calls it (it holds a
+// barrier); the caller writes red again only after later barriers.
+template <int NT>
+__device__ __forceinline__ bool converged(float diff, float scale,
+                                          float tol, float* red) {
+  for (int off = 16; off > 0; off >>= 1) {
+    diff = nanmax(diff, __shfl_xor_sync(0xffffffffu, diff, off));
+    scale = nanmax(scale, __shfl_xor_sync(0xffffffffu, scale, off));
+  }
+  constexpr int NW = NT / 32;
+  const int wid = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[wid] = diff;
+    red[NW + wid] = scale;
+  }
+  __syncthreads();
+  diff = red[0];
+  scale = red[NW];
+  for (int i = 1; i < NW; ++i) {
+    diff = nanmax(diff, red[i]);
+    scale = nanmax(scale, red[NW + i]);
+  }
+  return !(diff / fmaxf(scale, 1e-30f) > tol);
+}
+
+// Both variants run this schedule. A pass is the SDDMM (w from u), then,
+// unless `done` iterations are all the doc takes (done >= end), the SpMM
+// (u from w); the last pass leaves u and w for the distance line. Fixed
+// mode: end = n_iter. Adaptive mode: after each SpMM whose count `done + 1`
+// is a decision point (`next`: the seed's 1, then every check_every), the
+// doc stops (end = done + 1) or sets the next one.
+//   int end = check_every > 0 ? INT_MAX : n_iter, next = 1;
+//   for (done = 0;; ++done) { SDDMM; if (done >= end) break; SpMM;
+//                             if (adaptive && done + 1 == next) decide; }
+
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 sinkhorn_fused_batched_kernel(const float* __restrict__ g,
                               const float* __restrict__ val,
                               const float* __restrict__ r,
+                              const float* __restrict__ resmask,
                               float* __restrict__ wmd,
                               int* __restrict__ iters, int VR, int N, int L,
                               int n_iter, float lam, int log_domain,
-                              int block_n) {
+                              int block_n, float tol, int check_every) {
   extern __shared__ float smem[];
   const int Ls = L | 1;                    // odd row stride: no bank conflicts
   float* G = smem;                         // (VR, Ls)
@@ -77,15 +160,18 @@ sinkhorn_fused_batched_kernel(const float* __restrict__ g,
   float* us = xs + VR;                     // (VR,)
   float* rinv = us + VR;                   // (VR,)
   float* ws = rinv + VR;                   // (L,)
-  float* vals = ws + L;                    // (L,)
+  float* wprev = ws + L;                   // (L,) w at the last decision
+  float* vals = wprev + L;                 // (L,)
   float* shift = vals + L;                 // (L,)
-  float* red = shift + L;                  // (kThreads / 32,)
+  float* red = shift + L;                  // (2 * kThreads / 32,)
 
   const int n = blockIdx.x;
   const int q = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t nl = (size_t)N * L;
   const float* gq = g + (size_t)q * VR * nl + (size_t)n * L;
+  const bool doc_in_scope =
+      resmask == nullptr || resmask[(size_t)q * N + n] > 0.f;
 
   for (int i = tid; i < VR * L; i += kThreads) {
     int k = i / L, l = i % L;
@@ -128,25 +214,45 @@ sinkhorn_fused_batched_kernel(const float* __restrict__ g,
     xs[k] = us[k] > 0.f ? 1.f / cnt : 0.f;
   __syncthreads();
 
-  for (int it = 0; it <= n_iter; ++it) {
+  int end = check_every > 0 ? INT_MAX : n_iter, next = 1;
+  for (int done = 0;; ++done) {
     for (int k = tid; k < VR; k += kThreads) us[k] = safe_inv(xs[k]);
     __syncthreads();
     for (int l = tid; l < L; l += kThreads) {              // SDDMM
       float t = 0.f;
-      for (int k = 0; k < VR; ++k) t = fmaf(G[k * Ls + l], us[k], t);
+      for (int k = 0; k < VR; ++k)
+        t = fmaf(rnd<BF16>(G[k * Ls + l]), rnd<BF16>(us[k]), t);
       const float v = vals[l];
       float inv = log_domain ? safe_inv(t) : 1.f / t;
       ws[l] = v > 0.f ? v * inv : 0.f;
     }
     __syncthreads();
-    if (it == n_iter) break;        // last pass: u and w for the distance
+    if (done >= end) break;         // last pass: u and w for the distance
     for (int k = tid; k < VR; k += kThreads) {             // SpMM
       const float ri = rinv[k];
       float x = 0.f;
-      for (int l = 0; l < L; ++l) x = fmaf(G[k * Ls + l] * ri, ws[l], x);
+      for (int l = 0; l < L; ++l)
+        x = fmaf(rnd<BF16>(G[k * Ls + l] * ri), rnd<BF16>(ws[l]), x);
       xs[k] = x;
     }
     __syncthreads();
+    if (check_every > 0 && done + 1 == next) {              // decide
+      float diff = 0.f, scale = 0.f;
+      for (int l = tid; l < L; l += kThreads) {
+        if (doc_in_scope && vals[l] > 0.f) {
+          diff = nanmax(diff, fabsf(ws[l] - wprev[l]));
+          scale = nanmax(scale, fabsf(ws[l]));
+        }
+        wprev[l] = ws[l];           // each thread reads only its own slots
+      }
+      const bool conv = done > 0 && converged<kThreads>(diff, scale, tol,
+                                                         red);
+      if (conv || done + 1 >= n_iter) {
+        end = done + 1;
+      } else {
+        next = done + 1 + check_every;
+      }
+    }
   }
 
   // distance line: sum_k u[k] sum_l GM[k,l] w[l], GM rebuilt from the tile
@@ -173,10 +279,10 @@ sinkhorn_fused_batched_kernel(const float* __restrict__ g,
       total -= corr / lam;
     }
     wmd[(size_t)q * N + n] = total;
-    if (n % block_n == 0) {
-      const int nb = (N + block_n - 1) / block_n;
-      iters[(size_t)q * nb + n / block_n] = n_iter;
-    }
+    if (iters != nullptr)
+      atomicMax(iters + (size_t)q * ((N + block_n - 1) / block_n) +
+                    n / block_n,
+                end);
   }
 }
 
@@ -186,22 +292,32 @@ sinkhorn_fused_batched_kernel(const float* __restrict__ g,
 // SDDMM and each of KM "row" threads its row G[k, :] for the SpMM and the
 // distance line, so the loop reads only u and w from shared memory, as
 // float4 broadcasts: about one shared load per four FMAs instead of two
-// per FMA. Rows k >= VR and slots l >= L are zero in the registers and
-// add exact zeros. Two block barriers per iteration instead of three.
-template <int KM, int LM>
+// per FMA. Rows k >= VR and slots l >= L are zero in the registers and add
+// exact zeros. Two block barriers per iteration instead of three; a column
+// thread keeps its slot's w at the last decision in a register. Under
+// BF16 the registers hold the rounded operands (round(G), round(G/r)),
+// the loop reads rounded copies ub, wb of u and w, and the distance line
+// rebuilds the unrounded G from Gs.
+template <int KM, int LM, bool BF16>
 __global__ void __launch_bounds__(KM + LM)
 sinkhorn_fused_reg_kernel(const float* __restrict__ g,
                           const float* __restrict__ val,
                           const float* __restrict__ r,
+                          const float* __restrict__ resmask,
                           float* __restrict__ wmd, int* __restrict__ iters,
                           int VR, int N, int L, int n_iter, float lam,
-                          int log_domain, int block_n) {
+                          int log_domain, int block_n, float tol,
+                          int check_every) {
   constexpr int RM = KM > LM ? KM : LM;
   constexpr int NT = KM + LM;
   __shared__ float Gs[KM * (LM + 1)];
   __shared__ __align__(16) float us[KM];
   __shared__ __align__(16) float ws[LM];
-  __shared__ float vals[LM], shift[LM], rinv[KM], red[NT / 32];
+  // the SDDMM's and SpMM's operands under BF16: u and w rounded (the
+  // loops name the arrays directly, so their loads stay shared loads)
+  __shared__ __align__(16) float ub[BF16 ? KM : 4];
+  __shared__ __align__(16) float wb[BF16 ? LM : 4];
+  __shared__ float vals[LM], shift[LM], rinv[KM], red[2 * (NT / 32)];
 
   const int n = blockIdx.x;
   const int q = blockIdx.y;
@@ -263,16 +379,31 @@ sinkhorn_fused_reg_kernel(const float* __restrict__ g,
     for (int i = 0; i < LM; ++i) live = live || reg[i] != 0.f;
   }
   const int cnt = __syncthreads_count(live);
-  if (!is_col) us[k] = live ? safe_inv(1.f / (float)cnt) : 0.f;
+  if (!is_col) {
+    us[k] = live ? safe_inv(1.f / (float)cnt) : 0.f;
+    if constexpr (BF16) ub[k] = rnd<BF16>(us[k]);
+  }
+  // under BF16 the registers take the rounded operands, G/r on the rows
+  if constexpr (BF16) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      reg[i] = rnd<BF16>(is_col ? reg[i] : reg[i] * rinv[k < KM ? k : 0]);
+  }
+  const bool in_scope =
+      is_col && tid < L && vals[tid] > 0.f &&
+      (resmask == nullptr || resmask[(size_t)q * N + n] > 0.f);
   __syncthreads();
 
-  for (int it = 0; it <= n_iter; ++it) {
+  float w_cur = 0.f, w_prev = 0.f;   // column thread: this pass's w, and
+                                     // its w at the last decision
+  int end = check_every > 0 ? INT_MAX : n_iter, next = 1;
+  for (int done = 0;; ++done) {
     if (is_col) {                                           // SDDMM
-      const float4* u4 = reinterpret_cast<const float4*>(us);
       float t = 0.f;
 #pragma unroll
       for (int i = 0; i < KM / 4; ++i) {
-        const float4 u = u4[i];
+        const float4 u = BF16 ? reinterpret_cast<const float4*>(ub)[i]
+                              : reinterpret_cast<const float4*>(us)[i];
         t = fmaf(reg[4 * i + 0], u.x, t);
         t = fmaf(reg[4 * i + 1], u.y, t);
         t = fmaf(reg[4 * i + 2], u.z, t);
@@ -280,25 +411,43 @@ sinkhorn_fused_reg_kernel(const float* __restrict__ g,
       }
       const float v = vals[tid];
       const float inv = log_domain ? safe_inv(t) : 1.f / t;
-      ws[tid] = v > 0.f ? v * inv : 0.f;
+      w_cur = v > 0.f ? v * inv : 0.f;
+      ws[tid] = w_cur;
+      if constexpr (BF16) wb[tid] = rnd<BF16>(w_cur);
     }
     __syncthreads();
-    if (it == n_iter) break;        // last pass: u and w for the distance
+    if (done >= end) break;         // last pass: u and w for the distance
     if (!is_col) {                                          // SpMM
-      const float4* w4 = reinterpret_cast<const float4*>(ws);
-      const float ri = rinv[k];
+      // read here, not hoisted: a loop-invariant 1/r lets the compiler
+      // keep every G/r product in registers beside G, which costs
+      // occupancy (K1 ran 39% slower at the main path's chunk, H100)
+      const float ri = BF16 ? 1.f : rinv[k];
       float x = 0.f;
 #pragma unroll
       for (int i = 0; i < LM / 4; ++i) {
-        const float4 w = w4[i];
+        const float4 w = BF16 ? reinterpret_cast<const float4*>(wb)[i]
+                              : reinterpret_cast<const float4*>(ws)[i];
         x = fmaf(reg[4 * i + 0] * ri, w.x, x);
         x = fmaf(reg[4 * i + 1] * ri, w.y, x);
         x = fmaf(reg[4 * i + 2] * ri, w.z, x);
         x = fmaf(reg[4 * i + 3] * ri, w.w, x);
       }
-      us[k] = k < VR ? safe_inv(x) : 0.f;
+      const float u = k < VR ? safe_inv(x) : 0.f;
+      us[k] = u;
+      if constexpr (BF16) ub[k] = rnd<BF16>(u);
     }
     __syncthreads();
+    if (check_every > 0 && done + 1 == next) {              // decide
+      const float diff = in_scope ? fabsf(w_cur - w_prev) : 0.f;
+      const float scale = in_scope ? fabsf(w_cur) : 0.f;
+      w_prev = w_cur;
+      const bool conv = done > 0 && converged<NT>(diff, scale, tol, red);
+      if (conv || done + 1 >= n_iter) {
+        end = done + 1;
+      } else {
+        next = done + 1 + check_every;
+      }
+    }
   }
 
   // distance line on the row threads: u[k] sum_l GM[k,l] w[l]
@@ -307,7 +456,12 @@ sinkhorn_fused_reg_kernel(const float* __restrict__ g,
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < LM; ++i) {
-      const float gv = reg[i];
+      float gv = reg[i];
+      if constexpr (BF16) {         // the unrounded G, as the tile gave it
+        const float raw = i < L ? Gs[k * (LM + 1) + i] : 0.f;
+        gv = !log_domain ? raw
+             : (i < L && isfinite(raw)) ? expf(raw - shift[i]) : 0.f;
+      }
       const float gm = gv > 0.f ? (-gv * logf(gv)) / lam : 0.f;
       s = fmaf(gm, ws[i], s);
     }
@@ -326,21 +480,30 @@ sinkhorn_fused_reg_kernel(const float* __restrict__ g,
       total -= corr / lam;
     }
     wmd[(size_t)q * N + n] = total;
-    if (n % block_n == 0) {
-      const int nb = (N + block_n - 1) / block_n;
-      iters[(size_t)q * nb + n / block_n] = n_iter;
-    }
+    if (iters != nullptr)
+      atomicMax(iters + (size_t)q * ((N + block_n - 1) / block_n) +
+                    n / block_n,
+                end);
   }
 }
 
-template <int KM, int LM>
-cudaError_t launch_reg(const float* g, const float* val, const float* r,
-                       float* wmd, int* iters, int Q, int VR, int N, int L,
-                       int n_iter, float lam, int log_domain, int block_n,
-                       cudaStream_t stream) {
-  dim3 grid(N, Q);
-  sinkhorn_fused_reg_kernel<KM, LM><<<grid, KM + LM, 0, stream>>>(
-      g, val, r, wmd, iters, VR, N, L, n_iter, lam, log_domain, block_n);
+struct Args {
+  const float *g, *val, *r, *resmask;
+  float* wmd;
+  int* iters;
+  int Q, VR, N, L, n_iter;
+  float lam;
+  int log_domain, block_n;
+  float tol;
+  int check_every;
+};
+
+template <int KM, int LM, bool BF16>
+cudaError_t launch_reg(const Args& a, cudaStream_t stream) {
+  dim3 grid(a.N, a.Q);
+  sinkhorn_fused_reg_kernel<KM, LM, BF16><<<grid, KM + LM, 0, stream>>>(
+      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.VR, a.N, a.L, a.n_iter,
+      a.lam, a.log_domain, a.block_n, a.tol, a.check_every);
   return cudaGetLastError();
 }
 
@@ -353,64 +516,59 @@ bool use_registers(int VR, int L, int variant) {
   return variant == 1 || (variant == 0 && fits_registers(VR, L));
 }
 
+long long smem_bytes(int VR, int L) {
+  return (long long)sizeof(float) *
+         ((long long)VR * (L | 1) + 3LL * VR + 4LL * L + 2 * kThreads / 32);
+}
+
+template <bool BF16>
+cudaError_t launch(const Args& a, int variant, cudaStream_t s) {
+  if (use_registers(a.VR, a.L, variant)) {
+    const bool k32 = a.VR <= 32, l32 = a.L <= 32;
+    if (k32 && l32) return launch_reg<32, 32, BF16>(a, s);
+    if (k32) return launch_reg<32, 64, BF16>(a, s);
+    if (l32) return launch_reg<64, 32, BF16>(a, s);
+    return launch_reg<64, 64, BF16>(a, s);
+  }
+  const size_t smem = (size_t)smem_bytes(a.VR, a.L);
+  cudaError_t err = cudaFuncSetAttribute(
+      sinkhorn_fused_batched_kernel<BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.N, a.Q);
+  sinkhorn_fused_batched_kernel<BF16><<<grid, kThreads, smem, s>>>(
+      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.VR, a.N, a.L, a.n_iter,
+      a.lam, a.log_domain, a.block_n, a.tol, a.check_every);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared-memory bytes one block needs (0 for the register-resident
 // variant, whose shared memory is static). The wrapper refuses shapes above
 // the card's per-block limit before launching.
 extern "C" long long sinkhorn_fused_smem_bytes(int VR, int L, int variant) {
-  if (use_registers(VR, L, variant)) return 0;
-  return (long long)sizeof(float) *
-         ((long long)VR * (L | 1) + 3LL * VR + 3LL * L + kThreads / 32);
+  return use_registers(VR, L, variant) ? 0 : smem_bytes(VR, L);
 }
 
-// g (Q, VR, N, L), val (N, L), r (Q, VR) -> wmd (Q, N),
-// iters (Q, ceil(N / block_n)); fp32 / int32, contiguous, on the device.
-// Returns the cudaError_t of the launch.
-extern "C" int sinkhorn_fused_batched_launch(const float* g, const float* val,
-                                             const float* r, float* wmd,
-                                             int* iters, int Q, int VR, int N,
-                                             int L, int n_iter, float lam,
-                                             int log_domain, int block_n,
-                                             int variant, void* stream) {
+// K1 (and K4, Q = 1): g (Q, VR, N, L), val (N, L), r (Q, VR), resmask
+// (Q, N) or null -> wmd (Q, N), and iters (Q, ceil(N / block_n)) unless
+// null, which must hold zeros (each doc folds its count in with
+// atomicMax); fp32 / int32, contiguous, on the device. check_every = 0 runs n_iter iterations (tol
+// and resmask unused); check_every > 0 the adaptive exit. bf16 != 0 rounds
+// the reductions' operands to bf16. Returns the cudaError_t of the launch.
+extern "C" int sinkhorn_fused_batched_launch(
+    const float* g, const float* val, const float* r, const float* resmask,
+    float* wmd, int* iters, int Q, int VR, int N, int L, int n_iter,
+    float lam, int log_domain, int block_n, float tol, int check_every,
+    int bf16, int variant, void* stream) {
   if (Q == 0 || N == 0) return 0;
   if (variant == 1 && !fits_registers(VR, L))
     return (int)cudaErrorInvalidValue;
+  const Args a{g,  val, r,      resmask,    wmd,     iters, Q,
+               VR, N,   L,      n_iter,     lam,     log_domain,
+               block_n, tol,    check_every};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_registers(VR, L, variant)) {
-    const bool k32 = VR <= 32, l32 = L <= 32;
-    if (k32 && l32)
-      return launch_reg<32, 32>(g, val, r, wmd, iters, Q, VR, N, L, n_iter,
-                                lam, log_domain, block_n, s);
-    if (k32)
-      return launch_reg<32, 64>(g, val, r, wmd, iters, Q, VR, N, L, n_iter,
-                                lam, log_domain, block_n, s);
-    if (l32)
-      return launch_reg<64, 32>(g, val, r, wmd, iters, Q, VR, N, L, n_iter,
-                                lam, log_domain, block_n, s);
-    return launch_reg<64, 64>(g, val, r, wmd, iters, Q, VR, N, L, n_iter,
-                              lam, log_domain, block_n, s);
-  }
-  size_t smem = (size_t)sinkhorn_fused_smem_bytes(VR, L, variant);
-  cudaError_t err = cudaFuncSetAttribute(
-      sinkhorn_fused_batched_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N, Q);
-  sinkhorn_fused_batched_kernel<<<grid, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      g, val, r, wmd, iters, VR, N, L, n_iter, lam, log_domain, block_n);
-  return (int)cudaGetLastError();
-}
-
-// K4: g (VR, N, L), val (N, L), r (VR,) -> wmd (N,), iters
-// (ceil(N / block_n),): K1 with Q = 1, through the same kernels.
-extern "C" int sinkhorn_fused_launch(const float* g, const float* val,
-                                     const float* r, float* wmd, int* iters,
-                                     int VR, int N, int L, int n_iter,
-                                     float lam, int log_domain, int block_n,
-                                     int variant, void* stream) {
-  return sinkhorn_fused_batched_launch(g, val, r, wmd, iters, 1, VR, N, L,
-                                       n_iter, lam, log_domain, block_n,
-                                       variant, stream);
+  return (int)(bf16 ? launch<true>(a, variant, s)
+                    : launch<false>(a, variant, s));
 }

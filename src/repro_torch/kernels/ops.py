@@ -2,12 +2,13 @@
 path :func:`sinkhorn_wmd_kernel` built from them.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current CUDA stream, raises
-if the launch failed, and adds one to its ``launches`` counter for each
-kernel launch (``rwmd_min_cdist`` and ``rwmd_min_cdist_subset`` launch
-once per 128 support rows, the others once per call). A tensor on the CPU
-goes to the plain version in :mod:`.ref` instead (and does not count); a
-CUDA tensor always launches the kernel — there is no fallback.
+outputs with torch (the kernels allocate nothing), launches on the current
+CUDA stream, raises if the launch failed, and adds one to its
+``launches`` counter for each kernel launch (``rwmd_min_cdist`` and
+``rwmd_min_cdist_subset`` launch once per 128 support rows, the others
+once per call). A tensor on the CPU goes to the plain version in
+:mod:`.ref` instead (and does not count); a CUDA tensor always launches
+the kernel — there is no fallback.
 """
 from __future__ import annotations
 
@@ -132,17 +133,6 @@ def rwmd_min_cdist_subset(a: torch.Tensor, mask: torch.Tensor,
 rwmd_min_cdist_subset.launches = 0
 
 
-def _refuse_unported(tol, resmask, gemm: str) -> None:
-    if tol is not None or resmask is not None:
-        raise NotImplementedError(
-            "the adaptive solve (tol/resmask) is not ported to the Hopper "
-            "kernel yet (ROADMAP queue 2, K1 and K4 options)")
-    if gemm != "fp32":
-        raise NotImplementedError(
-            f"gemm={gemm!r}: only fp32 operands are ported (ROADMAP queue "
-            "2, K1 and K4 options)")
-
-
 def cdist_exp(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
               lam: float, k_only: bool = False, gemm: str = "fp32",
               log_k: bool = False):
@@ -150,8 +140,9 @@ def cdist_exp(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
     word embeddings, b (V, w) vocabulary, r (v_r,) query weights ->
     (M, K, K/r), each (v_r, V); ``k_only`` returns K alone and writes
     nothing else. ``log_k`` makes K the unexponentiated ``-lam*M``.
-    ``gemm="bf16"`` is not ported yet and raises."""
-    _refuse_unported(None, None, gemm)
+    ``gemm="bf16"`` rounds the operands of the a.b product to bf16
+    (products and sums fp32; the norms |a|^2 and |b|^2 stay fp32)."""
+    bf16 = ref.operand_dtype(gemm) is not None
     dev = a.device
     _check("a", a, 2, torch.float32, dev)
     _check("b", b, 2, torch.float32, dev)
@@ -162,7 +153,8 @@ def cdist_exp(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, r {tuple(r.shape)}")
     if dev.type == "cpu":
-        return ref.cdist_exp_ref(a, b, r, lam, k_only=k_only, log_k=log_k)
+        return ref.cdist_exp_ref(a, b, r, lam, k_only=k_only, log_k=log_k,
+                                 gemm=gemm)
     k = torch.empty((v_r, v), dtype=torch.float32, device=dev)
     m = kr = None
     if not k_only:
@@ -171,7 +163,7 @@ def cdist_exp(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
     _raise_on(_lib().cdist_exp_launch(
         _ptr(a), _ptr(b), _ptr(r), null if k_only else _ptr(m), _ptr(k),
         null if k_only else _ptr(kr), v_r, w, v, ctypes.c_float(float(lam)),
-        int(log_k), _stream(dev)), "cdist_exp")
+        int(log_k), int(bf16), _stream(dev)), "cdist_exp")
     cdist_exp.launches += 1
     return k if k_only else (m, k, kr)
 
@@ -222,18 +214,63 @@ def _solver_smem(lib, v_r: int, length: int, variant: int, name: str) -> None:
             f"L={length} needs {smem} B, the limit is {MAX_SMEM_BYTES}")
 
 
+def _solver_options(tol, check_every: int, gemm: str, resmask, shape,
+                    dev):
+    """Check the solvers' options: -> (resmask as a contiguous fp32
+    tensor of ``shape`` on ``dev``, or None without ``tol``)."""
+    ref.operand_dtype(gemm)
+    if tol is None:
+        return None                     # resmask only scopes the exit
+    if not 1 <= int(check_every) < 2 ** 30:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if resmask is None:
+        return None
+    rm = torch.as_tensor(resmask, device=dev)
+    if tuple(rm.shape) != tuple(shape):
+        raise ValueError(f"resmask must have shape {tuple(shape)}, got "
+                         f"{tuple(rm.shape)}")
+    return rm.to(torch.float32).contiguous()
+
+
+def _solve_launch(fn, g, val, r, rm, lam, n_iter, block_n, tol,
+                  check_every, gemm, log_domain, tile, q, v_r, n, length,
+                  with_iters: bool):
+    """Launch K1's kernels (K4 is the Q = 1 case) -> (wmd (q, n), iters
+    (q, ceil(n / block_n)) or None without ``with_iters``). iters starts
+    at 0: every doc folds its realized count into its block's entry with
+    atomicMax."""
+    lib = _lib()
+    _solver_smem(lib, v_r, length, _TILES[tile], fn.__name__)
+    dev = g.device
+    wmd = torch.empty((q, n), dtype=torch.float32, device=dev)
+    iters = None
+    if with_iters:
+        iters = torch.zeros((q, -(-n // block_n)), dtype=torch.int32,
+                            device=dev)
+    null = ctypes.c_void_p(None)
+    _raise_on(lib.sinkhorn_fused_batched_launch(
+        _ptr(g), _ptr(val), _ptr(r), null if rm is None else _ptr(rm),
+        _ptr(wmd), null if iters is None else _ptr(iters), q, v_r, n,
+        length, int(n_iter), ctypes.c_float(float(lam)), int(log_domain),
+        int(block_n),
+        ctypes.c_float(0.0 if tol is None else float(tol)),
+        0 if tol is None else int(check_every), int(gemm == "bf16"),
+        _TILES[tile], _stream(dev)), fn.__name__)
+    fn.launches += 1
+    return wmd, iters
+
+
 def sinkhorn_fused_all(g: torch.Tensor, val: torch.Tensor, r: torch.Tensor,
                        lam: float, n_iter: int, block_n: int = 128,
-                       tol=None, gemm: str = "fp32",
+                       tol=None, check_every: int = 4, gemm: str = "fp32",
                        log_domain: bool = False, resmask=None,
                        with_iters: bool = False):
     """Fused Sinkhorn solve for one query (K4, K1 with Q = 1). g (v_r, N,
     L) gathered K (log K under ``log_domain``; pad rows 0, or -inf under
     ``log_domain``), val (N, L), r (v_r,) with pad rows 1 -> wmd (N,) and,
-    with ``with_iters``, iters (ceil(N / block_n),). ``block_n`` only
-    shapes ``iters``. ``tol``/``resmask`` and ``gemm="bf16"`` are not
-    ported yet and raise."""
-    _refuse_unported(tol, resmask, gemm)
+    with ``with_iters``, iters (ceil(N / block_n),), each block's largest
+    realized count. ``tol``, ``check_every``, ``resmask`` (N,) and
+    ``gemm`` as in :func:`sinkhorn_fused_all_batched`."""
     dev = g.device
     _check("g", g, 3, torch.float32, dev)
     _check("val", val, 2, torch.float32, dev)
@@ -242,22 +279,20 @@ def sinkhorn_fused_all(g: torch.Tensor, val: torch.Tensor, r: torch.Tensor,
     if val.shape != (n, length) or r.shape != (v_r,):
         raise ValueError(f"shape mismatch: g {tuple(g.shape)}, val "
                          f"{tuple(val.shape)}, r {tuple(r.shape)}")
-    if block_n < 1:
-        raise ValueError(f"block_n must be positive, got {block_n}")
+    if block_n < 1 or not 0 <= n_iter < 2 ** 30:
+        raise ValueError(f"block_n must be positive and n_iter in [0, "
+                         f"2**30), got {block_n}, {n_iter}")
+    rm = _solver_options(tol, check_every, gemm, resmask, (n,), dev)
     if dev.type == "cpu":
         wmd, iters = ref.sinkhorn_fused_all_ref(
-            g, val, r, lam, n_iter, log_domain=log_domain, block_n=block_n)
+            g, val, r, lam, n_iter, log_domain=log_domain, block_n=block_n,
+            tol=tol, check_every=check_every, resmask=rm, gemm=gemm)
         return (wmd, iters) if with_iters else wmd
-    lib = _lib()
-    _solver_smem(lib, v_r, length, _TILES["auto"], "sinkhorn_fused_all")
-    wmd = torch.empty((n,), dtype=torch.float32, device=dev)
-    iters = torch.empty((-(-n // block_n),), dtype=torch.int32, device=dev)
-    _raise_on(lib.sinkhorn_fused_launch(
-        _ptr(g), _ptr(val), _ptr(r), _ptr(wmd), _ptr(iters), v_r, n, length,
-        int(n_iter), ctypes.c_float(float(lam)), int(log_domain),
-        int(block_n), _TILES["auto"], _stream(dev)), "sinkhorn_fused_all")
-    sinkhorn_fused_all.launches += 1
-    return (wmd, iters) if with_iters else wmd
+    wmd, iters = _solve_launch(
+        sinkhorn_fused_all, g, val, r, rm, lam, n_iter, block_n, tol,
+        check_every, gemm, log_domain, "auto", 1, v_r, n, length,
+        with_iters)
+    return (wmd[0], iters[0]) if with_iters else wmd[0]
 
 
 sinkhorn_fused_all.launches = 0
@@ -266,18 +301,27 @@ sinkhorn_fused_all.launches = 0
 def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
                                r: torch.Tensor, lam: float, n_iter: int,
                                block_n: int = 128, tol=None,
-                               gemm: str = "fp32",
+                               check_every: int = 4, gemm: str = "fp32",
                                log_domain: bool = False, resmask=None,
                                with_iters: bool = False,
                                tile: str = "auto"):
     """Batched fused Sinkhorn solve. g (Q, v_r, N, L) gathered K (log K
     under ``log_domain``; pad query rows 0, or -inf under
     ``log_domain``), val (N, L), r (Q, v_r) with pad rows 1 -> wmd (Q, N)
-    and, with ``with_iters``, iters (Q, ceil(N / block_n)).
+    and, with ``with_iters``, iters (Q, ceil(N / block_n)): each block of
+    ``block_n`` docs' largest realized count (``block_n`` only shapes
+    ``iters``; the distances do not depend on it).
 
-    Fixed ``n_iter`` only: ``tol``/``resmask`` (the adaptive exit) and
-    ``gemm="bf16"`` are not ported yet and raise.
-    ``block_n`` only shapes ``iters``; the result does not depend on it.
+    ``tol`` switches from the fixed ``n_iter`` loop to the adaptive one,
+    with the exit per document (:func:`.ref.sinkhorn_fused_all_batched_ref`
+    gives the arithmetic): one seeded iteration, then a residual check
+    every ``check_every``; ``n_iter`` is the cap. ``resmask`` (Q, N, any
+    dtype, > 0 = in scope) narrows each query's exit test to its own
+    candidate docs; a pad doc must be outside every scope (0), and a doc
+    with an empty scope stops at the first check. It is ignored without
+    ``tol``. ``gemm="bf16"`` rounds the operands of both reductions to
+    bf16, with fp32 products and sums.
+
     ``tile`` picks the kernel's variant on the card: ``"registers"`` (the
     (v_r, L) tile in registers, up to 64 x 64), ``"shared"`` (in shared
     memory, up to the per-block limit) or ``"auto"`` (registers where the
@@ -285,7 +329,6 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
     ``"auto"``, and the other two let tests and ``chip_smoke.py`` hold and
     time the variants against each other at one shape.
     """
-    _refuse_unported(tol, resmask, gemm)
     dev = g.device
     _check("g", g, 4, torch.float32, dev)
     _check("val", val, 2, torch.float32, dev)
@@ -294,29 +337,25 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
     if val.shape != (n, length) or r.shape != (q, v_r):
         raise ValueError(f"shape mismatch: g {tuple(g.shape)}, val "
                          f"{tuple(val.shape)}, r {tuple(r.shape)}")
-    if block_n < 1:
-        raise ValueError(f"block_n must be positive, got {block_n}")
+    if block_n < 1 or not 0 <= n_iter < 2 ** 30:
+        raise ValueError(f"block_n must be positive and n_iter in [0, "
+                         f"2**30), got {block_n}, {n_iter}")
     if tile not in _TILES:
         raise ValueError(f"tile must be one of {sorted(_TILES)}, got "
                          f"{tile!r}")
     if tile == "registers" and max(v_r, length) > 64:
         raise ValueError(f"tile='registers' holds at most 64 x 64, got "
                          f"v_r={v_r}, L={length}")
+    rm = _solver_options(tol, check_every, gemm, resmask, (q, n), dev)
     if dev.type == "cpu":
         wmd, iters = ref.sinkhorn_fused_all_batched_ref(
-            g, val, r, lam, n_iter, log_domain=log_domain, block_n=block_n)
+            g, val, r, lam, n_iter, log_domain=log_domain, block_n=block_n,
+            tol=tol, check_every=check_every, resmask=rm, gemm=gemm)
         return (wmd, iters) if with_iters else wmd
-    lib = _lib()
-    _solver_smem(lib, v_r, length, _TILES[tile], "sinkhorn_fused_all_batched")
-    wmd = torch.empty((q, n), dtype=torch.float32, device=dev)
-    iters = torch.empty((q, -(-n // block_n)), dtype=torch.int32,
-                        device=dev)
-    _raise_on(lib.sinkhorn_fused_batched_launch(
-        _ptr(g), _ptr(val), _ptr(r), _ptr(wmd), _ptr(iters), q, v_r, n,
-        length, int(n_iter), ctypes.c_float(float(lam)), int(log_domain),
-        int(block_n), _TILES[tile], _stream(dev)),
-        "sinkhorn_fused_all_batched")
-    sinkhorn_fused_all_batched.launches += 1
+    wmd, iters = _solve_launch(
+        sinkhorn_fused_all_batched, g, val, r, rm, lam, n_iter, block_n,
+        tol, check_every, gemm, log_domain, tile, q, v_r, n, length,
+        with_iters)
     return (wmd, iters) if with_iters else wmd
 
 
@@ -326,24 +365,25 @@ _TILES = {"auto": 0, "registers": 1, "shared": 2}
 
 def sinkhorn_wmd_kernel(r: torch.Tensor, vecs_sel: torch.Tensor,
                         vecs: torch.Tensor, docs, lam: float, n_iter: int,
-                        tol=None, precision=None) -> torch.Tensor:
+                        tol=None, check_every: int = 4,
+                        precision=None) -> torch.Tensor:
     """The single-query kernel path: K3 (``cdist_exp``, K only) ->
     ``torch.index_select`` gather of each doc's K columns -> K4
     (``sinkhorn_fused_all``) -> wmd (N,). ``docs`` holds (N, L) ``idx`` and
     ``val`` tensors on ``vecs``' device. GM is rebuilt from G inside K4,
     so only one (v_r, N, L) array is materialized.
 
-    ``precision`` (a ``SolvePrecision`` or its spelling) plumbs the log
-    domain through both kernels: K3 emits unexponentiated log K, so no
-    column can underflow at any ``lam``. ``tol`` and bf16 are not ported
-    yet and raise."""
+    ``precision`` (a ``SolvePrecision`` or its spelling) plumbs the bf16
+    operands and the log domain through both kernels: under the log
+    domain K3 emits unexponentiated log K, so no column can underflow at
+    any ``lam``. ``tol``/``check_every`` select K4's adaptive loop."""
     from repro_torch.core.sinkhorn_sparse import SolvePrecision, gather_columns
     precision = SolvePrecision.parse(precision)
     k = cdist_exp(vecs_sel, vecs, r, lam, k_only=True, gemm=precision.gemm,
                   log_k=precision.log_domain)
     g = gather_columns(k, docs.idx)
     return sinkhorn_fused_all(g, docs.val, r, lam, n_iter, tol=tol,
-                              gemm=precision.gemm,
+                              check_every=check_every, gemm=precision.gemm,
                               log_domain=precision.log_domain)
 
 

@@ -17,14 +17,25 @@ def _safe_inv(x: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(x))
 
 
+def operand_dtype(gemm: str):
+    """The operand dtype of a ``gemm`` policy: ``torch.bfloat16`` or None
+    (fp32)."""
+    if gemm not in ("fp32", "bf16"):
+        raise ValueError(f"gemm must be 'fp32' or 'bf16', got {gemm!r}")
+    return torch.bfloat16 if gemm == "bf16" else None
+
+
 def cdist_exp_ref(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
-                  lam: float, k_only: bool = False, log_k: bool = False):
+                  lam: float, k_only: bool = False, log_k: bool = False,
+                  gemm: str = "fp32"):
     """Plain version of K3: a (v_r, w) query embeddings, b (V, w)
     vocabulary, r (v_r,) query weights -> (M, K, K/r), each (v_r, V), or K
     alone with ``k_only``. ``log_k`` makes K the unexponentiated
-    ``-lam*M`` (the log-domain solve's input)."""
+    ``-lam*M`` (the log-domain solve's input). ``gemm="bf16"`` rounds the
+    operands of the a.b product to bf16; the norms and everything after
+    stay fp32."""
     from repro_torch.core.sinkhorn import cdist
-    m = cdist(a, b)
+    m = cdist(a, b, operand_dtype(gemm))
     k = -lam * m if log_k else torch.exp(-lam * m)
     if k_only:
         return k
@@ -43,11 +54,12 @@ K3_SQ_RTOL = 1e-5
 K3_ULP = 1e-6
 
 
-def hold_cdist_exp(got, a, b, r, lam, k_only: bool, log_k: bool) -> dict:
+def hold_cdist_exp(got, a, b, r, lam, k_only: bool, log_k: bool,
+                   gemm: str = "fp32") -> dict:
     """K3's output ``got`` ((M, K, K/r), or K under ``k_only``) against
     :func:`cdist_exp_ref` on the same inputs, within K3's tolerance.
     Raises on a miss; returns the largest errors."""
-    m_w, k_w, kr_w = cdist_exp_ref(a, b, r, lam, log_k=log_k)
+    m_w, k_w, kr_w = cdist_exp_ref(a, b, r, lam, log_k=log_k, gemm=gemm)
     m_g, k_g, kr_g = (None, got, None) if k_only else got
     tol_sq = K3_SQ_RTOL * ((a * a).sum(-1)[:, None]
                            + (b * b).sum(-1)[None, :])
@@ -72,7 +84,7 @@ def hold_cdist_exp(got, a, b, r, lam, k_only: bool, log_k: bool) -> dict:
         bad = (g - w).abs() > tol
         if bad.any():
             raise AssertionError(
-                f"K3 {name} (k_only={k_only}, log_k={log_k}): "
+                f"K3 {name} (k_only={k_only}, log_k={log_k}, gemm={gemm}): "
                 f"{int(bad.sum())} entries outside tolerance; max err/tol "
                 f"{float(((g - w).abs() / tol).max())}")
     return out
@@ -112,20 +124,41 @@ def reconstruct_gm_ref(g: torch.Tensor, lam: float) -> torch.Tensor:
 def sinkhorn_fused_all_batched_ref(g: torch.Tensor, val: torch.Tensor,
                                    r: torch.Tensor, lam: float, n_iter: int,
                                    log_domain: bool = False,
-                                   block_n: int = 128):
-    """Plain version of K1: the whole fixed-``n_iter`` Sinkhorn solve and
-    the distance line for every (query, doc) pair.
+                                   block_n: int = 128, tol=None,
+                                   check_every: int = 4, resmask=None,
+                                   gemm: str = "fp32"):
+    """Plain version of K1: the whole Sinkhorn solve and the distance line
+    for every (query, doc) pair.
 
     g (Q, v_r, N, L): each query's gathered K (log K under
     ``log_domain``; pad query rows 0, or -inf under ``log_domain``);
     val (N, L) with 0 at pad slots; r (Q, v_r) with pad rows 1.
-    Returns (wmd (Q, N), iters (Q, ceil(N / block_n)) filled with
-    ``n_iter``).
+    Returns (wmd (Q, N), iters (Q, ceil(N / block_n))): the realized
+    iteration count of each block of ``block_n`` docs, the largest of its
+    docs' (``n_iter`` everywhere in fixed mode).
 
     Every doc is solved on its own: x starts at 1/(live rows of that doc)
     on its live rows. The reference kernel counts live rows per block of
     ``block_n`` docs; the two starts differ by a constant factor per doc,
-    which scales x, u and w and cancels in the distance line.
+    which scales x, u and w and cancels in the distance line and in the
+    residual ratio.
+
+    ``tol`` switches to the adaptive solve, with the exit PER DOC: after
+    one seeded iteration and then every ``check_every`` iterations, a doc
+    computes ``max_l |w - w_prev| / max(max_l |w|, 1e-30)`` over its
+    slots in scope and stops once that ratio is not above ``tol`` (a NaN
+    stops it too, as the reference's ``res > tol`` does) or once its count
+    reaches ``n_iter``. The scope is the live slots (val > 0) of a doc
+    whose ``resmask`` (Q, N) entry is > 0 (every doc without
+    ``resmask``); an empty scope gives the ratio 0, so such a doc stops at
+    the first check, after ``1 + check_every`` iterations. The reference
+    exits per block of ``block_n`` docs instead, so a converged doc runs
+    on there while its block mates converge (ROADMAP queue 3, P3).
+
+    ``gemm="bf16"`` rounds the operands of both reductions to bf16 (G and
+    G/r once, after the log-domain shift; u as the SDDMM operand, w as the
+    SpMM operand); products and sums stay fp32, and the w of the residual
+    and the u and w of the distance line are the unrounded ones.
 
     On live slots ``w = val * (1/t)`` without a guard in the linear
     domain: a K column that underflowed to all zero gives t == 0 and the
@@ -134,6 +167,35 @@ def sinkhorn_fused_all_batched_ref(g: torch.Tensor, val: torch.Tensor,
     ``log_domain`` no live column can be all zero; t == 0 (a fully
     underflowed query-word row) drops out instead.
     """
+    wmd, counts, _ = solve_per_doc_ref(g, val, r, lam, n_iter, log_domain,
+                                       tol, check_every, resmask, gemm)
+    return wmd, block_iters(counts, block_n)
+
+
+def block_iters(counts: torch.Tensor, block_n: int) -> torch.Tensor:
+    """(Q, N) per-doc realized counts -> (Q, ceil(N / block_n)), each
+    block's largest."""
+    q, n = counts.shape
+    nb = -(-n // block_n)
+    pad = torch.zeros((q, nb * block_n - n), dtype=counts.dtype,
+                      device=counts.device)
+    return torch.cat([counts, pad], dim=1).reshape(q, nb, block_n) \
+        .max(dim=2).values
+
+
+def solve_per_doc_ref(g, val, r, lam: float, n_iter: int,
+                      log_domain: bool = False, tol=None,
+                      check_every: int = 4, resmask=None,
+                      gemm: str = "fp32"):
+    """The arithmetic of :func:`sinkhorn_fused_all_batched_ref`, per doc:
+    returns (wmd (Q, N), per-doc realized counts (Q, N) int32, margin
+    (Q, N)). ``margin`` is the smallest ``|ratio - tol| / max(tol,
+    1e-30)`` over the checks a doc made (+inf in fixed mode): where it is
+    small, a kernel that sums in another order may take the other side of
+    ``tol`` at that check (:func:`hold_solve`)."""
+    from repro_torch.core.sinkhorn import gemm_round
+    from repro_torch.core.sinkhorn_sparse import _doc_ratio
+    rd = operand_dtype(gemm)
     q, v_r, n, length = g.shape
     shift = None
     if log_domain:
@@ -143,6 +205,7 @@ def sinkhorn_fused_all_batched_ref(g: torch.Tensor, val: torch.Tensor,
         g = torch.where(torch.isfinite(g), torch.exp(g - shift[:, None]),
                         torch.zeros_like(g))
     gor = g * _safe_inv(r)[:, :, None, None]
+    gb, gorb = gemm_round(g, rd), gemm_round(gor, rd)
     live = val > 0                                             # (N, L)
     rowlive = (g.abs().sum(dim=3) > 0).to(g.dtype)             # (Q, v_r, N)
     cnt = rowlive.sum(dim=1, keepdim=True)
@@ -153,32 +216,118 @@ def sinkhorn_fused_all_batched_ref(g: torch.Tensor, val: torch.Tensor,
         inv = 1.0 / t if not log_domain else _safe_inv(t)
         return torch.where(live[None], val[None] * inv, torch.zeros_like(t))
 
-    for _ in range(n_iter):
-        u = _safe_inv(x)
-        t = (g * u[..., None]).sum(dim=1)                      # SDDMM (Q,N,L)
-        w = select(t)
-        x = (gor * w[:, None]).sum(dim=3)                      # SpMM (Q,v_r,N)
+    def step(x):
+        u = gemm_round(_safe_inv(x), rd)
+        w = select((gb * u[..., None]).sum(dim=1))             # SDDMM (Q,N,L)
+        return (gorb * gemm_round(w, rd)[:, None]).sum(dim=3), w   # SpMM
+
+    margin = torch.full((q, n), float("inf"), device=g.device)
+    if tol is None:
+        for _ in range(n_iter):
+            x, _ = step(x)
+        counts = torch.full((q, n), n_iter, dtype=torch.int32,
+                            device=g.device)
+    else:
+        tol = float(tol)
+        scope = live[None].expand(q, n, length)
+        if resmask is not None:
+            scope = scope & (resmask > 0)[..., None]
+        x, w_prev = step(x)
+        counts = torch.ones((q, n), dtype=torch.int32, device=g.device)
+        active = torch.ones((q, n), dtype=torch.bool, device=g.device)
+        i = 1
+        while i < n_iter and bool(active.any()):
+            w = w_prev
+            for _ in range(check_every):
+                x_new, w_new = step(x)
+                x = torch.where(active[:, None], x_new, x)
+                w = torch.where(active[..., None], w_new, w)
+            i += check_every
+            counts = torch.where(active, i, counts)
+            ratio = _doc_ratio(w, w_prev, scope)               # (Q, N)
+            margin = torch.where(
+                active, torch.minimum(margin, (ratio - tol).abs()
+                                      / max(tol, 1e-30)), margin)
+            active = active & (ratio > tol)
+            w_prev = w
     u = _safe_inv(x)
-    t = (g * u[..., None]).sum(dim=1)
-    w = select(t)
+    w = select((gb * gemm_round(u, rd)[..., None]).sum(dim=1))
     gm = reconstruct_gm_ref(g, lam)
     wmd = (u * (gm * w[:, None]).sum(dim=3)).sum(dim=1)        # (Q, N)
     if log_domain:
         wmd = wmd - (shift * val[None]).sum(dim=2) / lam
-    n_blocks = -(-n // block_n)
-    iters = torch.full((q, n_blocks), n_iter, dtype=torch.int32,
-                       device=g.device)
-    return wmd, iters
+    return wmd, counts, margin
+
+
+# hold_solve: a doc whose residual ratio came within this fraction of tol
+# at one of its checks may stop one window earlier or later in a kernel
+# that sums in another order (its w differs from the plain version's by a
+# few ulps, and |w - w_prev| by that over the ratio); such docs are
+# counted, and left out of the distance comparison
+NEAR_TIE = 1e-2
+
+
+def hold_solve(got_wmd, got_iters, g, val, r, lam, n_iter, rtol, atol,
+               block_n: int = 128, **options) -> dict:
+    """K1's (or, with a (v_r, N, L) ``g``, K4's) output against
+    :func:`solve_per_doc_ref` on the same inputs. In fixed mode every
+    distance is held at (rtol, atol) and every block count must equal
+    ``n_iter``. In adaptive mode (``options`` has ``tol``) the same holds
+    for every doc whose ratio never came within ``NEAR_TIE`` of ``tol``;
+    a block whose count differs from the plain version's must hold such a
+    near-tie doc. Raises on a miss; returns the errors and counts."""
+    one = g.ndim == 3
+    if one:
+        g, r = g[None], r[None]
+        got_wmd, got_iters = got_wmd[None], got_iters[None]
+        if options.get("resmask") is not None:
+            options["resmask"] = options["resmask"][None]
+    want, counts, margin = solve_per_doc_ref(g, val, r, lam, n_iter,
+                                             **options)
+    want_iters = block_iters(counts, block_n)
+    near = margin <= NEAR_TIE
+    held = ~near
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got_wmd)[held], fin[held]):
+        raise AssertionError("solve: inf/NaN pattern differs from the "
+                             "plain version")
+    err = (got_wmd - want).abs()
+    ok = err <= atol + rtol * want.abs()
+    bad = held & fin & ~ok
+    if bad.any():
+        raise AssertionError(
+            f"solve {options}: {int(bad.sum())} docs outside rtol={rtol} "
+            f"atol={atol}; max abs err {float(err[bad].max())}")
+    differs = got_iters != want_iters
+    near_blocks = block_iters(near.to(torch.int32), block_n) > 0
+    if (differs & ~near_blocks).any():
+        raise AssertionError(
+            f"solve {options}: {int((differs & ~near_blocks).sum())} block "
+            "counts differ from the plain version without a near-tie doc")
+    held_fin = held & fin
+    return {"max_abs_err": float(err[held_fin].max()) if held_fin.any()
+            else 0.0,
+            "max_rel_err": float((err[held_fin] / want[held_fin].abs()
+                                  .clamp(min=1e-30)).max())
+            if held_fin.any() else 0.0,
+            "near_tie_docs": int(near.sum()),
+            "blocks_count_differs": int(differs.sum()),
+            "blocks": int(differs.numel()),
+            "mean_doc_iters": float(counts.float().mean()),
+            "mean_block_iters": float(want_iters.float().mean())}
 
 
 def sinkhorn_fused_all_ref(g: torch.Tensor, val: torch.Tensor,
                            r: torch.Tensor, lam: float, n_iter: int,
-                           log_domain: bool = False, block_n: int = 128):
+                           log_domain: bool = False, block_n: int = 128,
+                           tol=None, check_every: int = 4, resmask=None,
+                           gemm: str = "fp32"):
     """Plain version of K4, K1 for one query: g (v_r, N, L), val (N, L),
-    r (v_r,) -> (wmd (N,), iters (ceil(N / block_n),))."""
+    r (v_r,), resmask (N,) -> (wmd (N,), iters (ceil(N / block_n),))."""
     wmd, iters = sinkhorn_fused_all_batched_ref(
         g[None], val, r[None], lam, n_iter, log_domain=log_domain,
-        block_n=block_n)
+        block_n=block_n, tol=tol, check_every=check_every,
+        resmask=None if resmask is None else resmask[None], gemm=gemm)
     return wmd[0], iters[0]
 
 

@@ -6,8 +6,11 @@ persistent engine: exhaustive ``query_batch`` by default, or the staged
 top-k retrieval (prune -> solve -> rank) with ``--top-k K``; ``--prune
 ivf+...`` runs the IVF cascade (``--nprobe P`` clusters per query,
 ``--n-clusters C|auto`` at index build) and ``--mode refine`` the
-rank-then-refine search (``--refine-factor F``). Prints one JSON record
-with the per-batch latency and the card it ran on::
+rank-then-refine search (``--refine-factor F``). ``--tol T`` runs the
+adaptive solve (``--check-every``, ``--scope``; the record gains the
+realized iteration counts) and ``--precision`` picks fp32, bf16, log or
+bf16+log. Prints one JSON record with the per-batch latency and the card
+it ran on::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
         --prune rwmd --n-docs 5000 --vocab 100000 --embed-dim 300 \\
@@ -15,6 +18,9 @@ with the per-batch latency and the card it ran on::
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
         --prune ivf+wcd+rwmd --nprobe 4 --n-clusters auto --n-docs 5000 \\
         --vocab 100000 --embed-dim 300 --precision log --lam 10
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
+        --prune rwmd --n-docs 5000 --vocab 100000 --embed-dim 300 \\
+        --lam 0.25 --tol 0.03 --check-every 2 --precision bf16
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --device cpu \\
         --n-docs 64 --vocab 512 --embed-dim 16 --steps 3   # host run
 """
@@ -47,7 +53,10 @@ def serve_wmd(args) -> dict:
     index = build_index(corpus.docs, corpus.vecs, device=device,
                         n_clusters=args.n_clusters)
     engine = WmdEngine(index, lam=args.lam, n_iter=args.n_iter,
-                       impl=args.impl, precision=args.precision)
+                       impl=args.impl, precision=args.precision,
+                       tol=args.tol if args.tol > 0 else None,
+                       check_every=args.check_every, scope=args.scope,
+                       warm_start=args.warm_start)
     reqs = wmd_request_stream(corpus)
     bq = max(1, args.batch_queries)
     prune = None if args.prune == "none" else args.prune
@@ -100,9 +109,21 @@ def serve_wmd(args) -> dict:
         "ms_per_batch_p50": p50,
         "queries_per_s": bq / (p50 / 1e3),
         "precision": engine.precision.name,
+        "iter_stats_dropped": engine.iter_stats_dropped,
     }
     if underflows:
         rec["underflow_errors"] = underflows
+    iters = engine.iter_stats()
+    if args.tol > 0 and iters.size:
+        rec["tol"] = args.tol
+        rec["scope"] = args.scope
+        rec["solve_iters_mean"] = float(iters.mean())
+        rec["solve_iters_max"] = int(iters.max())
+        for st, arr in engine.iter_stats_by_stage().items():
+            if arr.size:
+                rec[f"solve_iters_{st}_mean"] = float(arr.mean())
+        if args.warm_start:
+            rec["warm_start"] = True
     if args.top_k > 0:
         rec["top_k"] = args.top_k
         rec["prune"] = args.prune
@@ -146,9 +167,24 @@ def main(argv=None) -> None:
                     help="IVF cluster count at index build (default: "
                          "sqrt(n_docs); 'auto' sweeps cluster-radius "
                          "statistics)")
-    ap.add_argument("--precision", default="fp32", choices=["fp32", "log"],
-                    help="log: the log-domain solve (underflow-free at any "
-                         "lam)")
+    ap.add_argument("--precision", default="fp32",
+                    choices=["fp32", "bf16", "log", "bf16+log"],
+                    help="bf16 operands with fp32 sums and/or the "
+                         "log-domain solve (underflow-free at any lam)")
+    ap.add_argument("--tol", type=float, default=0.0,
+                    help="> 0: the adaptive solve, which exits at this "
+                         "relative doc-marginal residual; --n-iter becomes "
+                         "a cap (counts land on 1 + k*check-every)")
+    ap.add_argument("--check-every", type=int, default=4,
+                    help="adaptive solve: iterations between residual "
+                         "checks")
+    ap.add_argument("--scope", default="query", choices=["chunk", "query"],
+                    help="adaptive solve: 'query' scopes each query's "
+                         "survivor exit to its own candidates and counts "
+                         "iterations per query; 'chunk' tests every doc")
+    ap.add_argument("--warm-start", action="store_true",
+                    help="accepted and inert on the kernel impl, as in the "
+                         "reference")
     ap.add_argument("--n-docs", type=int, default=1024)
     ap.add_argument("--vocab", type=int, default=8192)
     ap.add_argument("--embed-dim", type=int, default=64)

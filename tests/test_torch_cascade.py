@@ -224,7 +224,8 @@ def _ref_kq_exact(sup, mask, vecs, vecs_sq, lam, gemm="fp32",
     return (kq, mq) if with_m else kq
 
 
-def _port_kq_exact(sup, mask, vecs, vecs_sq, lam, log_domain=False):
+def _port_kq_exact(sup, mask, vecs, vecs_sq, lam, gemm="fp32",
+                   log_domain=False):
     m = _exact_m(sup, vecs)
     return (torch.exp(-lam * m) * mask.to(torch.float64)[..., None]).to(
         torch.float32)

@@ -153,11 +153,14 @@ def test_edge_queries_and_unported_options(small_corpus, carried):
     assert eng.search([], 3).indices.shape == (0, 3)
     with pytest.raises(ValueError):
         eng.search([small_corpus.queries[0]], 0)
-    for kw in (dict(impl="sparse"), dict(tol=1e-3), dict(precision="bf16"),
-               dict(warm_start=True), dict(kcache_slots=8),
-               dict(scope="chunk")):
+    for kw in (dict(impl="sparse"), dict(kcache_slots=8)):
         with pytest.raises(NotImplementedError):
             WmdEngine(index, **kw)
+    # the adaptive and bf16 solve are ported (tests/test_torch_adaptive.py)
+    for kw in (dict(tol=1e-3), dict(precision="bf16"),
+               dict(warm_start=True), dict(scope="chunk")):
+        assert WmdEngine(index, lam=1.0, n_iter=5, **kw).search(
+            [small_corpus.queries[0]], 3).indices.shape == (1, 3)
     # the IVF cascade and refine mode are ported (tests/test_torch_cascade.py)
     casc = eng.search([small_corpus.queries[0], empty], 3,
                       prune="ivf+wcd+rwmd")

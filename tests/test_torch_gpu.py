@@ -275,3 +275,134 @@ def test_cascade_and_refine_on_card_match_host():
             np.testing.assert_array_equal(got.solved, want.solved)
             np.testing.assert_allclose(got.distances, want.distances,
                                        rtol=1e-3, atol=5e-3)
+
+
+def _cost_inputs(rng, dev, q, v_r, n, length, lam, log_domain, w=16):
+    """G from Euclidean costs between random points (so the Sinkhorn
+    iteration converges and documents exit at different counts), pad
+    query rows in the later queries and 30 all-pad docs."""
+    a = rng.standard_normal((q, v_r, w))
+    b = rng.standard_normal((n, length, w))
+    m = np.sqrt(((a[:, :, None, None, :] - b[None, None]) ** 2).sum(-1))
+    g = (-lam * m) if log_domain else np.exp(-lam * m)
+    r = np.ones((q, v_r))
+    for qi, nr in enumerate([v_r, v_r - 5, v_r // 2][:q]):
+        g[qi, nr:] = -np.inf if log_domain else 0.0
+        r[qi, :nr] = rng.uniform(0.1, 1.0, nr)
+        r[qi, :nr] /= r[qi, :nr].sum()
+    val = np.where(rng.random((n, length)) > 0.4, rng.random((n, length)),
+                   0.0)
+    val[:, 0] = np.maximum(val[:, 0], 0.05)
+    val[n - 30:] = 0.0
+    val /= np.maximum(val.sum(1, keepdims=True), 1e-9)
+    return tuple(torch.tensor(x, dtype=torch.float32, device=dev)
+                 for x in (g, val, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gemm", ["fp32", "bf16"])
+@pytest.mark.parametrize("log_domain", [False, True])
+@pytest.mark.parametrize("v_r,length,tile", [
+    (24, 28, "auto"), (48, 48, "auto"), (96, 40, "auto"),
+    (24, 28, "shared")])
+def test_sinkhorn_fused_adaptive_matches_plain(rng, gemm, log_domain, v_r,
+                                               length, tile):
+    """K1's adaptive exit with a resmask (query 1 scoped to half its
+    docs), and its bf16 operands, in both variants, against the plain
+    version (ref.hold_solve: the K1 tolerance of chip_smoke.py; a doc
+    whose residual came within ref.NEAR_TIE of tol may exit a window
+    apart); fixed-mode bf16 too."""
+    dev = _card()
+    q, n, lam = 3, 700, 1.0
+    g, val, r = _cost_inputs(rng, dev, q, v_r, n, length, lam, log_domain)
+    rm = torch.ones((q, n), device=dev)
+    rm[1, ::2] = 0.0
+    for opts in (dict(tol=1e-2, check_every=2, resmask=rm),
+                 dict(tol=3e-2, check_every=3), dict()):
+        got, iters = ops.sinkhorn_fused_all_batched(
+            g, val, r, lam, 40, log_domain=log_domain, gemm=gemm,
+            with_iters=True, tile=tile, block_n=64, **opts)
+        torch.cuda.synchronize()
+        held = ref.hold_solve(got, iters, g, val, r, lam, 40, 1e-4, 1e-4,
+                              block_n=64, log_domain=log_domain, gemm=gemm,
+                              **opts)
+        if opts:
+            assert held["mean_doc_iters"] < 40
+    assert (got[:, n - 30:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gemm", ["fp32", "bf16"])
+@pytest.mark.parametrize("log_domain", [False, True])
+def test_sinkhorn_fused_all_adaptive_matches_plain(rng, gemm, log_domain):
+    """K4 with tol, a resmask and bf16 against the plain version; tol=0 at
+    the cap equals fixed mode."""
+    dev = _card()
+    n, lam = 700, 1.0
+    g, val, r = _cost_inputs(rng, dev, 1, 24, n, 28, lam, log_domain)
+    g, r = g[0], r[0]
+    rm = (torch.arange(n, device=dev) % 3 != 0).float()
+    kw = dict(log_domain=log_domain, gemm=gemm)
+    got, iters = ops.sinkhorn_fused_all(g, val, r, lam, 40, tol=1e-2,
+                                        check_every=2, resmask=rm,
+                                        with_iters=True, **kw)
+    torch.cuda.synchronize()
+    ref.hold_solve(got, iters, g, val, r, lam, 40, 5e-5, 5e-5, tol=1e-2,
+                   check_every=2, resmask=rm, **kw)
+    fixed = ops.sinkhorn_fused_all(g, val, r, lam, 9, **kw)
+    capped, it = ops.sinkhorn_fused_all(g, val, r, lam, 9, tol=0.0,
+                                        check_every=4, with_iters=True, **kw)
+    assert (it == 9).all()
+    torch.testing.assert_close(capped, fixed, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v_r", [5, 43, 200])
+@pytest.mark.parametrize("mode", ["full", "k_only", "log_k"])
+def test_cdist_exp_bf16_matches_plain(rng, v_r, mode):
+    """K3's bf16 operands against the plain version, held in squared
+    distance as the fp32 kernel is (ref.hold_cdist_exp, P1)."""
+    dev = _card()
+    v, w = 5001, 300
+    vocab = torch.tensor(rng.standard_normal((v, w)), dtype=torch.float32,
+                         device=dev)
+    a = vocab[torch.as_tensor(rng.choice(v, v_r, replace=False),
+                              device=dev)].contiguous()
+    rw = rng.uniform(0.1, 1.0, v_r)
+    r = torch.tensor(rw / rw.sum(), dtype=torch.float32, device=dev)
+    k_only, log_k = mode != "full", mode == "log_k"
+    lam = 10.0 if log_k else 1.0
+    got = ops.cdist_exp(a, vocab, r, lam, k_only=k_only, log_k=log_k,
+                        gemm="bf16")
+    torch.cuda.synchronize()
+    ref.hold_cdist_exp(got, a, vocab, r, lam, k_only, log_k, gemm="bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16+log"])
+def test_adaptive_search_on_card_matches_host(precision):
+    """The adaptive search on the card against the same calls on the host,
+    over one index carried to both devices: the top-10 sets, solved counts
+    and per-query realized counts equal, distances at the reference's
+    spread R2 (the K blocks' GEMMs differ, P1, which can swap the order
+    of a near-tie pair under bf16)."""
+    from repro_torch.core.index import WmdEngine, build_index
+    from repro_torch.data.corpus import dedup_corpus
+    dev = _card()
+    c = dedup_corpus(512, vocab=4096, embed_dim=64, seed=2)
+    host = build_index(c.docs, c.vecs, device="cpu", n_clusters="auto")
+    card = _carry_to(host, dev)
+    qs = list(c.queries)
+    for scope in ("query", "chunk"):
+        kw = dict(lam=0.25, n_iter=15, tol=3e-2, check_every=2,
+                  scope=scope, precision=precision)
+        eh, ec = WmdEngine(host, **kw), WmdEngine(card, **kw)
+        for prune in ("rwmd", "ivf+wcd+rwmd"):
+            got = ec.search(qs, 10, prune=prune)
+            want = eh.search(qs, 10, prune=prune)
+            np.testing.assert_array_equal(np.sort(got.indices, axis=1),
+                                          np.sort(want.indices, axis=1))
+            np.testing.assert_array_equal(got.solved, want.solved)
+            np.testing.assert_allclose(got.distances, want.distances,
+                                       rtol=1e-3, atol=5e-3)
+        np.testing.assert_array_equal(ec.iter_stats(), eh.iter_stats())

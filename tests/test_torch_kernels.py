@@ -213,12 +213,22 @@ def test_cpu_tensors_leave_launch_counts_at_zero(rng):
 @pytest.mark.parametrize("kwargs", [dict(tol=1e-3), dict(resmask=True),
                                     dict(gemm="bf16")])
 def test_unported_solver_options_raise(rng, kwargs):
+    """The solver options run; what the kernels do not take raises: a
+    check period below 1 with tol, a resmask of the wrong shape, an
+    operand type other than fp32 and bf16."""
     g, val, r, lam = _k1_inputs(rng, False, n=16)
+    gt, vt, rt = map(torch.from_numpy, (g, val, r))
     if "resmask" in kwargs:
-        kwargs = dict(resmask=torch.ones((g.shape[0], g.shape[2])))
-    with pytest.raises(NotImplementedError):
-        ops.sinkhorn_fused_all_batched(*map(torch.from_numpy, (g, val, r)),
-                                       lam, 2, **kwargs)
+        kwargs = dict(tol=1e-3, resmask=torch.ones((g.shape[0], g.shape[2])))
+        bad = dict(tol=1e-3, resmask=torch.ones((g.shape[0], 3)))
+    elif "tol" in kwargs:
+        bad = dict(tol=1e-3, check_every=0)
+    else:
+        bad = dict(gemm="fp16")
+    out = ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 2, **kwargs)
+    assert torch.isfinite(out[:, :-20]).all()
+    with pytest.raises(ValueError):
+        ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 2, **bad)
 
 
 def test_wrappers_validate_inputs(rng):
@@ -377,21 +387,53 @@ def test_sinkhorn_wmd_kernel_matches_reference(small_corpus, precision,
 @pytest.mark.parametrize("call", ["cdist_exp", "sinkhorn_fused_all",
                                   "sinkhorn_wmd_kernel"])
 def test_unported_one_query_options_raise(rng, call):
+    """bf16 and tol run on the one-query path; an operand type other than
+    fp32 and bf16, or a check period below 1, raises."""
     g, val, r, lam = _k4_inputs(rng, 4, 8, 3, False)
     gt, vt, rt = _t(g, val, r)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        if call == "cdist_exp":
-            ops.cdist_exp(rt[:, None].contiguous(), rt[:, None].contiguous(),
-                          rt, lam, gemm="bf16")
-        elif call == "sinkhorn_fused_all":
-            ops.sinkhorn_fused_all(gt, vt, rt, lam, 2, tol=1e-3)
-        else:
-            from repro_torch.core.sparse import PaddedDocs
-            ops.sinkhorn_wmd_kernel(rt, rt[:, None].contiguous(),
-                                    rt[:, None].contiguous(),
-                                    PaddedDocs(torch.zeros((2, 1)).long(),
-                                               torch.ones((2, 1))),
-                                    lam, 2, precision="bf16")
+    a = rt[:, None].contiguous()
+    if call == "cdist_exp":
+        assert torch.isfinite(ops.cdist_exp(a, a, rt, lam, gemm="bf16")[1]
+                              ).all()
+        with pytest.raises(ValueError, match="gemm"):
+            ops.cdist_exp(a, a, rt, lam, gemm="fp16")
+    elif call == "sinkhorn_fused_all":
+        assert torch.isfinite(ops.sinkhorn_fused_all(gt, vt, rt, lam, 2,
+                                                     tol=1e-3)).all()
+        with pytest.raises(ValueError, match="check_every"):
+            ops.sinkhorn_fused_all(gt, vt, rt, lam, 2, tol=1e-3,
+                                   check_every=0)
+    else:
+        from repro_torch.core.sparse import PaddedDocs
+        docs = PaddedDocs(torch.zeros((2, 1)).long(), torch.ones((2, 1)))
+        assert torch.isfinite(ops.sinkhorn_wmd_kernel(
+            rt, a, a, docs, lam, 2, tol=1e-3, precision="bf16")).all()
+        with pytest.raises(ValueError, match="fp16"):
+            ops.sinkhorn_wmd_kernel(rt, a, a, docs, lam, 2,
+                                    precision="fp16")
+
+
+@pytest.mark.parametrize("v_r,v,w", [(8, 256, 128), (19, 512, 300),
+                                     (64, 1024, 256)])
+@pytest.mark.parametrize("mode", ["k_only", "log_k"])
+def test_cdist_exp_bf16_plain_matches_pallas(rng, v_r, v, w, mode):
+    """gemm="bf16": bf16 operands for a.b, fp32 norms and sums, against
+    the Pallas kernel (the reference's wrapper takes gemm under k_only)
+    at tests/test_kernels.py's K3 tolerance; bf16 moves M by far more."""
+    a = rng.standard_normal((v_r, w)).astype(np.float32)
+    b = rng.standard_normal((v, w)).astype(np.float32)
+    r = rng.uniform(0.01, 1.0, v_r).astype(np.float32)
+    lam, log_k = 5.0, mode == "log_k"
+    got = ops.cdist_exp(*_t(a, b, r), lam, k_only=True, log_k=log_k,
+                        gemm="bf16")
+    want = ref_ops.cdist_exp(jnp.asarray(a), jnp.asarray(b), jnp.asarray(r),
+                             lam, interpret=True, k_only=True, log_k=log_k,
+                             gemm="bf16")
+    tol = dict(rtol=2e-3, atol=lam * 5e-3) if log_k else K3_TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    m32, _, _ = ops.cdist_exp(*_t(a, b, r), lam)
+    m16, _, _ = ops.cdist_exp(*_t(a, b, r), lam, gemm="bf16")
+    assert float((m32 - m16).abs().max()) > 1e-3
 
 
 def test_one_query_wrappers_validate_inputs(rng):

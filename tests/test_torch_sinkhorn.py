@@ -145,10 +145,22 @@ def test_sinkhorn_wmd_sparse_unfused_matches_reference(small_corpus):
 
 
 def test_sinkhorn_wmd_sparse_tol_is_not_ported(small_corpus):
-    _, (rt, selt) = _support(small_corpus, 0)
-    with pytest.raises(NotImplementedError, match="tol"):
-        ss.sinkhorn_wmd_sparse(rt, selt, torch.from_numpy(small_corpus.vecs),
-                               _docs(small_corpus), 1.0, 5, tol=1e-3)
+    """tol runs the adaptive loop (tests/test_torch_adaptive.py holds it
+    against the reference); a check period below 1 raises."""
+    (r, sel), (rt, selt) = _support(small_corpus, 0)
+    vecs = torch.from_numpy(small_corpus.vecs)
+    got, it = ss.sinkhorn_wmd_sparse(rt, selt, vecs, _docs(small_corpus),
+                                     1.0, 15, tol=1e-3, check_every=2,
+                                     return_iters=True)
+    want, want_it = ref_ss.sinkhorn_wmd_sparse(
+        jnp.asarray(r), jnp.asarray(sel), jnp.asarray(small_corpus.vecs),
+        small_corpus.docs, 1.0, 15, tol=1e-3, check_every=2,
+        return_iters=True)
+    assert it == int(want_it) and (it - 1) % 2 == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="check_every"):
+        ss.sinkhorn_wmd_sparse(rt, selt, vecs, _docs(small_corpus), 1.0, 5,
+                               tol=1e-3, check_every=0)
 
 
 @pytest.mark.parametrize("stabilized", [False, True])
