@@ -25,7 +25,15 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
   (fig10's operating points, ``scope="query"`` and ``"chunk"``, fp32, log
   and bf16) checked against the exhaustive top-k under the same ``tol``
   and against the fixed-iteration top-k; and the one-query kernel path
-  under ``tol`` and bf16 against the sparse solver.
+  under ``tol`` and bf16 against the sparse solver;
+- the block-sparse SDDMM ``ops.bsr_sddmm`` (K6) on the paper corpus's
+  doc matrix at 128 x 128 and 64 x 64 tiles, and K1 on a (v_r, L) tile
+  over the shared-memory limit;
+- the einsum engine ``WmdEngine(impl="sparse")``: search and
+  ``query_batch`` against its exhaustive top-10 and the kernel engine's
+  distances, ``warm_start`` on the near-duplicate corpus, the K-column
+  cache under fig15's Zipfian traffic (cache-on equals cache-off bit for
+  bit, hit rate), and ``many_to_many`` / ``search`` with their defaults.
 
 Each path runs once with the launch counts set to 0 just before it and
 read just after. Prints one JSON object per phase; the line before the
@@ -63,7 +71,7 @@ from repro_torch.core.sinkhorn_sparse import (_iterate,  # noqa: E402
                                               sinkhorn_wmd_sparse)
 from repro_torch.core.sparse import PaddedDocs  # noqa: E402
 from repro_torch.data.corpus import (dedup_corpus, make_corpus,  # noqa: E402
-                                     paper_corpus)
+                                     paper_corpus, zipf_queries)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 FFMA
@@ -153,6 +161,13 @@ P3_RTOL = 5e-2
 # K3 and cuBLAS sum M in another order (P1; 4.2e-4 measured on the card),
 # held at the reference's own spread R2
 BF16_P1_RTOL = 1e-3
+# the einsum engine against the kernel engine: tests/test_engine.py's
+# test_batched_matches_per_query_oracle holds the reference's two impls
+# at rtol = atol = 5e-4
+EINSUM_RTOL = 5e-4
+# the K-column cache phase: fig15's capacity and prune spec
+KCACHE_SLOTS = 512
+KCACHE_PRUNE = "ivf+wcd+rwmd"
 
 
 def emit(obj) -> None:
@@ -442,10 +457,12 @@ def phase_k1_tiles(index, sup, r, mask) -> dict:
     return rec
 
 
-def phase_k1_wide(index, dev) -> None:
-    """K1's shared-memory variant, which serves tiles wider than 64 query
-    rows or doc slots (no paper shape is): held against the plain
-    version on 96-row queries."""
+def phase_k1_wide(index, dev) -> dict:
+    """K1's variants for tiles wider than 64 query rows or doc slots (no
+    paper shape is): the shared-memory one on 96-row queries, held against
+    the plain version and timed beside the device-memory one at that
+    shape; then the tile over the shared-memory limit
+    (:func:`phase_k1_over_limit`)."""
     sup, r, mask = paper_chunk(index.vocab_size, dev, width=96, q=2, seed=1)
     grp = index.subset(np.arange(1024, dtype=np.int32), storage=True)
     for log_domain, lam in ((False, 1.0), (True, CONFIG.lam)):
@@ -459,8 +476,20 @@ def phase_k1_wide(index, dev) -> None:
             g, grp.docs.val, r, lam, CONFIG.n_iter, log_domain=log_domain)[0]
         abs_err, _ = compare(got, want, K1_RTOL, K1_ATOL,
                              f"K1 wide log_domain={log_domain}")
-        emit({"phase": "k1_wide", "log_domain": log_domain,
-              "shape": list(g.shape), "max_abs_err": abs_err})
+        rec = {"phase": "k1_wide", "log_domain": log_domain,
+               "shape": list(g.shape), "max_abs_err": abs_err}
+        for tile in ("shared", "global"):
+            def run(tile=tile, g=g, lam=lam, log_domain=log_domain):
+                return ops.sinkhorn_fused_all_batched(
+                    g, grp.docs.val, r, lam, CONFIG.n_iter,
+                    log_domain=log_domain, tile=tile)
+            rec[tile] = {"max_abs_err": compare(
+                run(), want, K1_RTOL, K1_ATOL,
+                f"K1 wide tile={tile} log_domain={log_domain}")[0],
+                "ms": time_ms(run)}
+        emit(rec)
+        del g
+    return phase_k1_over_limit(index, dev)
 
 
 def phase_small_parity(dev) -> None:
@@ -526,17 +555,18 @@ def phase_end_to_end(corpus, index, precision: str, lam: float,
     return rec
 
 
-def phase_profile(corpus, index, k: int = 10, reps: int = 5) -> None:
+def phase_profile(corpus, index, k: int = 10, reps: int = 5,
+                  impl: str = "kernel") -> None:
     """Where the time of a search goes: torch.profiler over ``reps`` warm
-    ``search`` calls (log, lam=10); device busy share = the kernels' summed
-    device time over the wall time (one stream, so no overlap). Times are
-    per search."""
+    ``search`` calls (log, lam=10) of the ``impl`` engine; device busy
+    share = the kernels' summed device time over the wall time (one
+    stream, so no overlap). Times are per search."""
     qs = list(corpus.queries)
     eng = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
-                    precision="log")
+                    precision="log", impl=impl)
     out = profile_window(lambda: eng.search(qs, k, prune="rwmd"), reps)
     emit(profile_record("profile", *out, reps, precision="log",
-                        lam=CONFIG.lam))
+                        lam=CONFIG.lam, impl=impl))
 
 
 def phase_underflow(corpus, index) -> None:
@@ -1484,6 +1514,391 @@ def phase_adaptive(corpus, index) -> dict:
     return rec
 
 
+# ------------------------------------------------- slice 5: K6, einsum
+def bsr_bound(v: int, v_r: int, n: int, nb: int, bv: int, bn: int,
+              panels: bool) -> tuple[float, str]:
+    """K6's bound: c's retained tiles read once and w written once, the
+    operands (kt and u, or with ``panels`` the gathered (nb, bv, v_r) and
+    (nb, v_r, bn) panels) and the tile coordinates read once; 2 v_r + 1
+    flops per tile element (the product and the c multiply)."""
+    elems = float(nb) * bv * bn
+    operands = (nb * (bv * v_r + v_r * bn) if panels
+                else v * v_r + v_r * n)
+    n_bytes = 4.0 * (2.0 * elems + operands) + 8.0 * nb
+    return bound_ms(n_bytes, elems * (2.0 * v_r + 1.0))
+
+
+def phase_k6(vecs, docs, r, vecs_sel) -> dict:
+    """K6 at the paper corpus: c the doc matrix (V, N) on the card, kt K3's
+    K of the widest paper query transposed (V, v_r), u 1/x of that query's
+    sparse solve after n_iter iterations at lam=1, padded to whole tiles;
+    128 x 128 and 64 x 64 tiles. Each tile size: the path (one
+    ``ops.bsr_sddmm`` call, launches counted), both entry points held
+    against the plain version at the reference's 1e-5 of |c| (|kt| |u|),
+    times, the bound, and the dense ``c * (kt @ u)`` beside them."""
+    from repro_torch.core.sparse import (block_density,
+                                         block_sparse_from_dense,
+                                         padded_docs_to_dense)
+    v = vecs.shape[0]
+    n = docs.idx.shape[0]
+    c = padded_docs_to_dense(docs, v)                            # (V, N)
+    kt = ops.cdist_exp(vecs_sel, vecs, r, 1.0, k_only=True).T.contiguous()
+    x = _iterate(precompute_sparse(r, vecs_sel, vecs, docs, 1.0),
+                 CONFIG.n_iter)
+    u_n = ref._safe_inv(x)                                       # (v_r, N)
+    v_r = u_n.shape[0]
+    recs = {}
+    for bv, bn in ((128, 128), (64, 64)):
+        cb = block_sparse_from_dense(c, bv, bn)
+        nb = cb.blocks.shape[0]
+        u = torch.nn.functional.pad(u_n, (0, cb.shape[1] - n)).contiguous()
+        ops.reset_launches()                      # the path: one call
+        w = ops.bsr_sddmm(kt, u, cb)
+        torch.cuda.synchronize()
+        launches = ops.launches()["bsr_sddmm_blocks"]
+        if launches != 1:
+            raise AssertionError(f"bsr_sddmm launched K6 {launches} times")
+        ktb, ub = ref.bsr_panels(kt, u, cb.brow, cb.bcol, bv, bn)
+        ktb, ub = ktb.contiguous(), ub.contiguous()
+        errs = ref.hold_bsr_sddmm(w, ktb, ub, cb.blocks)
+        del w
+        blk_errs = ref.hold_bsr_sddmm(ops.bsr_sddmm_blocks(ktb, ub,
+                                                           cb.blocks),
+                                      ktb, ub, cb.blocks)
+
+        def kernel(cb=cb, u=u):
+            return ops.bsr_sddmm(kt, u, cb)
+
+        def blocks(cb=cb, ktb=ktb, ub=ub):
+            return ops.bsr_sddmm_blocks(ktb, ub, cb.blocks)
+
+        def plain(cb=cb, u=u, bv=bv, bn=bn):
+            return ref.bsr_sddmm_blocks_ref(
+                *ref.bsr_panels(kt, u, cb.brow, cb.bcol, bv, bn), cb.blocks)
+
+        def dense():
+            return c * (kt @ u_n)
+
+        bms, by = bsr_bound(v, v_r, cb.shape[1], nb, bv, bn, panels=False)
+        bbms, bby = bsr_bound(v, v_r, cb.shape[1], nb, bv, bn, panels=True)
+        rec = {"phase": "k6", "name": "bsr_sddmm_blocks",
+               "tile": [bv, bn],
+               "shape": {"V": v, "N": n, "v_r": v_r, "blocks": nb,
+                         "all_tiles": (cb.shape[0] // bv)
+                         * (cb.shape[1] // bn)},
+               "block_density": block_density(c, bv, bn),
+               "retained_gb": 4.0 * nb * bv * bn / 1e9,
+               "dense_c_gb": 4.0 * v * n / 1e9,
+               **errs, "rtol_of_scale": ref.K6_RTOL,
+               "launches": launches, "ms": time_ms(kernel),
+               "launch_ms": launch_ms(kernel),
+               "plain_ms": time_ms(plain, reps=5, warmup=1),
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "library": "none: no single PyTorch call computes a "
+                          "block-sparse SDDMM",
+               "dense_ms": time_ms(dense, reps=5, warmup=1),
+               "dense": "c * (kt @ u) over the whole (V, N): two calls, "
+                        "a comparison, not the same function's cost",
+               "blocks_entry": {**blk_errs, "ms": time_ms(blocks),
+                                "bound_ms": bbms, "bound_by": bby}}
+        emit(rec)
+        recs[f"{bv}x{bn}"] = rec
+        del cb, ktb, ub
+        torch.cuda.empty_cache()
+    return recs
+
+
+def wide_docs(index, dev, n: int, length: int, seed: int):
+    """``n`` synthetic docs of ``length`` distinct paper-vocabulary words
+    each (random frequencies, a few pad slots): the long documents no
+    paper doc is, for tiles over the shared-memory limit."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(index.vocab_size, length, replace=False)
+                    for _ in range(n)])
+    val = rng.random((n, length)) + 0.05
+    val[:, length - 7:] = 0.0
+    val /= val.sum(1, keepdims=True)
+    return (torch.as_tensor(idx, dtype=torch.int64, device=dev),
+            torch.as_tensor(val, dtype=torch.float32, device=dev))
+
+
+def phase_k1_over_limit(index, dev) -> dict:
+    """K1 with a (v_r, L) tile over the card's 227 KB of shared memory:
+    256 query rows against 384 docs of 256 slots (263 KB), which
+    ``tile="auto"`` runs on the variant that reads G from device memory;
+    fp32 at lam=1 and log at lam=10, fixed and adaptive, and K4 on one
+    query's tile, each held against the plain version; timed beside the shared-memory variant at
+    the same Q and N on 192-row, 192-slot tiles (both variants there)."""
+    sup, r, mask = paper_chunk(index.vocab_size, dev, width=256, q=2,
+                               seed=6)
+    idx, val = wide_docs(index, dev, 384, 256, seed=7)
+    rec = {"phase": "k1_wide", "case": "over_smem_limit", "Q": 2, "N": 384,
+           "cases": {}}
+    for log_domain, lam in ((False, 1.0), (True, CONFIG.lam)):
+        kq = _compute_kq(sup, mask, index.vecs, index.vecs_sq, lam,
+                         log_domain=log_domain)
+        g = _gather_g(kq, idx)                        # (2, 256, 384, 256)
+        key = "log" if log_domain else "fp32"
+        for mode, kw in (("fixed", {}),
+                         ("adaptive", dict(tol=1e-2, check_every=2))):
+            got, it = ops.sinkhorn_fused_all_batched(
+                g, val, r, lam, CONFIG.n_iter, log_domain=log_domain,
+                with_iters=True, **kw)
+            torch.cuda.synchronize()
+            held = ref.hold_solve(got, it, g, val, r, lam, CONFIG.n_iter,
+                                  K1_RTOL, K1_ATOL, log_domain=log_domain,
+                                  **kw)
+
+            def run(kw=kw, g=g, log_domain=log_domain, lam=lam):
+                return ops.sinkhorn_fused_all_batched(
+                    g, val, r, lam, CONFIG.n_iter, log_domain=log_domain,
+                    **kw)
+
+            rec["cases"][f"{key} {mode}"] = {
+                "shape": list(g.shape), **held, "ms": time_ms(run)}
+        # K4 (K1's entry point at Q = 1) on the first query's tile
+        got4 = ops.sinkhorn_fused_all(g[0], val, r[0], lam, CONFIG.n_iter,
+                                      log_domain=log_domain)
+        torch.cuda.synchronize()
+        want4 = ref.sinkhorn_fused_all_ref(g[0], val, r[0], lam,
+                                           CONFIG.n_iter,
+                                           log_domain=log_domain)[0]
+        rec["cases"][f"{key} K4"] = {"max_abs_err": compare(
+            got4, want4, K4_RTOL, K4_ATOL, f"K4 over the limit {key}")[0]}
+        # the two variants at one shape both fit: 192 x 192 (145 KB)
+        g2 = _gather_g(kq[:, :192], idx[:, :192]).contiguous()
+        v2 = (val[:, :192] / val[:, :192].sum(1, keepdim=True)).contiguous()
+        r2 = r[:, :192].contiguous()
+        want = ref.sinkhorn_fused_all_batched_ref(
+            g2, v2, r2, lam, CONFIG.n_iter, log_domain=log_domain)[0]
+        for tile in ("shared", "global"):
+            def run2(tile=tile, g2=g2, lam=lam, log_domain=log_domain):
+                return ops.sinkhorn_fused_all_batched(
+                    g2, v2, r2, lam, CONFIG.n_iter, log_domain=log_domain,
+                    tile=tile)
+            abs_err, _ = compare(run2(), want, K1_RTOL, K1_ATOL,
+                                 f"K1 192x192 tile={tile} {key}")
+            rec["cases"][f"{key} 192x192 {tile}"] = {
+                "max_abs_err": abs_err, "ms": time_ms(run2)}
+        del kq, g, g2
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_einsum(corpus, index) -> dict:
+    """The einsum engine (``impl="sparse"``) at the paper's widths:
+    ``query_batch`` and ``search(k=10, prune="rwmd")`` in fp32 at lam=1
+    and in log at lam=10. The staged top-10 equals the exhaustive top-10;
+    the distances are held against the kernel impl at
+    ``tests/test_engine.py``'s rtol = atol = 5e-4 (the two share the K
+    block's inputs; they differ in the K block's GEMM shape and in the
+    distance line); latency beside the kernel impl's."""
+    qs = list(corpus.queries)
+    rec = {"phase": "einsum", "queries": len(qs), "k": TOP_K,
+           "points": {}}
+    for precision, lam in (("fp32", 1.0), ("log", CONFIG.lam)):
+        kw = dict(lam=lam, n_iter=CONFIG.n_iter, precision=precision)
+        sp, kn = (WmdEngine(index, impl="sparse", **kw),
+                  WmdEngine(index, impl="kernel", **kw))
+        sp.search(qs, TOP_K, prune="rwmd")                 # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        res = sp.search(qs, TOP_K, prune="rwmd")
+        torch.cuda.synchronize()
+        launches = ops.launches()
+        full = sp.query_batch(qs).numpy()
+        full_k = kn.query_batch(qs).numpy()
+        if np.isnan(full).any():
+            raise AssertionError(f"einsum {precision}: NaN distances")
+        ex_i = np.argsort(full, axis=1, kind="stable")[:, :TOP_K]
+        if not np.array_equal(res.indices, ex_i):
+            raise AssertionError(f"einsum {precision}: staged top-{TOP_K} "
+                                 "differs from the exhaustive top-10")
+        np.testing.assert_allclose(
+            res.distances, np.take_along_axis(full, ex_i, 1),
+            rtol=E2E_RTOL, atol=0, err_msg=f"einsum {precision}")
+        gap = np.abs(full - full_k)
+        np.testing.assert_allclose(full, full_k, rtol=EINSUM_RTOL,
+                                   atol=EINSUM_RTOL,
+                                   err_msg=f"einsum vs kernel {precision}")
+        if launches["rwmd_min_cdist"] <= 0 or \
+                launches["sinkhorn_fused_all_batched"] != 0:
+            raise AssertionError(f"einsum search launched {launches}")
+        kn.search(qs, TOP_K, prune="rwmd")                 # warm-up
+        rec["points"][precision] = {
+            "lam": lam, "launches": launches,
+            "max_abs_diff_vs_kernel": float(gap.max()),
+            "max_rel_diff_vs_kernel": float((gap / np.abs(full_k)).max()),
+            "rtol": EINSUM_RTOL, "solved": res.solved.tolist(),
+            "search_ms": wall_ms(lambda: sp.search(qs, TOP_K,
+                                                   prune="rwmd")),
+            "kernel_search_ms": wall_ms(lambda: kn.search(qs, TOP_K,
+                                                          prune="rwmd")),
+            "query_batch_ms": wall_ms(lambda: sp.query_batch(qs)),
+            "kernel_query_batch_ms": wall_ms(lambda: kn.query_batch(qs))}
+        for key in ("search_ms", "kernel_search_ms", "query_batch_ms",
+                    "kernel_query_batch_ms"):
+            rec["points"][precision][key + "_median"] = \
+                rec["points"][precision][key]["median"]
+    emit(rec)
+    return rec
+
+
+def phase_warm_start(corpus, index) -> dict:
+    """warm_start on the einsum impl, on the dedup corpus at fig10's point
+    (lam=0.25, tol=3e-2, check_every=2, cap 15, scope="query"): warm
+    survivors take no more realized iterations than cold ones, the seed
+    stage is the same, the top-10 distances hold within
+    ``tests/test_convergence_scoped.py``'s band (rtol 5e-2, atol 1e-3);
+    without tol warm equals cold bit for bit."""
+    qs = list(corpus.queries)
+    rec = {"phase": "warm_start", **FIG10, "scope": "query", "prunes": {}}
+    for prune in ("rwmd", "ivf+wcd+rwmd"):
+        out = {}
+        for warm in (False, True):
+            eng = WmdEngine(index, impl="sparse", scope="query",
+                            warm_start=warm, **FIG10)
+            res = eng.search(qs, TOP_K, prune=prune)
+            out[warm] = (res, eng.iter_stats_by_stage())
+        (r_c, s_c), (r_w, s_w) = out[False], out[True]
+        np.testing.assert_allclose(np.sort(r_w.distances, axis=1),
+                                   np.sort(r_c.distances, axis=1),
+                                   rtol=5e-2, atol=1e-3, err_msg=prune)
+        if not np.array_equal(s_w["seed"], s_c["seed"]):
+            raise AssertionError(f"{prune}: warm start moved the seeds")
+        if "survivor" in s_c and \
+                s_w["survivor"].mean() > s_c["survivor"].mean():
+            raise AssertionError(f"{prune}: warm survivors took more "
+                                 "iterations than cold ones")
+        rec["prunes"][prune] = {
+            f"{k}_{st}": {"mean": float(a.mean()), "max": int(a.max())}
+            for k, stages in (("cold", s_c), ("warm", s_w))
+            for st, a in stages.items()}
+        rec["prunes"][prune]["top10_equal"] = bool(
+            np.array_equal(np.sort(r_w.indices, 1), np.sort(r_c.indices, 1)))
+    fixed = [WmdEngine(index, impl="sparse", lam=FIG10["lam"],
+                       n_iter=FIG10["n_iter"], warm_start=warm)
+             .search(qs, TOP_K, prune="rwmd") for warm in (False, True)]
+    if not (np.array_equal(fixed[0].indices, fixed[1].indices)
+            and np.array_equal(fixed[0].distances, fixed[1].distances)):
+        raise AssertionError("warm_start changed a search without tol")
+    rec["inert_without_tol"] = True
+    emit(rec)
+    return rec
+
+
+def kcache_loop(index, stream, slots: int, prune: str = KCACHE_PRUNE,
+                batch: int = 8) -> dict:
+    """fig15's closed loop: a fresh cached engine (fp32, lam=1,
+    kcache_min_hits=1) warms on the stream's first 32 queries twice, then
+    replays the whole stream in batches; the replay's counters."""
+    eng = WmdEngine(index, lam=1.0, n_iter=CONFIG.n_iter, impl="sparse",
+                    kcache_slots=slots, kcache_min_hits=1)
+    for _ in range(2):
+        for i in range(0, 32, batch):
+            eng.search(stream[i:i + batch], TOP_K, prune=prune)
+    eng.reset_kcache_stats()
+    for i in range(0, len(stream), batch):
+        eng.search(stream[i:i + batch], TOP_K, prune=prune)
+    return eng.kcache_stats()
+
+
+def phase_kcache(corpus, index) -> dict:
+    """The K-column cache on the paper corpus under fig15's traffic: 128
+    queries of 32 Zipf (s=1.0) draws over the vocabulary, seed 11, batches
+    of 8, ``prune="ivf+wcd+rwmd"``. Cache-on equals cache-off bit for bit,
+    cold and warm, for search and query_batch, in every precision (512
+    slots, ~205 MB); the closed-loop hit rate after warmup at 512 and
+    1024 slots, and on fig15's own corpus (V=8192, w=64) at 512; the
+    K block's time with and without the cache."""
+    vocab = index.vocab_size
+    stream = zipf_queries(128, vocab, words=32, s=1.0, seed=11)
+    rec = {"phase": "kcache", "slots": KCACHE_SLOTS, "queries": 128,
+           "words": 32, "zipf_s": 1.0, "prune": KCACHE_PRUNE,
+           "store_mb": KCACHE_SLOTS * vocab * 4 / 1e6, "exact": {}}
+    for precision in ("fp32", "bf16", "log", "bf16+log"):
+        lam = CONFIG.lam if "log" in precision else 1.0
+        kw = dict(lam=lam, n_iter=CONFIG.n_iter, impl="sparse",
+                  precision=precision)
+        off = WmdEngine(index, **kw)
+        on = WmdEngine(index, kcache_slots=KCACHE_SLOTS, kcache_min_hits=1,
+                       **kw)
+        for pass_ in ("cold", "warm"):
+            for i in range(0, 32, 8):
+                chunk = stream[i:i + 8]
+                a = off.search(chunk, TOP_K, prune=KCACHE_PRUNE)
+                b = on.search(chunk, TOP_K, prune=KCACHE_PRUNE)
+                qa, qb = off.query_batch(chunk), on.query_batch(chunk)
+                label = f"kcache {precision} {pass_} batch {i}"
+                if not (np.array_equal(a.indices, b.indices)
+                        and np.array_equal(a.distances, b.distances)
+                        and torch.equal(qa, qb)):
+                    gap = float(np.nanmax(np.abs(a.distances - b.distances)))
+                    raise AssertionError(f"{label}: cache-on differs from "
+                                         f"cache-off (max gap {gap})")
+        rec["exact"][precision] = {"bitwise": True,
+                                   "stats": on.kcache_stats()}
+    rec["hit_rate"] = {}
+    for slots in (KCACHE_SLOTS, 2 * KCACHE_SLOTS):
+        rec["hit_rate"][f"paper {slots}"] = kcache_loop(index, stream,
+                                                        slots)["hit_rate"]
+    fig = make_corpus(vocab_size=8192, embed_dim=64, n_docs=2048,
+                      n_queries=8, seed=0)
+    findex = build_index(fig.docs, fig.vecs, device=index.device)
+    hr_fig = kcache_loop(findex, zipf_queries(128, 8192, words=32, s=1.0,
+                                              seed=11),
+                         KCACHE_SLOTS)["hit_rate"]
+    rec["hit_rate"]["fig15 512"] = hr_fig
+    for key, hr in (("fig15 512", hr_fig),
+                    (f"paper {2 * KCACHE_SLOTS}",
+                     rec["hit_rate"][f"paper {2 * KCACHE_SLOTS}"])):
+        if not hr > 0.5:
+            raise AssertionError(f"kcache {key}: closed-loop hit rate {hr} "
+                                 "is not above 0.5")
+    # the K block of one warm chunk, with and without the cache
+    eng_on = WmdEngine(index, lam=1.0, n_iter=CONFIG.n_iter, impl="sparse",
+                       kcache_slots=KCACHE_SLOTS, kcache_min_hits=1)
+    eng_off = WmdEngine(index, lam=1.0, n_iter=CONFIG.n_iter,
+                        impl="sparse")
+    _, chunks = eng_on._plan(stream[:8])
+    chunk, width = max(chunks, key=lambda c: (c[1], len(c[0])))
+    sup, _, mask = eng_on._prep_chunk([stream[qi] for qi in chunk], width)
+    eng_on._kq(sup, mask)                                 # warm the rows
+    rec["k_block"] = {"Q": int(sup.shape[0]), "B": int(sup.shape[1]),
+                      "cached_ms": wall_ms(lambda: eng_on._kq(sup, mask)),
+                      "uncached_ms": wall_ms(lambda: eng_off._kq(sup, mask)),
+                      "kernel_impl_ms": wall_ms(lambda: WmdEngine(
+                          index, lam=1.0, impl="kernel")._kq(sup, mask))}
+    for key in ("cached_ms", "uncached_ms", "kernel_impl_ms"):
+        rec["k_block"][key + "_median"] = rec["k_block"][key]["median"]
+    emit(rec)
+    return rec
+
+
+def phase_wmd_defaults(dev) -> dict:
+    """``many_to_many`` and ``wmd.search`` with every default argument
+    (impl "sparse", lam=10, n_iter=15, prune "rwmd", k=10) on the card,
+    on a corpus whose distances keep lam=10 above the fp32 exp horizon:
+    finite, and search's top-10 is each query's exhaustive top-10."""
+    from repro_torch.core import search as wmd_search
+    c = make_corpus(vocab_size=4096, embed_dim=8, n_docs=512, n_queries=6,
+                    seed=5)
+    qs = list(c.queries)
+    full = torch.stack(many_to_many(qs, c.docs, c.vecs)).cpu().numpy()
+    res = wmd_search(qs, c.docs, c.vecs)
+    if not np.isfinite(full).all():
+        raise AssertionError("many_to_many defaults: non-finite distances")
+    ex_i = np.argsort(full, axis=1, kind="stable")[:, :10]
+    if not np.array_equal(res.indices, ex_i):
+        raise AssertionError("wmd.search defaults: top-10 differs from the "
+                             "exhaustive top-10")
+    rec = {"phase": "wmd_defaults", "queries": len(qs), "n_docs": 512,
+           "shape": list(full.shape), "top10_equal": True}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1539,6 +1954,7 @@ def main() -> int:
     k3_bf16 = phase_k3_bf16(vecs, sel0, r0)
     k4_ad = phase_k4_adaptive(vecs, docs, r0, sel0)
     k5 = phase_k5(vecs, docs, r0, sel0)
+    k6 = phase_k6(vecs, docs, r0, sel0)
     del vecs, docs
     torch.cuda.empty_cache()
 
@@ -1547,6 +1963,9 @@ def main() -> int:
     phase_end_to_end(corpus, index, "fp32", 1.0)
     phase_profile(corpus, index)
     phase_underflow(corpus, index)
+    phase_einsum(corpus, index)
+    phase_profile(corpus, index, impl="sparse")
+    phase_kcache(corpus, index)
     del index
     torch.cuda.empty_cache()
     otm = phase_one_to_many(corpus, dev)
@@ -1570,9 +1989,11 @@ def main() -> int:
     phase_profile_cascade(dedup, dindex)
     phase_k1_adaptive(dindex, *main_path_chunk(dedup, dindex), "dedup_chunk")
     adapt = phase_adaptive(dedup, dindex)
+    phase_warm_start(dedup, dindex)
     del dindex
     torch.cuda.empty_cache()
     phase_append(dedup, dev)
+    phase_wmd_defaults(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     path_launches = {**otm["launches_per_kernel_call"],
@@ -1633,6 +2054,26 @@ def main() -> int:
         kernels[3][mode] = {**{key: k4_ad[mode][key] for key in keys},
                             "library_ms": None,
                             "launches": launches["sinkhorn_fused_all"]}
+    # K6: its path (ops.bsr_sddmm, the kernel gathering its
+    # panels) at 128 x 128 tiles; the 64 x 64 tiles and the entry point on
+    # given panels ride along, and the dense c * (kt @ u) under its own key
+    k6_rec = k6["128x128"]
+    kernels.append({
+        "name": "bsr_sddmm_blocks", "route": "cuda",
+        "source": csrc + "bsr_sddmm.cu",
+        "replaces": "src/repro/kernels/bsr_sddmm.py:35",
+        "launches": k6_rec["launches"],
+        **{key: k6_rec[key] for key in keys}, "library_ms": None,
+        "library": k6_rec["library"], "shape": k6_rec["shape"],
+        "block_density": k6_rec["block_density"],
+        "dense_ms": k6_rec["dense_ms"], "dense": k6_rec["dense"],
+        "blocks_entry": k6_rec["blocks_entry"],
+        "tiles_64x64": {**{key: k6["64x64"][key] for key in keys},
+                        "block_density": k6["64x64"]["block_density"],
+                        "shape": k6["64x64"]["shape"],
+                        "dense_ms": k6["64x64"]["dense_ms"],
+                        "library_ms": None,
+                        "launches": k6["64x64"]["launches"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -1,5 +1,5 @@
 """Batched multi-query WMD engine over a frozen corpus index (port of
-``repro.core.index``: the ``impl="kernel"`` path).
+``repro.core.index``).
 
 ``CorpusIndex``
     Freezes everything query-independent once, on the device: the ELL
@@ -16,25 +16,22 @@
     Shape-buckets queries to power-of-two ``v_r`` sizes (padded query rows
     carry ``r = 1, G = 0`` — inert in the solver), stacks each chunk of up
     to ``max_batch`` queries into one problem and runs, per chunk: one
-    stacked cdist GEMM (``torch.matmul``, full fp32) for the K block, a
-    gather of each doc group's K columns, and one launch of the Hopper
-    solver K1 (:func:`repro_torch.kernels.ops.sinkhorn_fused_all_batched`).
-    ``search`` is the staged exact top-k: RWMD (or WCD) bounds through the
-    Hopper kernel K2, a seed solve that sets each query's threshold, a
-    survivor solve, and a rank. With an IVF cascade (``prune="ivf+..."``)
-    the bounds run cheapest-first over a shrinking candidate set, the RWMD
-    stage through K2s; ``mode="refine"`` ranks by the bound and solves
-    each query's best ``refine_factor * k``. On a CPU index the same code
-    calls the kernels' plain versions.
-
-Ported so far: ``impl="kernel"`` with a fixed ``n_iter`` or the adaptive
-solve (``tol``, ``check_every``, ``scope``; ``iter_stats`` counts the
-realized iterations), in every precision (fp32, bf16, log, bf16+log),
-``query_batch``, ``search`` in both modes with every prune spec of the
-reference (full sweeps and IVF cascades, with ``nprobe``),
-:func:`append_docs` and ``build_index(n_clusters="auto")``. The einsum
-impl (``impl="sparse"``) and the K-column cache (``kcache_slots``) raise
-``NotImplementedError`` (ROADMAP queue 1).
+    stacked cdist GEMM for the K block, a gather of each doc group's K
+    columns, and the solve. Two solve impls, as in the reference:
+    ``impl="kernel"`` launches the Hopper solver K1
+    (:func:`repro_torch.kernels.ops.sinkhorn_fused_all_batched`);
+    ``impl="sparse"`` runs the batched einsum solve
+    (:func:`_solve_batched_einsum`, plain torch, as the reference leaves it
+    to XLA), which also exposes the converged profile that warm-starts
+    survivor solves (``warm_start``), and can assemble its K block from
+    the cross-request K-column cache (``kcache_slots``,
+    :mod:`.kcache`). ``search`` is the staged exact top-k: RWMD (or WCD)
+    bounds through the Hopper kernel K2, a seed solve that sets each
+    query's threshold, a survivor solve, and a rank. With an IVF cascade
+    (``prune="ivf+..."``) the bounds run cheapest-first over a shrinking
+    candidate set, the RWMD stage through K2s; ``mode="refine"`` ranks by
+    the bound and solves each query's best ``refine_factor * k``. On a CPU
+    index the same code calls the kernels' plain versions.
 
 fp32 policy: every product here is full fp32. PyTorch's default on the
 card (``torch.backends.cuda.matmul.allow_tf32 is False``) is relied on,
@@ -52,7 +49,10 @@ import torch
 from .device import resolve_device
 from .sinkhorn import (LamUnderflowError, gemm_round, select_support,
                        underflow_report)
-from .sinkhorn_sparse import SolvePrecision, gather_columns
+from .kcache import cdist_rows, kq_from_m
+from .sinkhorn_sparse import (SolvePrecision, _inv, _select, adaptive_loop,
+                              adaptive_loop_scoped, gather_columns,
+                              marginal_residual, marginal_residual_per_query)
 from .sparse import PaddedDocs
 
 
@@ -632,21 +632,44 @@ def _prepare_query(q, bucket: int, dtype=np.float32):
     return sup, r, mask
 
 
+def _stabilize_log_g(g: torch.Tensor):
+    """Column-stabilize a gathered log-kernel tile (Q, N, L, B): subtract
+    each (q, n, l) column's max over the query-word axis and exponentiate.
+    Pad rows carry -inf and become exactly 0; a column with no live row
+    (a filler query) gets shift 0 and stays all zero. Returns (G', shift),
+    every live column's largest entry 1, so no K column can underflow."""
+    shift = g.max(dim=-1).values                              # (Q, N, L)
+    shift = torch.where(torch.isfinite(shift), shift,
+                        torch.zeros_like(shift))
+    gp = torch.where(torch.isfinite(g), torch.exp(g - shift[..., None]),
+                     torch.zeros_like(g))
+    return gp, shift
+
+
 def _compute_kq(sup: torch.Tensor, mask: torch.Tensor, vecs: torch.Tensor,
                 vecs_sq: torch.Tensor, lam: float, gemm: str = "fp32",
-                log_domain: bool = False) -> torch.Tensor:
-    """Stacked cdist GEMM -> K for one query chunk: (Q, B) ids -> (Q, B, V).
+                log_domain: bool = False, with_m: bool = False):
+    """Stacked cdist GEMM -> K for one query chunk of (Q, B) word ids.
 
-    One (Q*B, w) x (w, V) ``torch.matmul`` replaces Q separate cdists;
-    its sqrt/exp epilogue is plain torch. The (Q, B, V) orientation is
-    the layout the kernel's gather wants (the reference computes the
-    transposed product and transposes back for its kernel). Padded rows
-    (mask == 0) come out as all-zero K rows, or -inf rows of log K under
-    ``log_domain``. ``gemm="bf16"`` rounds both operands of the product to
-    bf16 (:func:`~.sinkhorn.gemm_round`); the product, its sums and the
-    norms stay fp32."""
+    ``with_m=False`` (the kernel impl): one (Q*B, w) x (w, V)
+    ``torch.matmul``, returning kq (Q, B, V), the layout K1's gather wants
+    (the reference computes the transposed product and transposes back for
+    its kernel). ``with_m=True`` (the einsum impl): the product runs
+    through :func:`~.kcache.cdist_rows` in fixed panels of words, the path
+    the K-column cache shares bit for bit, and the pair (kq, mq) comes back
+    in the reference's (Q, V, B) layout: K and the raw distances, which
+    the einsum solve's distance line gathers (``mq`` unmasked).
+
+    Pad rows (mask == 0) come out as all-zero K rows, or -inf rows of log K
+    under ``log_domain``. ``gemm="bf16"`` rounds both operands of the
+    product to bf16 (:func:`~.sinkhorn.gemm_round`); the product's sums and
+    the norms stay fp32."""
     q, b = sup.shape
     a = vecs[sup].reshape(q * b, -1)                     # (Q*B, w)
+    if with_m:
+        m = cdist_rows(a, vecs, vecs_sq, gemm)           # (Q*B, V)
+        m = m.reshape(q, b, -1).transpose(1, 2).contiguous()   # (Q, V, B)
+        return kq_from_m(m, mask, lam, log_domain), m
     a2 = (a * a).sum(-1)                                 # (Q*B,)
     gd = torch.bfloat16 if gemm == "bf16" else None
     ab = torch.matmul(gemm_round(a, gd), gemm_round(vecs, gd).T)  # (Q*B, V)
@@ -660,13 +683,128 @@ def _compute_kq(sup: torch.Tensor, mask: torch.Tensor, vecs: torch.Tensor,
     return k.reshape(q, b, -1)
 
 
-def _gather_g(kq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather doc-word columns of K: (Q, B, V) x (N, L) -> G (Q, B, N, L),
-    the "qbnl" layout the fused solver reads (one doc's (B, L) tile per
-    (query, doc))."""
+def _gather_g(kq: torch.Tensor, idx: torch.Tensor,
+              layout: str = "qbnl") -> torch.Tensor:
+    """Gather doc-word columns of K for a doc group's (N, L) word ids.
+    ``"qbnl"``: kq (Q, B, V) -> G (Q, B, N, L), one doc's (B, L) tile per
+    (query, doc), what K1 reads. ``"qnlb"``: kq (Q, V, B) -> G (Q, N, L,
+    B), query rows on the minor axis, what the einsum solve reads."""
+    if layout == "qnlb":
+        return kq[:, idx]
     q, b, _ = kq.shape
     return gather_columns(kq.reshape(q * b, -1), idx).reshape(
         q, b, *idx.shape)
+
+
+def _solve_batched_einsum(g, mq, idx, val, r, mask, lam: float, n_iter: int,
+                          tol=None, check_every: int = 4, gemm: str = "fp32",
+                          log_domain: bool = False, scope: str = "chunk",
+                          qdoc_mask=None, x0q=None,
+                          with_profile: bool = False, prof_mask=None):
+    """The batched ELL Sinkhorn solve and distance line in plain torch (the
+    reference's einsum impl).
+
+    g (Q, N, L, B) gathered K (log K under ``log_domain``), query rows on
+    the minor axis; mq (Q, V, B) the chunk's raw distances; idx, val (N,
+    L); r, mask (Q, B). Pad rows (G == 0, r == 1) are inert. One G only:
+    diag(1/r) is folded into the x update. Per iteration u = 1/x, t =
+    sum_b G u (SDDMM), w = val/t on live slots, x = (sum_l G w) / r (SpMM).
+    The linear domain keeps the raw val/t, so an underflowed K column
+    turns the distance NaN (the engine's :class:`LamUnderflowError`); the
+    log domain stabilizes G per column (:func:`_stabilize_log_g`) and
+    guards t > 0, so a fully underflowed query-word row drops out.
+
+    ``gemm="bf16"`` rounds G (once) and u and w (as operands) to bf16 and
+    back, and contracts in fp32: ``torch.einsum`` on bf16 tensors would
+    round its output too, where the reference keeps fp32 products and
+    sums.
+
+    ``tol`` runs the adaptive loop, ``n_iter`` as its cap: ``scope="chunk"``
+    one exit for the chunk (:func:`~.sinkhorn_sparse.adaptive_loop`),
+    ``scope="query"`` one per query, over its own live slots narrowed by
+    ``qdoc_mask`` (Q, N) to its candidate docs, with converged queries
+    frozen (:func:`~.sinkhorn_sparse.adaptive_loop_scoped`). ``x0q`` (Q,
+    B) warm-starts every doc column from a per-query profile;
+    ``with_profile`` also returns that profile of this solve: the
+    doc-mean of the final x over ``prof_mask`` docs (else ``qdoc_mask``,
+    else every live doc).
+
+    The distance line gathers the true M from ``mq`` (no GM rebuilt from
+    log G): sum_b u sum_l G M w, exact for the stabilized G too.
+
+    Returns (wmd (Q, N), iters, [profile (Q, B)]): iters is the realized
+    count, a Python int, or a (Q,) int32 tensor under ``scope="query"``."""
+    q, n, _, b = g.shape
+    live = val > 0                                         # (N, L)
+    if log_domain:
+        g, _ = _stabilize_log_g(g)
+    gd = torch.bfloat16 if gemm == "bf16" else None
+    gb = gemm_round(g, gd)
+
+    def _sddmm(u):
+        return torch.einsum("qnlb,qnb->qnl", gb, gemm_round(u, gd))
+
+    def _spmm(w):
+        return torch.einsum("qnlb,qnl->qnb", gb, gemm_round(w, gd))
+
+    rinv = _inv(r, True)[:, None, :]                       # (Q, 1, B)
+    if x0q is None:
+        denom = mask.sum(dim=1, keepdim=True)
+        x0 = torch.where(mask > 0, 1.0 / torch.clamp(denom, min=1.0), 0.0)
+    else:
+        # a warm profile carries mass only on the query's live words
+        x0 = torch.where(mask > 0, x0q, 0.0)
+    x = x0[:, None, :].expand(q, n, b).to(torch.float32).contiguous()
+
+    def _select_w(t):
+        return _select(live[None], val[None], t, log_domain)
+
+    def step(x, active=None):
+        # pad rows keep x == 0 (their G is 0), so one x > 0 guard on u
+        u = _inv(x, True)
+        if active is not None:
+            # frozen queries' rows drop out: their u rows are zeroed
+            u = u * active[:, None, None]
+        w = _select_w(_sddmm(u))
+        return _spmm(w) * rinv, w
+
+    if tol is None:
+        for _ in range(n_iter):
+            x, _ = step(x)
+        iters = int(n_iter)
+    elif scope == "chunk":
+        # live queries x live slots: fillers' w is inf/NaN and pad docs'
+        # 0; neither may hold the loop open or close it
+        resmask = (mask.sum(dim=1) > 0)[:, None, None] & live[None]
+        x, iters = adaptive_loop(
+            step, lambda w, wp: marginal_residual(w, wp, resmask),
+            x, n_iter, tol, check_every)
+    else:
+        live_q = mask.sum(dim=1) > 0                       # (Q,)
+        resmask = live_q[:, None, None] & live[None]       # (Q, N, L)
+        if qdoc_mask is not None:
+            resmask = resmask & qdoc_mask[:, :, None]
+        x, iters = adaptive_loop_scoped(
+            step, lambda w, wp: marginal_residual_per_query(w, wp, resmask),
+            x, n_iter, tol, check_every, live_q)
+
+    u = _inv(x, True)
+    w = _select_w(_sddmm(u))
+    mg = mq[:, idx]                                        # (Q, N, L, B)
+    gm = torch.where(g > 0, g * mg, 0.0)
+    wmd = torch.einsum("qnb,qnlb,qnl->qn", u, gm, w)
+    if not with_profile:
+        return wmd, iters
+    # the per-query doc-mean of the converged x over the query's own
+    # candidates: the chunk union holds other queries' seeds, whose far
+    # columns would pull the profile to another scale
+    doc_live = val.sum(dim=1) > 0                          # (N,)
+    sel = prof_mask if prof_mask is not None else qdoc_mask
+    pmask = doc_live[None] if sel is None else sel & doc_live[None]
+    pmask = pmask.to(x.dtype).expand(q, n)
+    cnt = torch.clamp(pmask.sum(dim=1), min=1.0)
+    xprof = torch.einsum("qnb,qn->qb", x, pmask) / cnt[:, None]
+    return wmd, iters, xprof
 
 
 class SearchResult(NamedTuple):
@@ -679,38 +817,46 @@ class SearchResult(NamedTuple):
     solved: np.ndarray     # (Q,) int64 exact solves per query
 
 
-ENGINE_IMPLS = ("kernel",)
+ENGINE_IMPLS = ("sparse", "kernel")
 
 
 class WmdEngine:
-    """Persistent multi-query WMD engine over a frozen :class:`CorpusIndex`
-    (the reference's ``impl="kernel"`` engine). Runs on the index's
-    device.
+    """Persistent multi-query WMD engine over a frozen :class:`CorpusIndex`.
+    Runs on the index's device.
 
     Parameters are the reference's: ``lam``/``n_iter`` (Sinkhorn strength
-    and iteration count), ``min_bucket``, ``max_batch`` (queries per solve
-    chunk), ``pad_q`` (round a chunk's Q up to a power of two with inert
-    fillers), ``prune_slack`` (relative fp margin on the prune threshold)
-    and ``precision`` (``"fp32"``, ``"bf16"``, ``"log"``, ``"bf16+log"``:
-    bf16 operands with fp32 sums in the K block GEMM and the solve, and/or
-    the underflow-free log domain).
+    and iteration count), ``impl`` (``"kernel"``: the Hopper solver K1;
+    ``"sparse"``: the batched einsum solve), ``min_bucket``, ``max_batch``
+    (queries per solve chunk), ``pad_q`` (round a chunk's Q up to a power
+    of two with inert fillers), ``prune_slack`` (relative fp margin on the
+    prune threshold) and ``precision`` (``"fp32"``, ``"bf16"``, ``"log"``,
+    ``"bf16+log"``: bf16 operands with fp32 sums in the K block GEMM and
+    the solve, and/or the underflow-free log domain). The default impl is
+    ``"kernel"``, the card's path; the reference defaults to its einsum
+    impl ``"sparse"``, which the port runs on request.
 
     ``tol`` switches to the adaptive solve: ``n_iter`` becomes a cap, and
-    the solver K1 checks every ``check_every`` iterations, per document,
-    whether the doc-marginal residual (relative to the doc's own scale) is
-    at most ``tol``; realized counts land on ``1 + k*check_every``.
+    the solve checks every ``check_every`` iterations whether the
+    doc-marginal residual (relative to each doc's own scale) is at most
+    ``tol``; realized counts land on ``1 + k*check_every``. K1 exits per
+    document; the einsum solve per chunk or per query (see ``scope``).
     ``scope="query"`` (the default) narrows each query's exit test in
     :meth:`search`'s survivor and refine solves to its own candidates (a
     survivor outside the scope stops at the first check: its bound keeps
     it above the threshold at any truncation) and records one realized
     count per live query; ``scope="chunk"`` tests every doc and records
-    one count per dispatch. ``warm_start`` is accepted and inert, as on
-    the reference's kernel impl (only its einsum impl warm-starts).
-    Realized counts: :meth:`iter_stats`, kept in a ring of
-    ``iter_stats_maxlen`` dispatches.
+    one count per dispatch. ``warm_start`` (with ``tol``, on
+    ``impl="sparse"``) starts survivor solves from the seed solve's
+    converged per-query profile; it is inert without ``tol`` and on the
+    kernel impl, as in the reference. Realized counts:
+    :meth:`iter_stats`, kept in a ring of ``iter_stats_maxlen``
+    dispatches.
 
-    ``impl="sparse"`` (the einsum impl) and ``kcache_slots`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``kcache_slots`` (``impl="sparse"`` only, ``ValueError`` on the kernel
+    impl) keeps that many words' (V,) distance rows on the device across
+    calls (:mod:`.kcache`); chunks with fewer than ``kcache_min_hits``
+    resident words take the stacked GEMM and warm the cache. Results equal
+    the uncached engine's bit for bit.
     """
 
     def __init__(self, index: CorpusIndex, lam: float = 10.0,
@@ -720,21 +866,20 @@ class WmdEngine:
                  tol: float | None = None, check_every: int = 4,
                  precision=None, scope: str = "query",
                  warm_start: bool = False, iter_stats_maxlen: int = 4096,
-                 kcache_slots: int | None = None):
+                 kcache_slots: int | None = None,
+                 kcache_min_hits: int = 4):
         if impl not in ENGINE_IMPLS:
-            raise NotImplementedError(
-                f"impl={impl!r}: only the kernel impl is ported; the einsum "
-                "impl 'sparse' comes in the next slice, with warm_start's "
-                "effective branch and the K-column cache (ROADMAP queue 1)")
-        if kcache_slots:
-            raise NotImplementedError(
-                "kcache_slots: the K-column cache needs the einsum impl "
-                "'sparse', which comes in the next slice (ROADMAP queue 1)")
+            raise ValueError(f"impl must be one of {ENGINE_IMPLS}, "
+                             f"got {impl!r}")
         if scope not in ("chunk", "query"):
             raise ValueError(f"scope must be 'chunk' or 'query', "
                              f"got {scope!r}")
         if tol is not None and int(check_every) < 1:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
+        if kcache_slots and impl == "kernel":
+            raise ValueError(
+                "kcache_slots needs impl='sparse': the kernel impl's K "
+                "block carries no distance block to warm the cache from")
         self.precision = SolvePrecision.parse(precision)
         self.index = index
         self.device = index.device
@@ -755,6 +900,31 @@ class WmdEngine:
         self._iters_pending = collections.deque(
             maxlen=max(1, int(iter_stats_maxlen)))
         self._iters_dropped = 0
+        self._kcache = None
+        self.kcache_min_hits = max(1, int(kcache_min_hits))
+        if kcache_slots:
+            self.enable_kcache(int(kcache_slots))
+
+    # ------------------------------------------------- cross-request cache
+    def enable_kcache(self, slots: int) -> bool:
+        """Attach a :class:`~.kcache.KCache` of ``slots`` resident rows
+        (replacing any cache). Returns ``False``, attaching nothing, on the
+        kernel impl."""
+        if self.impl == "kernel":
+            return False
+        from .kcache import KCache
+        self._kcache = KCache(self.index.vecs, self.index.vecs_sq,
+                              int(slots), gemm=self.precision.gemm)
+        return True
+
+    def kcache_stats(self) -> dict | None:
+        """The cache's counters (:meth:`~.kcache.KCache.stats`), ``None``
+        without a cache."""
+        return None if self._kcache is None else self._kcache.stats()
+
+    def reset_kcache_stats(self) -> None:
+        if self._kcache is not None:
+            self._kcache.reset_counters()
 
     # -------------------------------------------------- realized iterations
     def reset_iter_stats(self) -> None:
@@ -769,14 +939,16 @@ class WmdEngine:
         window over the most recent ``iter_stats_maxlen`` dispatches."""
         return self._iters_dropped
 
-    def _record_iters(self, stage: str, iters: torch.Tensor,
+    def _record_iters(self, stage: str, iters,
                       per_query: bool, n_live: int) -> None:
-        """Log one dispatch's (Qp, blocks) realized counts, unsynced:
+        """Log one dispatch's realized counts, unsynced: K1's (Qp, blocks)
+        tensor, the einsum solve's (Qp,) tensor or its int.
         :meth:`iter_stats` reduces them to one count per live query
         (``per_query``) or one per dispatch."""
         if len(self._iters_pending) == self._iters_pending.maxlen:
             self._iters_dropped += 1    # ring full: the oldest goes
-        self._iters_pending.append((stage, iters, per_query, n_live))
+        self._iters_pending.append((stage, torch.as_tensor(iters), per_query,
+                                    n_live))
 
     def iter_stats(self, stage: str | None = None) -> np.ndarray:
         """Realized Sinkhorn iteration counts since the last
@@ -793,7 +965,8 @@ class WmdEngine:
             if stage is not None and st != stage:
                 continue
             if per_query:
-                arr = iters.max(dim=1).values.cpu().numpy()[:n_live]
+                arr = iters.reshape(iters.shape[0], -1).max(dim=1).values
+                arr = arr.cpu().numpy()[:n_live]
             else:
                 arr = np.full(n_live, int(iters.max()))
             out.append(arr.astype(np.int64))
@@ -861,29 +1034,87 @@ class WmdEngine:
         return tuple(torch.as_tensor(np.stack([p[i] for p in prepared]),
                                      device=dev) for i in range(3))
 
-    def _kq(self, sup, mask) -> torch.Tensor:
-        return _compute_kq(sup, mask, self.index.vecs, self.index.vecs_sq,
-                           self.lam, gemm=self.precision.gemm,
+    def _kq(self, sup, mask):
+        """The chunk's K block as the pair (kq, mq): the kernel impl's
+        (Q, B, V) K with ``mq=None`` (K1 rebuilds GM from G), the einsum
+        impl's (Q, V, B) K and raw distances. With a cache attached
+        (:meth:`enable_kcache`), a chunk with at least ``kcache_min_hits``
+        resident words is assembled from cached rows and a misses-only
+        GEMM; a chunk below that, or with more unique words than slots,
+        takes the stacked GEMM and warms the cache from its distances. Both
+        give the same bits. Looking the words up reads ``sup`` back to the
+        host (one sync per chunk with a cache)."""
+        index = self.index
+        if self.impl == "kernel":
+            return _compute_kq(sup, mask, index.vecs, index.vecs_sq,
+                               self.lam, gemm=self.precision.gemm,
+                               log_domain=self.precision.log_domain), None
+        cache = self._kcache
+        if cache is not None and cache.vecs is not index.vecs:
+            # another embedding table (a new index) drops every row;
+            # append_docs keeps vecs, and with it the cache
+            cache = self._kcache = cache.rebind(index.vecs, index.vecs_sq)
+
+        def stacked():
+            return _compute_kq(sup, mask, index.vecs, index.vecs_sq,
+                               self.lam, gemm=self.precision.gemm,
+                               log_domain=self.precision.log_domain,
+                               with_m=True)
+
+        if cache is None:
+            return stacked()
+        sup_np = sup.cpu().numpy()
+        ids = np.unique(sup_np.reshape(-1))
+        n_hit = cache.lookup(ids)
+        oversize = len(ids) > cache.slots
+        if oversize or n_hit < self.kcache_min_hits:
+            cache.note_fallback(oversize=oversize)
+            kq, mq = stacked()
+            cache.warm(sup_np, mq)
+            return kq, mq
+        from .kcache import assemble_kq
+        return assemble_kq(cache.rows(ids), np.searchsorted(ids, sup_np),
+                           mask, self.lam,
                            log_domain=self.precision.log_domain)
 
-    def _solve_group(self, kq, r, grp: DocGroup, n_live: int,
-                     stage: str = "batch",
-                     qdoc_mask: torch.Tensor | None = None) -> torch.Tensor:
+    def _solve_group(self, kq, r, mask, grp: DocGroup, n_live: int,
+                     stage: str = "batch", qdoc_mask=None, x0q=None,
+                     want_profile: bool = False, prof_mask=None):
         """Solve one staged chunk against one doc group (a device tensor
-        (Qp, N_g), not synced): gather the group's K columns, one launch of
-        the fused solver. The realized counts go to :meth:`iter_stats`
-        under ``stage``. ``qdoc_mask`` (Qp, N_g) bool scopes each query's
-        adaptive exit to its own candidate docs (``scope="query"``)."""
-        from repro_torch.kernels.ops import sinkhorn_fused_all_batched
-        g = _gather_g(kq, grp.docs.idx)
+        (Qp, N_g), not synced): gather the group's K columns and solve, by
+        one launch of K1 or the einsum solve. ``kq`` is the pair from
+        :meth:`_kq`. The realized counts go to :meth:`iter_stats` under
+        ``stage``. ``qdoc_mask`` (Qp, N_g) bool scopes each query's
+        adaptive exit to its own candidate docs (``scope="query"``).
+        ``x0q`` (Qp, B) warm-starts the einsum solve; ``want_profile``
+        returns ``(wmd, profile)``, its converged profile averaged over
+        ``prof_mask`` docs (``None`` on the kernel impl)."""
+        kqk, mq = kq
         scoped = self._scoped()
-        wmd, iters = sinkhorn_fused_all_batched(
-            g, grp.docs.val, r, self.lam, self.n_iter, tol=self.tol,
+        if self.impl == "kernel":
+            from repro_torch.kernels.ops import sinkhorn_fused_all_batched
+            g = _gather_g(kqk, grp.docs.idx)
+            wmd, iters = sinkhorn_fused_all_batched(
+                g, grp.docs.val, r, self.lam, self.n_iter, tol=self.tol,
+                check_every=self.check_every, gemm=self.precision.gemm,
+                log_domain=self.precision.log_domain,
+                resmask=qdoc_mask if scoped else None, with_iters=True)
+            self._record_iters(stage, iters, scoped, n_live)
+            return (wmd, None) if want_profile else wmd
+        out = _solve_batched_einsum(
+            _gather_g(kqk, grp.docs.idx, layout="qnlb"), mq, grp.docs.idx,
+            grp.docs.val, r, mask, self.lam, self.n_iter, tol=self.tol,
             check_every=self.check_every, gemm=self.precision.gemm,
-            log_domain=self.precision.log_domain,
-            resmask=qdoc_mask if scoped else None, with_iters=True)
-        self._record_iters(stage, iters, scoped, n_live)
-        return wmd
+            log_domain=self.precision.log_domain, scope=self.scope,
+            qdoc_mask=qdoc_mask if scoped else None, x0q=x0q,
+            with_profile=want_profile, prof_mask=prof_mask)
+        self._record_iters(stage, out[1], scoped, n_live)
+        return (out[0], out[2]) if want_profile else out[0]
+
+    def _warm(self) -> bool:
+        """Do survivor solves start from the seed solve's profile?"""
+        return self.impl == "sparse" and self.warm_start \
+            and self.tol is not None
 
     def _raise_if_nan(self, wmd_np: np.ndarray, chunk_queries: list) -> None:
         """Every chunk query has support, so NaN here means the lam-driven
@@ -913,7 +1144,7 @@ class WmdEngine:
                                             width)
             kq = self._kq(sup, mask)
             pending.append((chunk, [
-                (grp, self._solve_group(kq, r, grp, len(chunk)))
+                (grp, self._solve_group(kq, r, mask, grp, len(chunk)))
                 for grp in self.index.groups]))
         out = np.zeros((len(queries), self.index.n_docs), self.dtype)
         for qi in range(len(queries)):
@@ -1014,15 +1245,23 @@ class WmdEngine:
             sup, r, mask = self._prep_chunk(cq, width)
             kq = self._kq(sup, mask)              # shared by both solves
 
-            def solve(doc_ids, qmask=None, stage="seed"):
-                # -> (qc, |ids|) host array, NaN-checked
+            def solve(doc_ids, qmask=None, stage="seed", warm=None,
+                      prof=None):
+                # -> ((qc, |ids|) host array, NaN-checked; warm profile)
                 grp = self.index.subset(doc_ids, storage=True)
+                n_pad = grp.docs.idx.shape[0]
                 qm = (None if qmask is None else self._pad_qdoc(
-                    qmask, r.shape[0], grp.docs.idx.shape[0]))
-                w = self._solve_group(kq, r, grp, qc, stage, qm)
+                    qmask, r.shape[0], n_pad))
+                pm = (None if prof is None else self._pad_qdoc(
+                    prof, r.shape[0], n_pad))
+                want = self._warm()
+                out = self._solve_group(kq, r, mask, grp, qc, stage, qm,
+                                        x0q=warm, want_profile=want,
+                                        prof_mask=pm)
+                w, prof_out = out if want else (out, None)
                 w = w[:qc, :doc_ids.size].cpu().numpy()
                 self._raise_if_nan(w, cq)
-                return w
+                return w, prof_out
 
             cand, d_cand = self._prune_full(pruner, sup, r, mask, qc, k,
                                             solve)
@@ -1066,12 +1305,17 @@ class WmdEngine:
         exist), and each query's survivor solve covers only the docs whose
         bound passed its own threshold: a survivor outside that scope stays
         out of its top-k at any truncation, since RWMD bounds the computed
-        score from below."""
+        score from below. A query's own k picks drive only its warm-start
+        profile (``warm_start`` on the einsum impl)."""
         from .prune import _keep_any
         lb = pruner.lower_bounds(self.index, sup, r, mask)   # (Qp, N)
-        seed_pos = torch.topk(-lb[:qc], k, dim=1).indices
-        seed = np.unique(seed_pos.cpu().numpy()).astype(np.int32)
-        d_seed = solve(seed)
+        seed_pos = torch.topk(-lb[:qc], k, dim=1).indices.cpu().numpy()
+        seed = np.unique(seed_pos).astype(np.int32)
+        qmask_seed = None
+        if self._warm() and self._scoped():
+            qmask_seed = np.stack([np.isin(seed, seed_pos[qi])
+                                   for qi in range(qc)])
+        d_seed, xprof = solve(seed, None, "seed", prof=qmask_seed)
         thresh = self._threshold(torch.as_tensor(d_seed, device=lb.device),
                                  k, seed.size)
         surv = torch.nonzero(_keep_any(lb, thresh)).flatten()
@@ -1085,13 +1329,9 @@ class WmdEngine:
             surv_dev = torch.as_tensor(surv.astype(np.int64),
                                        device=lb.device)
             qmask_surv = lb[:qc, surv_dev] <= thresh[:qc, None]
-        return cand, np.concatenate(
-            [d_seed, solve(surv, qmask_surv, "survivor")], axis=1)
+        d_surv, _ = solve(surv, qmask_surv, "survivor", warm=xprof)
+        return cand, np.concatenate([d_seed, d_surv], axis=1)
 
-    # The cascade and refine drivers below are the reference's kernel-impl
-    # paths. Its warm start, and the per-query seed masks that feed only
-    # the warm-start profile, belong to the einsum impl (not ported): the
-    # seed solves run unscoped, as the reference's do.
     def _stage_all(self, queries, chunks):
         """Stage every live query once, at the widest chunk's width (the
         bound stages read the (Q, B) support arrays directly, so one prune
@@ -1103,42 +1343,53 @@ class WmdEngine:
 
     def _make_solver(self, queries, chunks, live_q):
         """Stage every v_r chunk once (sup/r/mask and its K block) and
-        return ``solve_all(doc_ids, qmask=None, stage="seed")``, the
-        chunk-looped exact solve over one candidate id array shared by the
-        cascade and refine drivers: a (len(live_q), |ids|) host array with
-        rows in ``live_q`` order. ``qmask`` (len(live_q), |ids|) bool, a
-        host array or device tensor, is each query's residual scope under
-        ``scope="query"``. Every chunk's
-        solve is launched before the results come back in one copy; a NaN
-        row raises :class:`LamUnderflowError`."""
+        return ``solve_all(doc_ids, qmask=None, stage="seed", warm=None,
+        prof=None)``, the chunk-looped exact solve over one candidate id
+        array shared by the cascade and refine searches: ((len(live_q),
+        |ids|) host array with rows in ``live_q`` order, the per-chunk
+        warm-start profiles). ``qmask`` (len(live_q), |ids|) bool, a host
+        array or device tensor, is each query's residual scope under
+        ``scope="query"``; ``prof`` the same for each query's profile;
+        ``warm`` the per-chunk profiles to start from. Every chunk's solve
+        is launched before the results come back in one copy; a NaN row
+        raises :class:`LamUnderflowError`."""
         row_of = {qi: g for g, qi in enumerate(live_q)}
         prepped = []
         for chunk, width in chunks:
             cq = [queries[qi] for qi in chunk]
             sup, r, mask = self._prep_chunk(cq, width)
-            prepped.append(([row_of[qi] for qi in chunk], cq, r,
+            prepped.append(([row_of[qi] for qi in chunk], cq, r, mask,
                             self._kq(sup, mask)))
+        want = self._warm()
 
-        def solve_all(doc_ids, qmask=None, stage="seed"):
+        def solve_all(doc_ids, qmask=None, stage="seed", warm=None,
+                      prof=None):
             # one gather shared by the chunks; cascade ids are
             # cluster-sorted storage ids, a near-contiguous host slice
             grp = self.index.subset(doc_ids, storage=True)
             n_pad = grp.docs.idx.shape[0]
-            w_all = torch.cat([
-                self._solve_group(
-                    kq, r, grp, len(rows), stage,
+            parts, profs = [], []
+            for ci, (rows, _, r, mask, kq) in enumerate(prepped):
+                out = self._solve_group(
+                    kq, r, mask, grp, len(rows), stage,
                     None if qmask is None else self._pad_qdoc(
-                        qmask[rows], r.shape[0], n_pad))[
-                    :len(rows), :doc_ids.size]
-                for rows, _, r, kq in prepped]).cpu().numpy()
+                        qmask[rows], r.shape[0], n_pad),
+                    x0q=None if warm is None else warm[ci],
+                    want_profile=want,
+                    prof_mask=None if prof is None else self._pad_qdoc(
+                        prof[rows], r.shape[0], n_pad))
+                w, xp = out if want else (out, None)
+                parts.append(w[:len(rows), :doc_ids.size])
+                profs.append(xp)
+            w_all = torch.cat(parts).cpu().numpy()
             out = np.empty((len(live_q), doc_ids.size), self.dtype)
             lo = 0
-            for rows, cq, _, _ in prepped:
+            for rows, cq, *_ in prepped:
                 w = w_all[lo:lo + len(rows)]
                 lo += len(rows)
                 self._raise_if_nan(w, cq)
                 out[rows] = w
-            return out
+            return out, profs
 
         return solve_all
 
@@ -1185,7 +1436,7 @@ class WmdEngine:
         if ids.size == 0:
             return
         qmask_own = np.stack([np.isin(ids, o) for o in own])
-        d = self._make_solver(queries, chunks, live_q)(
+        d, _ = self._make_solver(queries, chunks, live_q)(
             ids, qmask_own if self._scoped() else None, "refine")
         # rank each query over its own picks only, so the pick-set nesting
         # (and with it recall monotonicity) holds per query
@@ -1231,10 +1482,19 @@ class WmdEngine:
         if pos_seed.size == 0:
             return
         seed = sp[pos_seed]
+        qmask_seed = None
+        if self._warm() and self._scoped():
+            # each query's own finite top-k picks: its warm profile's docs
+            vals_np, pos_np = vals.cpu().numpy(), seed_pos.cpu().numpy()
+            qmask_seed = np.zeros((qg, seed.size), bool)
+            for g in range(qg):
+                own = pos_np[g][np.isfinite(vals_np[g])]
+                own = own[own < seed_cand.size]
+                qmask_seed[g] = np.isin(seed, sp[own])
         # the solve stays v_r-bucketed: per-chunk staging, reused for the
         # seed and survivor solves
         solve_all = self._make_solver(queries, chunks, live_q)
-        d_seed = solve_all(seed)
+        d_seed, xprofs = solve_all(seed, prof=qmask_seed)
         thresh = self._threshold(torch.as_tensor(d_seed, device=self.device),
                                  k, seed.size)
         surv = pruner.survivors(index, sup_g, r_g, mask_g, cdists, pm,
@@ -1254,8 +1514,9 @@ class WmdEngine:
                     pruner.id_qmask(index, pm, sps, surv.size,
                                     qp=sup_g.shape[0]), qcent=qcent)
                 qmask_surv = lbs[:qg, :surv.size] <= thresh[:qg, None]
-            d_cand = np.concatenate(
-                [d_seed, solve_all(surv, qmask_surv, "survivor")], axis=1)
+            d_surv, _ = solve_all(surv, qmask_surv, "survivor",
+                                  warm=xprofs if self._warm() else None)
+            d_cand = np.concatenate([d_seed, d_surv], axis=1)
         cand_ext = self._ext(cand)           # storage -> caller doc ids
         for g, qi in enumerate(live_q):
             order = np.argsort(d_cand[g], kind="stable")[:k]

@@ -4,8 +4,11 @@
 ``idx[j, :L]`` and normalized frequencies ``val[j, :L]``, padded to the
 collection max ``L``. Fields are numpy arrays on the host (what the
 constructors below return) or torch tensors on a device (what the index holds);
-the container does not care which. ``BlockSparse`` is not ported yet: it
-belongs to the block-sparse SDDMM kernel, which no engine path runs.
+the container does not care which.
+
+``BlockSparse`` stores a (V, N) matrix as its nonzero (bv, bn) tiles, the
+operand layout of the block-sparse SDDMM kernel
+(:func:`repro_torch.kernels.ops.bsr_sddmm`).
 """
 from __future__ import annotations
 
@@ -82,3 +85,69 @@ def padded_docs_to_dense(docs: PaddedDocs, vocab_size: int):
                     device=val.device)
     c.index_put_((idx[jj, ll].long(), jj), val[jj, ll], accumulate=True)
     return c if isinstance(docs.val, torch.Tensor) else c.numpy()
+
+
+class BlockSparse(NamedTuple):
+    """BSR over a (V, N) matrix with (bv, bn) tiles.
+
+    Only tiles holding at least one nonzero are stored, in row-major order
+    over (``brow``, ``bcol``): ``blocks`` holds their dense contents,
+    ``brow``/``bcol`` (int32) their tile coordinates. With
+    ``pad_blocks_to`` the count is padded with all-zero tiles at
+    coordinate (0, 0). ``shape`` is the matrix shape padded up to whole
+    tiles."""
+
+    blocks: torch.Tensor    # (n_blocks, bv, bn) tile values
+    brow: torch.Tensor      # (n_blocks,) int32 tile row (vocabulary) index
+    bcol: torch.Tensor      # (n_blocks,) int32 tile column (doc) index
+    shape: tuple            # padded (V, N)
+
+    @property
+    def block_shape(self) -> tuple[int, int]:
+        return self.blocks.shape[1], self.blocks.shape[2]
+
+
+def _live_tiles(c, bv: int, bn: int, dtype=None):
+    """(padded c viewed as (V/bv, bv, N/bn, bn) tiles, (V/bv, N/bn) bool:
+    tile holds a nonzero). ``c`` is a numpy array or a tensor; the work
+    runs on the tensor's device (numpy on the host)."""
+    c = torch.as_tensor(c)
+    if dtype is not None:
+        c = c.to(dtype)
+    v, n = c.shape
+    vp, np_ = -(-v // bv) * bv, -(-n // bn) * bn
+    if (vp, np_) != (v, n):
+        c = torch.nn.functional.pad(c, (0, np_ - n, 0, vp - v))
+    tiles = c.reshape(vp // bv, bv, np_ // bn, bn)
+    return tiles, tiles.abs().sum(dim=(1, 3)) > 0
+
+
+def block_sparse_from_dense(c, bv: int = 128, bn: int = 128,
+                            pad_blocks_to: int | None = None,
+                            dtype=torch.float32) -> BlockSparse:
+    """Keep the nonzero (bv, bn) tiles of a dense (V, N) matrix (numpy or a
+    tensor; built on the tensor's device, vectorised). Raises
+    ``ValueError`` when ``pad_blocks_to`` is below the live tile count."""
+    tiles, live = _live_tiles(c, bv, bn, dtype)
+    nz = torch.nonzero(live)                     # row-major, as np.argwhere
+    n_live = nz.shape[0]
+    total = n_live if pad_blocks_to is None else int(pad_blocks_to)
+    if total < n_live:
+        raise ValueError(f"pad_blocks_to={total} < {n_live} live tiles")
+    total = max(total, 1)
+    dev = tiles.device
+    blocks = torch.zeros((total, bv, bn), dtype=tiles.dtype, device=dev)
+    brow = torch.zeros((total,), dtype=torch.int32, device=dev)
+    bcol = torch.zeros((total,), dtype=torch.int32, device=dev)
+    blocks[:n_live] = tiles.permute(0, 2, 1, 3)[nz[:, 0], nz[:, 1]]
+    brow[:n_live] = nz[:, 0].to(torch.int32)
+    bcol[:n_live] = nz[:, 1].to(torch.int32)
+    return BlockSparse(blocks=blocks, brow=brow, bcol=bcol,
+                       shape=(tiles.shape[0] * bv, tiles.shape[2] * bn))
+
+
+def block_density(c, bv: int = 128, bn: int = 128) -> float:
+    """Fraction of (bv, bn) tiles holding a nonzero: the share of the dense
+    work that the block-sparse SDDMM does."""
+    _, live = _live_tiles(c, bv, bn)
+    return float(live.sum()) / live.numel()

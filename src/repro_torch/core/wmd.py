@@ -18,8 +18,9 @@ against the exact-LP oracle):
 
 Everything runs on ``device`` (``cuda`` unless the caller asks for the
 CPU, where the kernels' plain versions run). Top-k retrieval and the
-batched many-query path go through :class:`~.index.WmdEngine`, which runs
-``impl="kernel"`` only so far.
+batched many-query path go through :class:`~.index.WmdEngine` with its
+einsum impl (``impl="sparse"``, the default here as in the reference) or
+its kernel impl.
 """
 from __future__ import annotations
 
@@ -91,10 +92,9 @@ def many_to_many(queries: list[np.ndarray], docs: PaddedDocs, vecs,
     """Paper Fig. 6 workload: several source documents at once.
 
     ``batched=True`` with ``impl`` "sparse" or "kernel" goes through the
-    batched multi-query engine (one index, one solve per power-of-two v_r
-    bucket); the engine runs ``impl="kernel"`` only so far and raises
-    ``NotImplementedError`` for "sparse". Otherwise, and for the dense
-    impls, it loops :func:`one_to_many` over the queries."""
+    batched multi-query engine with that impl (one index, one solve per
+    power-of-two v_r bucket). Otherwise, and for the dense impls, it loops
+    :func:`one_to_many` over the queries."""
     if batched and impl in ("sparse", "kernel"):
         from .index import WmdEngine, build_index
         engine = WmdEngine(build_index(docs, vecs, device=device), lam=lam,
@@ -110,10 +110,9 @@ def search(queries, docs: PaddedDocs, vecs, k: int = 10, lam: float = 10.0,
            device=None):
     """One-shot top-k retrieval through the staged pipeline: freeze an
     index, prune with an admissible lower bound, Sinkhorn-solve the
-    survivors, rank. Returns a :class:`~.index.SearchResult`.
-    ``prune=None`` scores every document. The engine runs
-    ``impl="kernel"`` only so far and raises ``NotImplementedError`` for
-    "sparse"."""
+    survivors, rank, on the engine's ``impl`` ("sparse" or "kernel").
+    Returns a :class:`~.index.SearchResult`. ``prune=None`` scores every
+    document."""
     from .index import WmdEngine, build_index
     engine = WmdEngine(build_index(docs, vecs, device=device), lam=lam,
                        n_iter=n_iter, impl=impl)

@@ -112,3 +112,25 @@ def dedup_corpus(n_docs: int, vocab: int = 8192, embed_dim: int = 64,
         ids, counts = perturb(j)
         queries[qi, ids] = counts / counts.sum()
     return WmdCorpus(vecs=base.vecs, docs=docs, queries=queries)
+
+
+def zipf_queries(n: int, vocab_size: int, words: int, s: float = 1.0,
+                 seed: int = 0) -> list[np.ndarray]:
+    """``n`` L1-normalized query histograms of ``words`` draws each, word
+    probability proportional to 1/rank**s, with a seeded permutation from
+    rank to word id: the Zipfian serving traffic the K-column cache is
+    for. The port's own copy of the reference benchmark's
+    ``zipf_queries`` (``benchmarks/fig15_kcache.py``; the same numpy RNG
+    stream, byte-identical for every seed)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab_size + 1, dtype=np.float64) ** s
+    p /= p.sum()
+    rank_to_word = rng.permutation(vocab_size)
+    out = []
+    for _ in range(n):
+        ids = rank_to_word[rng.choice(vocab_size, size=words, p=p)]
+        q = np.zeros(vocab_size, np.float32)
+        np.add.at(q, ids, rng.random(words).astype(np.float32) + 0.1)
+        q /= q.sum()
+        out.append(q)
+    return out

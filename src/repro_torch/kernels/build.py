@@ -108,4 +108,8 @@ def load() -> ctypes.CDLL:
     lib.sddmm_spmm_step_launch.restype = i
     lib.sddmm_spmm_step_smem_bytes.argtypes = [i, i]
     lib.sddmm_spmm_step_smem_bytes.restype = ctypes.c_longlong
+    lib.bsr_sddmm_blocks_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.bsr_sddmm_blocks_launch.restype = i
+    lib.bsr_sddmm_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.bsr_sddmm_launch.restype = i
     return lib

@@ -66,16 +66,19 @@
 // once, per (query, doc) block, and every iteration and the distance line
 // run on chip; u, x, t, w never leave the SM, and GM is rebuilt from the
 // tile (no second array). The final sum is a fixed-order block reduction,
-// so the result is deterministic. Two variants, chosen by the tile's size:
-// sinkhorn_fused_reg_kernel (below) keeps the tile in registers for tiles
-// up to 64 x 64, every shape of the paper's workload; the kernel here
-// keeps it in dynamic shared memory (row stride padded to an odd count so
-// the SpMM's row-per-thread reads hit distinct banks) for wider tiles, up
-// to the 227 KB per-block limit. At the main path's widest chunk, on an
-// H100 80GB HBM3 at 700 W, the register variant is 1.28x (log) and 1.61x
-// (linear) faster (chip_smoke.py phase k1_tiles). Both are latency-bound,
-// not bound by bytes: 16 dependent passes per doc, each with block
-// barriers.
+// so the result is deterministic. Three variants, chosen by the tile's
+// size: sinkhorn_fused_reg_kernel (below) keeps the tile in registers for
+// tiles up to 64 x 64, every shape of the paper's workload; the kernel
+// here keeps it in dynamic shared memory (row stride padded to an odd
+// count so the SpMM's row-per-thread reads hit distinct banks) for wider
+// tiles, up to the 227 KB per-block limit; sinkhorn_fused_global_kernel
+// reads it from device memory at every pass for tiles over that limit.
+// At the main path's widest chunk, on an H100 80GB HBM3 at 700 W, the
+// register variant is 1.28x (log) and 1.61x (linear) faster than the
+// shared one (chip_smoke.py phase k1_tiles); at 192 x 192 tiles the
+// device-memory one beats the shared one, at 96 x 28 it loses (phase
+// k1_wide). All are latency-bound, not bound by bytes: 16 dependent
+// passes per doc, each with block barriers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -487,6 +490,158 @@ sinkhorn_fused_reg_kernel(const float* __restrict__ g,
   }
 }
 
+// Variant for a (v_r, L) tile over the per-block shared-memory limit (for
+// example 256 query rows against 256 doc slots, 263 KB): G stays in device
+// memory and every pass reads it there, so only u, x, 1/r, w, val, the
+// shift and the reductions live in shared memory. The same arithmetic as
+// the kernels above. Under log_domain each read shifts and exponentiates
+// the raw log K on the fly (expf(v - shift[l]), the value the shared
+// variant stores); under BF16 each read rounds, as the shared variant's
+// do. The SDDMM runs a thread per slot (a warp reads 32 neighbouring
+// slots of one row), the SpMM and the distance line a warp per row (lanes
+// over the slots, then a shuffle sum), so every read of G is coalesced.
+// A doc's tile is read twice per iteration; at 256 x 256 one block's tile
+// is 256 KB, and the tiles of the blocks in flight fit the 50 MB L2.
+constexpr int kGThreads = 256;
+
+template <bool BF16>
+__global__ void __launch_bounds__(kGThreads)
+sinkhorn_fused_global_kernel(const float* __restrict__ g,
+                             const float* __restrict__ val,
+                             const float* __restrict__ r,
+                             const float* __restrict__ resmask,
+                             float* __restrict__ wmd,
+                             int* __restrict__ iters, int VR, int N, int L,
+                             int n_iter, float lam, int log_domain,
+                             int block_n, float tol, int check_every) {
+  constexpr int NW = kGThreads / 32;
+  extern __shared__ float smem[];
+  float* xs = smem;                        // (VR,)
+  float* us = xs + VR;                     // (VR,)
+  float* rinv = us + VR;                   // (VR,)
+  float* ws = rinv + VR;                   // (L,)
+  float* wprev = ws + L;                   // (L,) w at the last decision
+  float* vals = wprev + L;                 // (L,)
+  float* shift = vals + L;                 // (L,)
+  float* red = shift + L;                  // (2 * NW,)
+
+  const int n = blockIdx.x;
+  const int q = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, wid = tid >> 5;
+  const size_t nl = (size_t)N * L;
+  const float* gq = g + (size_t)q * VR * nl + (size_t)n * L;
+  const bool doc_in_scope =
+      resmask == nullptr || resmask[(size_t)q * N + n] > 0.f;
+
+  // G[k, l] as the shared variant holds it: shifted and exponentiated
+  // under log_domain (shift[l] must be set)
+  auto gat = [&](int k, int l) -> float {
+    const float v = gq[(size_t)k * nl + l];
+    if (!log_domain) return v;
+    return isfinite(v) ? expf(v - shift[l]) : 0.f;
+  };
+
+  for (int l = tid; l < L; l += kGThreads) {
+    vals[l] = val[(size_t)n * L + l];
+    float m = -INFINITY;
+    if (log_domain)
+      for (int k = 0; k < VR; ++k) m = fmaxf(m, gq[(size_t)k * nl + l]);
+    shift[l] = log_domain && isfinite(m) ? m : 0.f;
+  }
+  for (int k = tid; k < VR; k += kGThreads)
+    rinv[k] = safe_inv(r[(size_t)q * VR + k]);
+  __syncthreads();
+
+  // live rows of this doc: any G != 0 (pad rows are all zero)
+  for (int k = wid; k < VR; k += NW) {
+    bool live = false;
+    for (int l = lane; l < L; l += 32) live = live || gat(k, l) != 0.f;
+    live = __any_sync(0xffffffffu, live);
+    if (lane == 0) us[k] = live ? 1.f : 0.f;
+  }
+  __syncthreads();
+  float cnt = 0.f;
+  for (int k = 0; k < VR; ++k) cnt += us[k];
+  for (int k = tid; k < VR; k += kGThreads)
+    xs[k] = us[k] > 0.f ? 1.f / cnt : 0.f;
+  __syncthreads();
+
+  int end = check_every > 0 ? INT_MAX : n_iter, next = 1;
+  for (int done = 0;; ++done) {
+    for (int k = tid; k < VR; k += kGThreads) us[k] = safe_inv(xs[k]);
+    __syncthreads();
+    for (int l = tid; l < L; l += kGThreads) {             // SDDMM
+      float t = 0.f;
+      for (int k = 0; k < VR; ++k)
+        t = fmaf(rnd<BF16>(gat(k, l)), rnd<BF16>(us[k]), t);
+      const float v = vals[l];
+      float inv = log_domain ? safe_inv(t) : 1.f / t;
+      ws[l] = v > 0.f ? v * inv : 0.f;
+    }
+    __syncthreads();
+    if (done >= end) break;         // last pass: u and w for the distance
+    for (int k = wid; k < VR; k += NW) {                   // SpMM
+      const float ri = rinv[k];
+      float x = 0.f;
+      for (int l = lane; l < L; l += 32)
+        x = fmaf(rnd<BF16>(gat(k, l) * ri), rnd<BF16>(ws[l]), x);
+      for (int off = 16; off > 0; off >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      if (lane == 0) xs[k] = x;
+    }
+    __syncthreads();
+    if (check_every > 0 && done + 1 == next) {              // decide
+      float diff = 0.f, scale = 0.f;
+      for (int l = tid; l < L; l += kGThreads) {
+        if (doc_in_scope && vals[l] > 0.f) {
+          diff = nanmax(diff, fabsf(ws[l] - wprev[l]));
+          scale = nanmax(scale, fabsf(ws[l]));
+        }
+        wprev[l] = ws[l];           // each thread reads only its own slots
+      }
+      const bool conv = done > 0 && converged<kGThreads>(diff, scale, tol,
+                                                          red);
+      if (conv || done + 1 >= n_iter) {
+        end = done + 1;
+      } else {
+        next = done + 1 + check_every;
+      }
+    }
+  }
+
+  // distance line: sum_k u[k] sum_l GM[k,l] w[l], a warp per row
+  float part = 0.f;
+  for (int k = wid; k < VR; k += NW) {
+    float s = 0.f;
+    for (int l = lane; l < L; l += 32) {
+      const float gv = gat(k, l);
+      const float gm = gv > 0.f ? (-gv * logf(gv)) / lam : 0.f;
+      s = fmaf(gm, ws[l], s);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) part = fmaf(us[k], s, part);
+  }
+  __syncthreads();                  // red was last read by the decisions
+  if (lane == 0) red[wid] = part;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.f;
+    for (int i = 0; i < NW; ++i) total += red[i];
+    if (log_domain) {
+      float corr = 0.f;
+      for (int l = 0; l < L; ++l) corr = fmaf(shift[l], vals[l], corr);
+      total -= corr / lam;
+    }
+    wmd[(size_t)q * N + n] = total;
+    if (iters != nullptr)
+      atomicMax(iters + (size_t)q * ((N + block_n - 1) / block_n) +
+                    n / block_n,
+                end);
+  }
+}
+
 struct Args {
   const float *g, *val, *r, *resmask;
   float* wmd;
@@ -509,16 +664,45 @@ cudaError_t launch_reg(const Args& a, cudaStream_t stream) {
 
 bool fits_registers(int VR, int L) { return VR <= 64 && L <= 64; }
 
-// Variant: 0 picks the register-resident kernel when the tile fits it,
-// else the shared-memory one; 1 asks for the register-resident kernel (the
-// tile must fit 64 x 64); 2 for the shared-memory one.
-bool use_registers(int VR, int L, int variant) {
-  return variant == 1 || (variant == 0 && fits_registers(VR, L));
-}
+// the card's per-block shared-memory limit (227 KB on the H100)
+constexpr long long kMaxSmem = 232448;
 
 long long smem_bytes(int VR, int L) {
   return (long long)sizeof(float) *
          ((long long)VR * (L | 1) + 3LL * VR + 4LL * L + 2 * kThreads / 32);
+}
+
+long long global_smem_bytes(int VR, int L) {
+  return (long long)sizeof(float) *
+         (3LL * VR + 4LL * L + 2 * kGThreads / 32);
+}
+
+// Variant: 0 picks the register-resident kernel when the tile fits it,
+// else the shared-memory one when the tile fits the per-block limit, else
+// the one that reads G from device memory; 1 asks for the
+// register-resident kernel (the tile must fit 64 x 64), 2 for the
+// shared-memory one, 3 for the device-memory one.
+bool use_registers(int VR, int L, int variant) {
+  return variant == 1 || (variant == 0 && fits_registers(VR, L));
+}
+
+bool use_global(int VR, int L, int variant) {
+  return variant == 3 ||
+         (variant == 0 && !fits_registers(VR, L) &&
+          smem_bytes(VR, L) > kMaxSmem);
+}
+
+template <typename K>
+cudaError_t launch_dyn(K kernel, int threads, size_t smem, const Args& a,
+                       cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.N, a.Q);
+  kernel<<<grid, threads, smem, s>>>(
+      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.VR, a.N, a.L, a.n_iter,
+      a.lam, a.log_domain, a.block_n, a.tol, a.check_every);
+  return cudaGetLastError();
 }
 
 template <bool BF16>
@@ -530,25 +714,22 @@ cudaError_t launch(const Args& a, int variant, cudaStream_t s) {
     if (l32) return launch_reg<64, 32, BF16>(a, s);
     return launch_reg<64, 64, BF16>(a, s);
   }
-  const size_t smem = (size_t)smem_bytes(a.VR, a.L);
-  cudaError_t err = cudaFuncSetAttribute(
-      sinkhorn_fused_batched_kernel<BF16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.N, a.Q);
-  sinkhorn_fused_batched_kernel<BF16><<<grid, kThreads, smem, s>>>(
-      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.VR, a.N, a.L, a.n_iter,
-      a.lam, a.log_domain, a.block_n, a.tol, a.check_every);
-  return cudaGetLastError();
+  if (use_global(a.VR, a.L, variant))
+    return launch_dyn(sinkhorn_fused_global_kernel<BF16>, kGThreads,
+                      (size_t)global_smem_bytes(a.VR, a.L), a, s);
+  return launch_dyn(sinkhorn_fused_batched_kernel<BF16>, kThreads,
+                    (size_t)smem_bytes(a.VR, a.L), a, s);
 }
 
 }  // namespace
 
-// Dynamic shared-memory bytes one block needs (0 for the register-resident
-// variant, whose shared memory is static). The wrapper refuses shapes above
-// the card's per-block limit before launching.
+// Dynamic shared-memory bytes one block of the chosen variant needs (0 for
+// the register-resident one, whose shared memory is static). The wrapper
+// refuses shapes above the card's per-block limit before launching.
 extern "C" long long sinkhorn_fused_smem_bytes(int VR, int L, int variant) {
-  return use_registers(VR, L, variant) ? 0 : smem_bytes(VR, L);
+  if (use_registers(VR, L, variant)) return 0;
+  return use_global(VR, L, variant) ? global_smem_bytes(VR, L)
+                                    : smem_bytes(VR, L);
 }
 
 // K1 (and K4, Q = 1): g (Q, VR, N, L), val (N, L), r (Q, VR), resmask

@@ -6,7 +6,8 @@ outputs with torch (the kernels allocate nothing), launches on the current
 CUDA stream, raises if the launch failed, and adds one to its
 ``launches`` counter for each kernel launch (``rwmd_min_cdist`` and
 ``rwmd_min_cdist_subset`` launch once per 128 support rows, the others
-once per call). A tensor on the CPU goes to the plain version in
+once per call; ``bsr_sddmm`` counts its launch under
+``bsr_sddmm_blocks``). A tensor on the CPU goes to the plain version in
 :mod:`.ref` instead (and does not count); a CUDA tensor always launches
 the kernel — there is no fallback.
 """
@@ -207,11 +208,14 @@ sddmm_spmm_step.launches = 0
 
 
 def _solver_smem(lib, v_r: int, length: int, variant: int, name: str) -> None:
+    """Refuse a variant whose shared memory exceeds the per-block limit:
+    the shared-memory one asked for by name on a tile over 227 KB (``auto``
+    takes the device-memory variant there)."""
     smem = lib.sinkhorn_fused_smem_bytes(v_r, length, variant)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"{name} keeps one (v_r, L) tile in shared memory: v_r={v_r}, "
-            f"L={length} needs {smem} B, the limit is {MAX_SMEM_BYTES}")
+            f"{name}: v_r={v_r}, L={length} needs {smem} B of shared memory "
+            f"in the variant asked for, the limit is {MAX_SMEM_BYTES}")
 
 
 def _solver_options(tol, check_every: int, gemm: str, resmask, shape,
@@ -324,10 +328,12 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
 
     ``tile`` picks the kernel's variant on the card: ``"registers"`` (the
     (v_r, L) tile in registers, up to 64 x 64), ``"shared"`` (in shared
-    memory, up to the per-block limit) or ``"auto"`` (registers where the
-    tile fits). Both compute the same function; the engine always passes
-    ``"auto"``, and the other two let tests and ``chip_smoke.py`` hold and
-    time the variants against each other at one shape.
+    memory, up to the per-block limit), ``"global"`` (G read from device
+    memory at every pass, any size) or ``"auto"`` (registers where the
+    tile fits, else shared memory where it fits, else global). All three
+    compute the same function; the engine always passes ``"auto"``, and
+    the others let tests and ``chip_smoke.py`` hold and time the variants
+    against each other at one shape.
     """
     dev = g.device
     _check("g", g, 4, torch.float32, dev)
@@ -360,7 +366,7 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
 
 
 sinkhorn_fused_all_batched.launches = 0
-_TILES = {"auto": 0, "registers": 1, "shared": 2}
+_TILES = {"auto": 0, "registers": 1, "shared": 2, "global": 3}
 
 
 def sinkhorn_wmd_kernel(r: torch.Tensor, vecs_sel: torch.Tensor,
@@ -387,8 +393,74 @@ def sinkhorn_wmd_kernel(r: torch.Tensor, vecs_sel: torch.Tensor,
                               log_domain=precision.log_domain)
 
 
+def bsr_sddmm_blocks(ktb: torch.Tensor, ub: torch.Tensor,
+                     cblk: torch.Tensor) -> torch.Tensor:
+    """The block-sparse SDDMM on given panels (K6): ktb (nb, bv, v_r) Kt
+    row panels, ub (nb, v_r, bn) u column panels, cblk (nb, bv, bn) the
+    retained tiles of c -> w (nb, bv, bn), w[b] = cblk[b] * (ktb[b] @
+    ub[b]) in fp32, computed for every element (an inf product times a
+    zero c is NaN)."""
+    dev = ktb.device
+    for name, t in (("ktb", ktb), ("ub", ub), ("cblk", cblk)):
+        _check(name, t, 3, torch.float32, dev)
+    nb, bv, v_r = ktb.shape
+    bn = ub.shape[2]
+    if ub.shape[:2] != (nb, v_r) or cblk.shape != (nb, bv, bn):
+        raise ValueError(f"shape mismatch: ktb {tuple(ktb.shape)}, ub "
+                         f"{tuple(ub.shape)}, cblk {tuple(cblk.shape)}")
+    if dev.type == "cpu":
+        return ref.bsr_sddmm_blocks_ref(ktb, ub, cblk)
+    w = torch.empty_like(cblk)
+    _raise_on(_lib().bsr_sddmm_blocks_launch(
+        _ptr(ktb), _ptr(ub), _ptr(cblk), _ptr(w), nb, bv, bn, v_r,
+        _stream(dev)), "bsr_sddmm_blocks")
+    bsr_sddmm_blocks.launches += 1
+    return w
+
+
+bsr_sddmm_blocks.launches = 0
+
+
+def bsr_sddmm(kt: torch.Tensor, u: torch.Tensor, c_bsr) -> torch.Tensor:
+    """The block-sparse SDDMM: w = c .* (kt @ u) at the retained tiles
+    only. kt (V, v_r) is K transposed, u (v_r, N), ``c_bsr`` a
+    :class:`~repro_torch.core.sparse.BlockSparse` over (V, N) on the same
+    device -> w blocks (nb, bv, bn) aligned with ``c_bsr``. On the card
+    K6 gathers the panels in its load (one launch, counted under
+    :func:`bsr_sddmm_blocks`); on the CPU the plain version gathers them
+    with ``index_select``. The card does not check the tile coordinates
+    (a check would cost a sync): they must lie inside ``c_bsr.shape``, as
+    :func:`~repro_torch.core.sparse.block_sparse_from_dense` makes them."""
+    blocks, brow, bcol = c_bsr.blocks, c_bsr.brow, c_bsr.bcol
+    dev = blocks.device
+    _check("kt", kt, 2, torch.float32, dev)
+    _check("u", u, 2, torch.float32, dev)
+    _check("c_bsr.blocks", blocks, 3, torch.float32, dev)
+    for name, t in (("c_bsr.brow", brow), ("c_bsr.bcol", bcol)):
+        _check(name, t, 1, torch.int32, dev)
+    nb, bv, bn = blocks.shape
+    v, v_r = kt.shape
+    n = u.shape[1]
+    vp, np_ = c_bsr.shape
+    if (u.shape[0] != v_r or v > vp or n > np_ or brow.shape != (nb,)
+            or bcol.shape != (nb,)):
+        raise ValueError(f"shape mismatch: kt {tuple(kt.shape)}, u "
+                         f"{tuple(u.shape)}, c_bsr {c_bsr.shape} with "
+                         f"blocks {tuple(blocks.shape)}")
+    if dev.type == "cpu":
+        return ref.bsr_sddmm_blocks_ref(
+            *ref.bsr_panels(kt, u, brow, bcol, bv, bn), blocks)
+    w = torch.empty_like(blocks)
+    _raise_on(_lib().bsr_sddmm_launch(
+        _ptr(kt), _ptr(u), _ptr(blocks), _ptr(brow), _ptr(bcol), _ptr(w), nb,
+        bv, bn, v_r, v, n, _stream(dev)), "bsr_sddmm")
+    bsr_sddmm_blocks.launches += 1
+    return w
+
+
 _COUNTED = (rwmd_min_cdist, sinkhorn_fused_all_batched, cdist_exp,
-            sinkhorn_fused_all, sddmm_spmm_step, rwmd_min_cdist_subset)
+            sinkhorn_fused_all, sddmm_spmm_step, rwmd_min_cdist_subset,
+            bsr_sddmm_blocks)
 
 
 def reset_launches() -> None:

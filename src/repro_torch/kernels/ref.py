@@ -341,3 +341,67 @@ def sddmm_spmm_step_ref(g: torch.Tensor, g_over_r: torch.Tensor,
     t = (g * u[:, :, None]).sum(dim=0)                         # (N, L)
     w = val * _safe_inv(t)
     return (g_over_r * w[None]).sum(dim=2)                     # (v_r, N)
+
+
+def bsr_panels(kt: torch.Tensor, u: torch.Tensor, brow: torch.Tensor,
+               bcol: torch.Tensor, bv: int, bn: int):
+    """The per-block operands of the block-sparse SDDMM, gathered by tile
+    coordinate: kt (V, v_r) and u (v_r, N) -> ktb (nb, bv, v_r) row panels
+    and ub (nb, v_r, bn) column panels. kt's rows and u's columns are
+    zero-padded up to whole tiles first."""
+    v_r = kt.shape[1]
+    kt = torch.nn.functional.pad(kt, (0, 0, 0, -kt.shape[0] % bv))
+    u = torch.nn.functional.pad(u, (0, -u.shape[1] % bn))
+    ktb = kt.reshape(-1, bv, v_r).index_select(0, brow.long())
+    ub = u.reshape(v_r, -1, bn).transpose(0, 1).index_select(0, bcol.long())
+    return ktb, ub
+
+
+def bsr_sddmm_blocks_ref(ktb: torch.Tensor, ub: torch.Tensor,
+                         cblk: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: for each retained block b,
+    w[b] = cblk[b] * (ktb[b] @ ub[b]); ktb (nb, bv, v_r), ub (nb, v_r, bn),
+    cblk (nb, bv, bn) -> (nb, bv, bn). The product is fp32 (no TF32 on the
+    card: the port relies on ``allow_tf32`` being False)."""
+    return cblk * torch.bmm(ktb, ub)
+
+
+def bsr_sddmm_ref(kt: torch.Tensor, u: torch.Tensor, c_bsr) -> torch.Tensor:
+    """The reference's oracle for the BSR SDDMM: the dense product
+    kt (V, v_r) @ u (v_r, N), masked by the stored tiles and re-blocked
+    -> (nb, bv, bn) aligned with ``c_bsr``."""
+    bv, bn = c_bsr.block_shape
+    vp, np_ = c_bsr.shape
+    full = torch.nn.functional.pad(kt @ u, (0, np_ - u.shape[1],
+                                           0, vp - kt.shape[0]))
+    tiles = full.reshape(vp // bv, bv, np_ // bn, bn).permute(0, 2, 1, 3)
+    return c_bsr.blocks * tiles[c_bsr.brow.long(), c_bsr.bcol.long()]
+
+
+# K6's tolerance: the reference's (tests/test_kernels.py::test_bsr_sddmm),
+# relative to the sum of the absolute products, |c| * (|kt| @ |u|): the
+# kernel and the plain version's GEMM sum the v_r-long product in other
+# orders, which moves each element by a few ulps of that sum
+K6_RTOL = 1e-5
+
+
+def hold_bsr_sddmm(got, ktb, ub, cblk, rtol: float = K6_RTOL) -> dict:
+    """K6's output ``got`` against :func:`bsr_sddmm_blocks_ref` on the same
+    panels: the same NaN/inf pattern, and every finite entry within
+    ``rtol`` of |c| * (|kt| @ |u|). Raises on a miss; returns the largest
+    errors."""
+    want = bsr_sddmm_blocks_ref(ktb, ub, cblk)
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+    if not torch.equal(fin_g, fin_w):
+        raise AssertionError("bsr_sddmm: inf/NaN pattern differs from the "
+                             "plain version")
+    scale = cblk.abs() * torch.bmm(ktb.abs(), ub.abs())
+    err = torch.where(fin_w, (got - want).abs(), torch.zeros_like(want))
+    bad = err > rtol * scale
+    if bool(bad.any()):
+        raise AssertionError(f"bsr_sddmm: {int(bad.sum())} entries outside "
+                             f"rtol={rtol} of |c|(|kt||u|); max abs err "
+                             f"{float(err.max())}")
+    return {"max_abs_err": float(err.max()),
+            "max_err_over_scale": float((err / scale.clamp(min=1e-30))
+                                        .max())}

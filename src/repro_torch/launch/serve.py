@@ -7,10 +7,13 @@ top-k retrieval (prune -> solve -> rank) with ``--top-k K``; ``--prune
 ivf+...`` runs the IVF cascade (``--nprobe P`` clusters per query,
 ``--n-clusters C|auto`` at index build) and ``--mode refine`` the
 rank-then-refine search (``--refine-factor F``). ``--tol T`` runs the
-adaptive solve (``--check-every``, ``--scope``; the record gains the
-realized iteration counts) and ``--precision`` picks fp32, bf16, log or
-bf16+log. Prints one JSON record with the per-batch latency and the card
-it ran on::
+adaptive solve (``--check-every``, ``--scope``, ``--warm-start``; the
+record gains the realized iteration counts) and ``--precision`` picks
+fp32, bf16, log or bf16+log. ``--impl sparse`` runs the einsum solve,
+where ``--warm-start`` takes effect and ``--kcache-slots N`` keeps N
+words' distance rows on the card across batches (the record gains the
+cache's counters). Prints one JSON record with the per-batch latency and
+the card it ran on::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
         --prune rwmd --n-docs 5000 --vocab 100000 --embed-dim 300 \\
@@ -21,6 +24,9 @@ it ran on::
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
         --prune rwmd --n-docs 5000 --vocab 100000 --embed-dim 300 \\
         --lam 0.25 --tol 0.03 --check-every 2 --precision bf16
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --top-k 10 \\
+        --impl sparse --kcache-slots 512 --prune ivf+wcd+rwmd \\
+        --n-docs 5000 --vocab 100000 --embed-dim 300 --lam 1
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --device cpu \\
         --n-docs 64 --vocab 512 --embed-dim 16 --steps 3   # host run
 """
@@ -56,7 +62,9 @@ def serve_wmd(args) -> dict:
                        impl=args.impl, precision=args.precision,
                        tol=args.tol if args.tol > 0 else None,
                        check_every=args.check_every, scope=args.scope,
-                       warm_start=args.warm_start)
+                       warm_start=args.warm_start,
+                       kcache_slots=(args.kcache_slots
+                                     if args.kcache_slots > 0 else None))
     reqs = wmd_request_stream(corpus)
     bq = max(1, args.batch_queries)
     prune = None if args.prune == "none" else args.prune
@@ -113,6 +121,8 @@ def serve_wmd(args) -> dict:
     }
     if underflows:
         rec["underflow_errors"] = underflows
+    if engine.kcache_stats() is not None:
+        rec["kcache"] = engine.kcache_stats()
     iters = engine.iter_stats()
     if args.tol > 0 and iters.size:
         rec["tol"] = args.tol
@@ -143,7 +153,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--wmd", action="store_true",
                     help="the WMD query server (the only server ported)")
-    ap.add_argument("--impl", default="kernel", choices=["kernel"])
+    ap.add_argument("--impl", default="kernel", choices=["kernel", "sparse"],
+                    help="the solve: the Hopper kernel K1, or the einsum "
+                         "solve (warm start and the K-column cache)")
     ap.add_argument("--batch-queries", type=int, default=8)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top-k", type=int, default=0,
@@ -183,8 +195,14 @@ def main(argv=None) -> None:
                          "survivor exit to its own candidates and counts "
                          "iterations per query; 'chunk' tests every doc")
     ap.add_argument("--warm-start", action="store_true",
-                    help="accepted and inert on the kernel impl, as in the "
-                         "reference")
+                    help="with --tol and --impl sparse: survivor solves "
+                         "start from the seed solve's converged profile "
+                         "(inert on the kernel impl, as in the reference)")
+    ap.add_argument("--kcache-slots", type=int, default=-1,
+                    help="> 0: the cross-request K-column cache with this "
+                         "many device-resident (V,) distance rows, enabled "
+                         "at engine build (needs --impl sparse; results "
+                         "are bit-exact); -1 and 0: no cache")
     ap.add_argument("--n-docs", type=int, default=1024)
     ap.add_argument("--vocab", type=int, default=8192)
     ap.add_argument("--embed-dim", type=int, default=64)

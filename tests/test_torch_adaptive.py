@@ -244,7 +244,7 @@ def _staged_g(eng, qs, grp):
     _, chunks = eng._plan(qs)
     chunk, width = chunks[0]
     sup, r, mask = eng._prep_chunk([qs[qi] for qi in chunk], width)
-    return _gather_g(eng._kq(sup, mask), grp.docs.idx), r, len(chunk)
+    return _gather_g(eng._kq(sup, mask)[0], grp.docs.idx), r, len(chunk)
 
 
 def test_kernel_exit_is_per_doc(dedup_indexes, dedup):
@@ -627,8 +627,9 @@ def test_engine_knobs_accepted_and_refused(small_indexes):
                dict(precision="bf16"), dict(precision="bf16+log"),
                dict(tol=1e-3, check_every=1, iter_stats_maxlen=2)):
         WmdEngine(index, **kw)
-    for kw in (dict(impl="sparse"), dict(kcache_slots=8)):
-        with pytest.raises(NotImplementedError, match="next slice"):
+    WmdEngine(index, impl="sparse", kcache_slots=8)
+    for kw in (dict(impl="dense"), dict(kcache_slots=8)):
+        with pytest.raises(ValueError):
             WmdEngine(index, **kw)
     with pytest.raises(ValueError, match="check_every"):
         WmdEngine(index, tol=1e-3, check_every=0)

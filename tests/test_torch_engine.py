@@ -153,9 +153,14 @@ def test_edge_queries_and_unported_options(small_corpus, carried):
     assert eng.search([], 3).indices.shape == (0, 3)
     with pytest.raises(ValueError):
         eng.search([small_corpus.queries[0]], 0)
-    for kw in (dict(impl="sparse"), dict(kcache_slots=8)):
-        with pytest.raises(NotImplementedError):
-            WmdEngine(index, **kw)
+    # the einsum impl and its K-column cache are ported
+    # (tests/test_torch_einsum.py, tests/test_torch_kcache.py); the cache
+    # needs the einsum impl
+    for kw in (dict(impl="sparse"), dict(impl="sparse", kcache_slots=8)):
+        assert WmdEngine(index, lam=1.0, n_iter=5, **kw).search(
+            [small_corpus.queries[0]], 3).indices.shape == (1, 3)
+    with pytest.raises(ValueError, match="sparse"):
+        WmdEngine(index, kcache_slots=8)
     # the adaptive and bf16 solve are ported (tests/test_torch_adaptive.py)
     for kw in (dict(tol=1e-3), dict(precision="bf16"),
                dict(warm_start=True), dict(scope="chunk")):

@@ -406,3 +406,109 @@ def test_adaptive_search_on_card_matches_host(precision):
             np.testing.assert_allclose(got.distances, want.distances,
                                        rtol=1e-3, atol=5e-3)
         np.testing.assert_array_equal(ec.iter_stats(), eh.iter_stats())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v_r", [7, 23, 40])
+@pytest.mark.parametrize("bv,bn", [(128, 128), (64, 64), (64, 32)])
+def test_bsr_sddmm_matches_plain(rng, v_r, bv, bn):
+    """K6 through both entry points (``bsr_sddmm``'s gather in the load and
+    the given panels) against its plain version at the reference's 1e-5
+    of |c| (|kt| |u|); V and N not whole tiles; v_r = 40 takes two chunks
+    of the staged product; pad tiles come out zero."""
+    from repro_torch.core.sparse import block_sparse_from_dense
+    dev = _card()
+    v, n = 3000, 700
+    c = np.where(rng.random((v, n)) < 2e-3, rng.random((v, n)), 0.0)
+    cd = torch.tensor(c, dtype=torch.float32, device=dev)
+    live = block_sparse_from_dense(cd, bv, bn).blocks.shape[0]
+    cb = block_sparse_from_dense(cd, bv, bn, pad_blocks_to=live + 3)
+    kt = torch.tensor(rng.standard_normal((v, v_r)), dtype=torch.float32,
+                      device=dev)
+    u = torch.tensor(rng.standard_normal((v_r, n)), dtype=torch.float32,
+                     device=dev)
+    before = ops.bsr_sddmm_blocks.launches
+    got = ops.bsr_sddmm(kt, u, cb)
+    torch.cuda.synchronize()
+    assert ops.bsr_sddmm_blocks.launches == before + 1
+    ktb, ub = ref.bsr_panels(kt, u, cb.brow, cb.bcol, bv, bn)
+    ktb, ub = ktb.contiguous(), ub.contiguous()
+    ref.hold_bsr_sddmm(got, ktb, ub, cb.blocks)
+    assert (got[live:] == 0).all()
+    got_b = ops.bsr_sddmm_blocks(ktb, ub, cb.blocks)
+    torch.cuda.synchronize()
+    ref.hold_bsr_sddmm(got_b, ktb, ub, cb.blocks)
+    torch.testing.assert_close(got, ref.bsr_sddmm_ref(kt, u, cb), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gemm", ["fp32", "bf16"])
+@pytest.mark.parametrize("log_domain", [False, True])
+@pytest.mark.parametrize("tol", [None, 3e-2])
+def test_sinkhorn_fused_over_the_smem_limit_matches_plain(rng, gemm,
+                                                          log_domain, tol):
+    """A (256, 256) tile needs 263 KB of shared memory, over the card's 227
+    KB: ``tile="auto"`` takes the variant that reads G from device memory
+    (the shared one is refused by name), held against the plain version,
+    fixed and adaptive, for K1 and for K4 on one query's tile."""
+    dev = _card()
+    lam = 10.0 if log_domain else 1.0
+    g, val, r = _cost_inputs(rng, dev, 2, 256, 96, 256, lam, log_domain)
+    kw = dict(log_domain=log_domain, gemm=gemm)
+    if tol is not None:
+        kw.update(tol=tol, check_every=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.sinkhorn_fused_all_batched(g, val, r, lam, 15, tile="shared",
+                                       **kw)
+    got, iters = ops.sinkhorn_fused_all_batched(g, val, r, lam, 15,
+                                                with_iters=True, **kw)
+    torch.cuda.synchronize()
+    ref.hold_solve(got, iters, g, val, r, lam, 15, 1e-4, 1e-4, **kw)
+    forced = ops.sinkhorn_fused_all_batched(g, val, r, lam, 15,
+                                            tile="global", **kw)
+    assert torch.equal(forced, got)
+    # K4 (K1's entry point at Q = 1) takes the same variant
+    got4, it4 = ops.sinkhorn_fused_all(g[0], val, r[0], lam, 15,
+                                       with_iters=True, **kw)
+    torch.cuda.synchronize()
+    ref.hold_solve(got4, it4, g[0], val, r[0], lam, 15, 1e-4, 1e-4, **kw)
+
+
+@pytest.mark.gpu
+def test_einsum_engine_and_kcache_on_card():
+    """The einsum engine on the card against the same calls on the host
+    (P1 between the card's and the host's GEMMs: R2), and on the card the
+    K-column cache's results equal the uncached engine's bit for bit, cold
+    and warm, in every precision."""
+    from repro_torch.core.index import WmdEngine, build_index
+    from repro_torch.data.corpus import dedup_corpus
+    dev = _card()
+    c = dedup_corpus(512, vocab=4096, embed_dim=64, seed=2)
+    host = build_index(c.docs, c.vecs, device="cpu", n_clusters="auto")
+    card = _carry_to(host, dev)
+    qs = list(c.queries)
+    kw = dict(lam=0.25, n_iter=15, tol=3e-2, check_every=2, impl="sparse",
+              warm_start=True)
+    eh, ec = WmdEngine(host, **kw), WmdEngine(card, **kw)
+    for prune in ("rwmd", "ivf+wcd+rwmd"):
+        got, want = ec.search(qs, 10, prune=prune), eh.search(qs, 10,
+                                                              prune=prune)
+        np.testing.assert_array_equal(np.sort(got.indices, axis=1),
+                                      np.sort(want.indices, axis=1))
+        np.testing.assert_allclose(got.distances, want.distances, rtol=1e-3,
+                                   atol=5e-3)
+    for precision in ("fp32", "bf16", "log", "bf16+log"):
+        off = WmdEngine(card, lam=1.0, n_iter=15, impl="sparse",
+                        precision=precision)
+        on = WmdEngine(card, lam=1.0, n_iter=15, impl="sparse",
+                       precision=precision, kcache_slots=64,
+                       kcache_min_hits=1)
+        for _ in ("cold", "warm"):
+            a, b = off.search(qs, 10, prune="rwmd"), on.search(qs, 10,
+                                                                prune="rwmd")
+            np.testing.assert_array_equal(a.indices, b.indices)
+            np.testing.assert_array_equal(a.distances, b.distances)
+            np.testing.assert_array_equal(off.query_batch(qs).numpy(),
+                                          on.query_batch(qs).numpy())
+        assert on.kcache_stats()["hits"] > 0

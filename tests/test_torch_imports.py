@@ -36,9 +36,14 @@ def test_port_imports_no_jax_and_no_reference_package():
     mods = list(_port_modules())
     for m in ("repro_torch.kernels.ops", "repro_torch.core.wmd",
               "repro_torch.core.exact_ot", "repro_torch.core.sinkhorn",
-              "repro_torch.core.sinkhorn_sparse"):
+              "repro_torch.core.sinkhorn_sparse", "repro_torch.core.kcache",
+              "repro_torch.core.sparse"):
         assert m in mods
-    assert len(mods) >= 17
+    assert len(mods) >= 18
+    from repro_torch.kernels import ops
+    for fn in ("bsr_sddmm", "bsr_sddmm_blocks"):
+        assert callable(getattr(ops, fn))
+    assert "bsr_sddmm_blocks" in ops.launches()
     script = "\n".join(
         ["import importlib, sys",
          f"sys.path.insert(0, {str(ROOT)!r})",

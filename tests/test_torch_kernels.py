@@ -203,11 +203,15 @@ def test_cpu_tensors_leave_launch_counts_at_zero(rng):
     ops.sddmm_spmm_step(gt, gt, vt, torch.ones(gt.shape[:2]))
     ops.rwmd_min_cdist(*map(torch.from_numpy, (a, mask, b)),
                        vocab_ids=torch.arange(5))
+    from repro_torch.core.sparse import block_sparse_from_dense
+    cb = block_sparse_from_dense(torch.eye(64), 32, 32)
+    ops.bsr_sddmm(torch.ones((64, 3)), torch.ones((3, 64)), cb)
     assert ops.launches() == {"rwmd_min_cdist": 0,
                               "sinkhorn_fused_all_batched": 0,
                               "cdist_exp": 0, "sinkhorn_fused_all": 0,
                               "sddmm_spmm_step": 0,
-                              "rwmd_min_cdist_subset": 0}
+                              "rwmd_min_cdist_subset": 0,
+                              "bsr_sddmm_blocks": 0}
 
 
 @pytest.mark.parametrize("kwargs", [dict(tol=1e-3), dict(resmask=True),
@@ -247,7 +251,12 @@ def test_wrappers_validate_inputs(rng):
                                        torch.from_numpy(r), lam, 2)
     gt, vt, rt = map(torch.from_numpy, (g, val, r))
     with pytest.raises(ValueError, match="tile must be one of"):
-        ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 2, tile="global")
+        ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 2, tile="texture")
+    # "global" (G read from device memory) is a variant since the tile
+    # over the shared-memory limit runs; on the host it is the plain version
+    torch.testing.assert_close(
+        ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 2, tile="global"),
+        ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 2))
     wide = torch.zeros((1, 65, 16, val.shape[1]), dtype=torch.float32)
     with pytest.raises(ValueError, match="at most 64 x 64"):
         ops.sinkhorn_fused_all_batched(wide, vt, torch.ones((1, 65)), lam, 2,

@@ -94,18 +94,22 @@ def test_many_to_many_kernel_engine_matches_loop(small_corpus):
 
 
 def test_engine_paths_keep_refusing_the_sparse_impl(small_corpus):
-    """The batched engine runs impl="kernel" only: impl="sparse" raises
-    the engine's NotImplementedError (no fallback), the loop runs it."""
+    """The batched engine now runs impl="sparse" too (the einsum solve),
+    and agrees with the per-query loop (the sparse solver) and with its
+    own exhaustive ranking: many_to_many and search no longer refuse it."""
     qs = list(small_corpus.queries[:2])
     args = (small_corpus.docs, small_corpus.vecs)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        many_to_many(qs, *args, 1.0, 5, impl="sparse", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        search(qs, *args, k=3, lam=1.0, n_iter=5, impl="sparse",
-               device="cpu")
+    batched = many_to_many(qs, *args, 1.0, 5, impl="sparse", device="cpu")
     looped = many_to_many(qs, *args, 1.0, 5, impl="sparse", batched=False,
                           device="cpu")
     assert all(torch.isfinite(d).all() for d in looped)
+    for b, lo in zip(batched, looped):
+        np.testing.assert_allclose(b.numpy(), lo.numpy(), **TIGHT)
+    res = search(qs, *args, k=3, lam=1.0, n_iter=5, impl="sparse",
+                 device="cpu")
+    for qi in range(len(qs)):
+        order = np.argsort(batched[qi].numpy(), kind="stable")[:3]
+        np.testing.assert_array_equal(res.indices[qi], order)
 
 
 def test_search_matches_exhaustive_one_to_many(small_corpus):
