@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k1-crossover-sweep]
 
 Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc``
 and holds each one against its plain PyTorch version at the shapes its
@@ -29,6 +29,15 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
 - the block-sparse SDDMM ``ops.bsr_sddmm`` (K6) on the paper corpus's
   doc matrix at 128 x 128 and 64 x 64 tiles, and K1 on a (v_r, L) tile
   over the shared-memory limit;
+- K1 and K2 each in two designs, timed side by side at the main path's
+  chunk and the paper's widest: K1's warp per tile (what ``tile="auto"``
+  runs up to 64 x 64) against the block per tile, with the fixed cost
+  (``n_iter`` 0 and 1) and the inert docs' share; K2's stacked queries
+  against a block per query (also at 128 queries, two stacked launches),
+  beside cuBLAS SGEMM of the same product; and K1's shared-memory
+  against its device-memory variant on each side of the tile where
+  ``auto`` switches between them (``--k1-crossover-sweep``: across eight
+  tiles from 96 x 28 to 192 x 192);
 - the einsum engine ``WmdEngine(impl="sparse")``: search and
   ``query_batch`` against its exhaustive top-10 and the kernel engine's
   distances, ``warm_start`` on the near-duplicate corpus, the K-column
@@ -89,6 +98,15 @@ K2_SQ_RTOL = 1e-5
 # K1: sums over v_r and L run in another order, and 15 iterations of
 # the scaling fixed point carry the ulp differences into the distance
 K1_RTOL, K1_ATOL = 1e-4, 1e-4
+# K1's two designs for tiles up to 64 x 64, timed side by side: a block
+# per tile with the tile in registers (the earlier one) and a warp per
+# tile; K2's: a block per (vocabulary tile, query) (the earlier one) and
+# stacked queries
+K1_DESIGNS = ("registers", "warp")
+# K1 tiles of each class up to 64 x 64 that no paper chunk has, where
+# phase k1_tiles times the two designs (v_r and L on each side of 32)
+K1_CLASSES = ((32, 32), (24, 56), (56, 24), (48, 48), (64, 64))
+K2_DESIGNS = ("per_query", "stacked")
 # K3: ref.K3_SQ_RTOL and ref.K3_ULP (ref.hold_cdist_exp holds it)
 # K4: tests/test_kernels.py's tolerance for the reference kernel
 K4_RTOL, K4_ATOL = 5e-5, 5e-5
@@ -283,13 +301,14 @@ def phase_build() -> None:
 
 
 def paper_chunk(v: int, dev, width: int = 48, q: int = 4, seed: int = 0):
-    """A query chunk at the main path's widest paper shape: Q=4 queries of
-    ``width`` support rows drawn from the paper vocabulary, some rows
-    masked as the engine pads them."""
+    """A query chunk at the main path's widest paper shape: ``q`` queries
+    (4, a chunk) of ``width`` support rows drawn from the paper vocabulary,
+    some rows masked as the engine pads them."""
     rng = np.random.default_rng(seed)
     sup = np.stack([rng.choice(v, size=width, replace=False)
                     for _ in range(q)])
-    live = [width, 43, 31, 19][:q]           # the paper's 19-43 words
+    # 19-43 live words, in turn
+    live = [min((width, 43, 31, 19)[i % 4], width) for i in range(q)]
     mask = np.zeros((q, width), np.float32)
     r = np.ones((q, width), np.float32)
     for i, n in enumerate(live):
@@ -358,6 +377,18 @@ def phase_k2(index, sup, mask, label: str) -> dict:
     n_bytes = 4.0 * (live_rows * w + mask.numel() + b.numel() + q * v)
     n_flops = 2.0 * live_rows * w * v + 2.0 * (v + live_rows) * w
     bms, by = bound_ms(n_bytes, n_flops)
+    designs = {}
+    for design in K2_DESIGNS:               # each held, then timed
+        def run(design=design):
+            return ops.rwmd_min_cdist(a, mask, b, design=design)
+        got_d = run()
+        torch.cuda.synchronize()
+        designs[design] = {
+            "max_abs_err": hold_min_cdist(f"K2 {design}", got_d, want, a,
+                                          mask, b)["max_abs_err"],
+            "ms": time_ms(run)}
+        del got_d
+    a_live = a[mask > 0].contiguous()                    # (R, w)
     rec = {"phase": "k2", "name": "rwmd_min_cdist", "inputs": label,
            "shape": {"Q": q, "B": bq, "w": w, "V": v,
                      "live_rows": int(live_rows),
@@ -370,7 +401,12 @@ def phase_k2(index, sup, mask, label: str) -> dict:
            "bound_ms": bms, "bound_by": by, "library_ms": None,
            "library": "none: no single PyTorch call computes a masked "
                       "min-over-support cdist (torch.cdist + a masked min "
-                      "is two)"}
+                      "is two)",
+           "designs": designs,
+           # a yardstick for the product alone: cuBLAS SGEMM (TF32 off) of
+           # the live rows against the vocabulary, no norms, no min
+           "sgemm_ms": time_ms(lambda: torch.matmul(a_live, b.T)),
+           "sgemm": "torch.matmul (R, w) x (w, V), fp32, TF32 off"}
     emit(rec)
     return rec
 
@@ -401,6 +437,50 @@ def phase_k1(index, sup, r, mask, log_domain: bool, lam: float,
                                f"K1 log_domain={log_domain}")
     q, v_r, n, length = g.shape
     n_live_docs = int((val > 0).any(dim=1).sum())
+    # the two designs at this chunk, each held against the plain version:
+    # the fixed cost (n_iter = 0, 1) against the cost per iteration (15),
+    # and the same call on the live docs alone (the inert docs' share)
+    g_live = g[:, :, :n_live_docs].contiguous()
+    val_live = val[:n_live_docs].contiguous()
+    if not bool((val_live > 0).any(dim=1).all()):
+        raise AssertionError("K1: the live docs do not lead the group")
+    designs = {}
+    for tile in K1_DESIGNS:
+        def run(tile=tile, g=g, val=val, n_iter=n_iter):
+            return ops.sinkhorn_fused_all_batched(
+                g, val, r, lam, n_iter, log_domain=log_domain, tile=tile)
+        designs[tile] = {"max_abs_err": compare(
+            run(), want, K1_RTOL, K1_ATOL,
+            f"K1 tile={tile} log_domain={log_domain}")[0]}
+        designs[tile].update({
+            "ms": time_ms(run),
+            **{f"n_iter_{i}_ms": time_ms(lambda i=i: run(n_iter=i))
+               for i in (0, 1)},
+            "live_docs_only_ms": time_ms(lambda: run(g=g_live,
+                                                     val=val_live))})
+    del g_live
+    # bf16 operands and the adaptive exit (fig10's tol and check_every) at
+    # this chunk through tile="auto": held against the plain version, and
+    # the realized counts equal in every block
+    modes = {}
+    for mode, opts in (("bf16", dict(gemm="bf16")),
+                       ("adaptive", dict(tol=FIG10["tol"],
+                                         check_every=FIG10["check_every"]))):
+        def run_mode(opts=opts):
+            return ops.sinkhorn_fused_all_batched(
+                g, val, r, lam, n_iter, log_domain=log_domain,
+                with_iters=True, **opts)
+        got_m, it_m = run_mode()
+        torch.cuda.synchronize()
+        held = ref.hold_solve(got_m, it_m, g, val, r, lam, n_iter, K1_RTOL,
+                              K1_ATOL, log_domain=log_domain, **opts)
+        if held["blocks_count_differs"]:
+            raise AssertionError(
+                f"K1 {mode} log_domain={log_domain}: "
+                f"{held['blocks_count_differs']} block counts differ from "
+                "the plain version")
+        modes[mode] = {**opts, **held, "ms": time_ms(run_mode)}
+        del got_m, it_m
     live_slots = float((val > 0).sum())
     live_rows = float(mask.sum())
     # the bound counts what this run's data needs: G at live (query row,
@@ -424,7 +504,7 @@ def phase_k1(index, sup, r, mask, log_domain: bool, lam: float,
            "plain_ms": time_ms(plain, reps=5, warmup=1),
            "bound_ms": bms, "bound_by": by, "library_ms": None,
            "library": "none: no single PyTorch call computes a Sinkhorn "
-                      "solve"}
+                      "solve", "designs": designs, "modes": modes}
     emit(rec)
     del g
     return rec
@@ -444,7 +524,7 @@ def phase_k1_tiles(index, sup, r, mask) -> dict:
             g, grp.docs.val, r, lam, CONFIG.n_iter, log_domain=log_domain)[0]
         key = "log" if log_domain else "fp32"
         rec[key] = {"shape": list(g.shape)}
-        for tile in ("registers", "shared"):
+        for tile in ("registers", "shared", "warp"):
             def run(tile=tile):
                 return ops.sinkhorn_fused_all_batched(
                     g, grp.docs.val, r, lam, CONFIG.n_iter,
@@ -453,16 +533,43 @@ def phase_k1_tiles(index, sup, r, mask) -> dict:
                                  f"K1 tile={tile} log_domain={log_domain}")
             rec[key][tile] = {"ms": time_ms(run), "max_abs_err": abs_err}
         del g
+    # the other tile classes of the two designs (no paper chunk has them):
+    # Q=4, N=2048 synthetic docs, fp32 at lam=1 and log at lam=10
+    rec["classes"] = []
+    for v_r, length in K1_CLASSES:
+        sup_c, r_c, mask_c = paper_chunk(index.vocab_size, mask.device,
+                                         width=v_r, seed=10)
+        idx, val = wide_docs(index, mask.device, 2048, length, seed=11)
+        row = {"v_r": v_r, "L": length}
+        for log_domain, lam in ((False, 1.0), (True, CONFIG.lam)):
+            g = _gather_g(_compute_kq(sup_c, mask_c, index.vecs,
+                                      index.vecs_sq, lam,
+                                      log_domain=log_domain), idx)
+            want = ref.sinkhorn_fused_all_batched_ref(
+                g, val, r_c, lam, CONFIG.n_iter, log_domain=log_domain)[0]
+            times = {}
+            for tile in K1_DESIGNS:
+                def run(tile=tile, g=g, lam=lam, log_domain=log_domain):
+                    return ops.sinkhorn_fused_all_batched(
+                        g, val, r_c, lam, CONFIG.n_iter,
+                        log_domain=log_domain, tile=tile)
+                compare(run(), want, K1_RTOL, K1_ATOL,
+                        f"K1 {v_r}x{length} tile={tile} log={log_domain}")
+                times[tile] = time_ms(run)
+            row["log" if log_domain else "fp32"] = times
+            del g, want
+        rec["classes"].append(row)
     emit(rec)
     return rec
 
 
-def phase_k1_wide(index, dev) -> dict:
+def phase_k1_wide(index, dev, crossover) -> dict:
     """K1's variants for tiles wider than 64 query rows or doc slots (no
     paper shape is): the shared-memory one on 96-row queries, held against
     the plain version and timed beside the device-memory one at that
-    shape; then the tile over the shared-memory limit
-    (:func:`phase_k1_over_limit`)."""
+    shape; the two variants on the ``crossover`` tiles
+    (:func:`phase_k1_crossover`); then the tile over the shared-memory
+    limit (:func:`phase_k1_over_limit`)."""
     sup, r, mask = paper_chunk(index.vocab_size, dev, width=96, q=2, seed=1)
     grp = index.subset(np.arange(1024, dtype=np.int32), storage=True)
     for log_domain, lam in ((False, 1.0), (True, CONFIG.lam)):
@@ -489,7 +596,55 @@ def phase_k1_wide(index, dev) -> dict:
                 "ms": time_ms(run)}
         emit(rec)
         del g
+    phase_k1_crossover(index, dev, crossover)
     return phase_k1_over_limit(index, dev)
+
+
+# (v_r, L) tiles on each side of where K1's "auto" switches from the
+# shared-memory to the device-memory variant (kTwoBlockSmem in
+# sinkhorn_fused.cu), and the sweep that placed the switch, between the
+# two measured ends of the crossover (96 x 28, 192 x 192), which
+# ``--k1-crossover-sweep`` runs instead
+K1_CROSSOVER = ((160, 160), (176, 176))
+K1_CROSSOVER_SWEEP = ((96, 28), (96, 64), (128, 64), (128, 128), (160, 128),
+                      (160, 160), (176, 176), (192, 192))
+
+
+def phase_k1_crossover(index, dev, shapes) -> dict:
+    """Where ``tile="auto"`` switches from the shared-memory variant to the
+    device-memory one: both held against the plain version and timed on
+    the (v_r, L) ``shapes`` (Q=2, N=512 synthetic docs of the paper
+    vocabulary, fp32 at lam=1 and log at lam=10), beside what ``auto``
+    takes there."""
+    n_docs = 512
+    rec = {"phase": "k1_crossover", "Q": 2, "N": n_docs,
+           "n_iter": CONFIG.n_iter, "shapes": []}
+    for v_r, length in shapes:
+        sup, r, mask = paper_chunk(index.vocab_size, dev, width=v_r, q=2,
+                                   seed=8)
+        idx, val = wide_docs(index, dev, n_docs, length, seed=9)
+        row = {"v_r": v_r, "L": length}
+        for log_domain, lam in ((False, 1.0), (True, CONFIG.lam)):
+            g = _gather_g(_compute_kq(sup, mask, index.vecs, index.vecs_sq,
+                                      lam, log_domain=log_domain), idx)
+            want = ref.sinkhorn_fused_all_batched_ref(
+                g, val, r, lam, CONFIG.n_iter, log_domain=log_domain)[0]
+            times = {}
+            for tile in ("shared", "global", "auto"):
+                def run(tile=tile, g=g, lam=lam, log_domain=log_domain):
+                    return ops.sinkhorn_fused_all_batched(
+                        g, val, r, lam, CONFIG.n_iter,
+                        log_domain=log_domain, tile=tile)
+                compare(run(), want, K1_RTOL, K1_ATOL,
+                        f"K1 {v_r}x{length} tile={tile} log={log_domain}")
+                times[tile] = time_ms(run)
+            times["faster"] = min(("shared", "global"), key=times.get)
+            row["log" if log_domain else "fp32"] = times
+            del g, want
+        rec["shapes"].append(row)
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_small_parity(dev) -> None:
@@ -1931,10 +2086,15 @@ def main() -> int:
     phase_k1_tiles(index, sup, r, mask)
     k1_ad = phase_k1_adaptive(index, sup, r, mask, "main_path")
     phase_k1_bf16(index, sup, r, mask)
-    phase_k1_wide(index, dev)
-    # a query wider than one K2 launch's 128 support rows
+    phase_k1_wide(index, dev, K1_CROSSOVER_SWEEP
+                  if "--k1-crossover-sweep" in sys.argv[1:] else K1_CROSSOVER)
+    # a query wider than one K2 launch's 128 support rows; more queries
+    # than one stacked launch's 64, as refine stages every query of a
+    # search (fig15's stream has 128) in one tensor
     phase_k2(index, *paper_chunk(index.vocab_size, dev, width=200, q=2,
                                  seed=2)[::2], "wide_200")
+    phase_k2(index, *paper_chunk(index.vocab_size, dev, q=128,
+                                 seed=6)[::2], "queries_128")
     torch.cuda.empty_cache()
 
     # the one-query kernels on the first paper query (and K3 on a
@@ -2031,6 +2191,13 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "launch_ms", "plain_ms", "bound_ms",
             "bound_by")
     kernels[1]["fp32_lam1"] = {key: k1_lin[key] for key in keys}
+    # K1 and K2 in both designs, timed in this run at the same inputs (the
+    # entry's ms is the default one: warp for K1, stacked for K2), and K2's
+    # product alone on cuBLAS SGEMM as a yardstick
+    kernels[1]["designs"] = k1_log["designs"]
+    kernels[1]["fp32_lam1"]["designs"] = k1_lin["designs"]
+    kernels[0]["designs"] = k2["designs"]
+    kernels[0]["sgemm_ms"] = k2["sgemm_ms"]
     kernels[2]["full"] = {key: k3[0][key] for key in keys}
     kernels[2]["log_k_lam10"] = {key: k3[2][key] for key in keys}
     kernels[3]["log_lam10"] = {key: k4[1][key] for key in keys}

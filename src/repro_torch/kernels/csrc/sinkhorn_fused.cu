@@ -63,27 +63,34 @@
 // ~4.8 GFLOP, ~72 us at 67 TFLOP/s fp32: bound by bytes.
 //
 // What the design does about it: G is read from device memory exactly
-// once, per (query, doc) block, and every iteration and the distance line
+// once per (query, doc) tile, and every iteration and the distance line
 // run on chip; u, x, t, w never leave the SM, and GM is rebuilt from the
-// tile (no second array). The final sum is a fixed-order block reduction,
-// so the result is deterministic. Three variants, chosen by the tile's
-// size: sinkhorn_fused_reg_kernel (below) keeps the tile in registers for
-// tiles up to 64 x 64, every shape of the paper's workload; the kernel
-// here keeps it in dynamic shared memory (row stride padded to an odd
-// count so the SpMM's row-per-thread reads hit distinct banks) for wider
-// tiles, up to the 227 KB per-block limit; sinkhorn_fused_global_kernel
-// reads it from device memory at every pass for tiles over that limit.
-// At the main path's widest chunk, on an H100 80GB HBM3 at 700 W, the
-// register variant is 1.28x (log) and 1.61x (linear) faster than the
-// shared one (chip_smoke.py phase k1_tiles); at 192 x 192 tiles the
-// device-memory one beats the shared one, at 96 x 28 it loses (phase
-// k1_wide). All are latency-bound, not bound by bytes: 16 dependent
-// passes per doc, each with block barriers.
+// tile (no second array). The final sum is in a fixed order, so the
+// result is deterministic. Four variants:
+// - sinkhorn_fused_warp_kernel ("warp", what "auto" runs up to 64 x 64,
+//   every shape of the paper's workload): a warp per tile, no block
+//   barrier, asynchronous tile loads, inert docs skipped (its comment
+//   below);
+// - sinkhorn_fused_reg_kernel ("registers", the earlier design): a block
+//   per tile, the tile in registers, half the threads idle in each pass;
+// - the kernel just below ("shared"): the tile in dynamic shared memory
+//   (row stride padded to an odd count so the SpMM's row-per-thread reads
+//   hit distinct banks), what "auto" runs past 64 x 64 while two blocks
+//   fit an SM;
+// - sinkhorn_fused_global_kernel ("global"): G read from device memory at
+//   every pass, what "auto" runs past that (kTwoBlockSmem).
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py phases k1, k1_tiles,
+// k1_crossover; PERF.md) the warp variant is 2.2-3.3x faster than the
+// register one at the paper's chunks and faster in every class up to
+// 64 x 64. All are latency-bound, not bound by bytes: 16 dependent passes
+// per doc.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -642,6 +649,411 @@ sinkhorn_fused_global_kernel(const float* __restrict__ g,
   }
 }
 
+// Warp-per-tile variant (tile="warp"), the redesign for tiles up to 64 x
+// 64. One warp solves one (query, doc) tile; a block holds kWarpsPerBlock
+// independent warps, and a grid sized to the card's resident warps strides
+// them over the Q * N pairs, so no block barrier runs in the loop (two
+// __syncwarp per iteration). Each warp has its own slice of shared memory:
+// NSLOT tile slots (row stride LM + 4: 16-byte rows, conflict-free float4
+// row reads and column reads) and u, w (and their bf16-rounded copies),
+// read as float4 broadcasts.
+//
+// - Loads: while a warp solves one pair, cp.async brings the next pair's
+//   tile into its other slot (16-byte copies when L is a multiple of 4,
+//   else 4-byte ones). A tile row is L floats at a stride of N * L.
+// - Inert docs: a doc whose val row is all zero loads no G; its warp
+//   writes what the full loop gives such a doc (distance 0, the count of
+//   ref.inert_doc_iters). A val row with a negative or NaN entry is
+//   solved in full, so the result is the full loop's either way.
+// - Registers: lane l keeps column l (LC columns of KM rows, the SDDMM's
+//   operand) and lane k row k (KC rows of LM slots, the SpMM's and the
+//   distance line's), 64 * KC * LC floats in all; the (2, 2) class (both
+//   sides over 32) keeps its columns and reads its rows from the slot
+//   (ROWS_SMEM, one slot).
+// - Loops run over float4 steps up to the tile's last live row and last
+//   live slot, not to KM and LM.
+// - The log domain shifts and exponentiates each element once, in the
+//   slot, where the rows are then read; the distance line takes log G
+//   from the exponentiated G as the other variants do.
+// - fp32 SpMM: x[k] = (1/r[k]) * sum_l G[k,l] w[l] (the other variants
+//   multiply G by 1/r per element; a rounding apart). bf16: the registers
+//   hold round(G) and round(G/r) as in the register variant, and the
+//   distance line reads the unrounded G from the slot.
+// - The decision reductions are warp shuffles that propagate NaN; the
+//   final sum is a fixed-order shuffle tree.
+constexpr int kWarpsPerBlock = 4;
+
+template <int KC, int LC, bool ROWS_SMEM>
+struct WarpTile {
+  static constexpr int KM = 32 * KC, LM = 32 * LC;
+  static constexpr int LS = LM + 4;
+  static constexpr int NSLOT = ROWS_SMEM ? 1 : 2;
+  static constexpr int SLOT = KM * LS;
+  // slots, then u, u rounded, w, w rounded
+  static constexpr int FLOATS = NSLOT * SLOT + 2 * (KM + LM);
+};
+
+__device__ __forceinline__ float gm_of(float gv, float lam) {
+  return gv > 0.f ? (-gv * logf(gv)) / lam : 0.f;
+}
+
+// the realized count of an inert doc (ref.inert_doc_iters)
+__device__ __forceinline__ int inert_count(int n_iter, float tol,
+                                           int check_every) {
+  if (check_every <= 0) return n_iter;
+  int count = 1;
+  while (count < n_iter) {
+    count += check_every;
+    if (!(0.f > tol)) break;
+  }
+  return count;
+}
+
+// One warp's solve of pair (q, n) on its loaded slot.
+template <int KC, int LC, bool BF16, bool ROWS_SMEM>
+__device__ __forceinline__ void warp_solve(
+    float* __restrict__ slot, float* __restrict__ us, float* __restrict__ ub,
+    float* __restrict__ ws, float* __restrict__ wb,
+    const float* __restrict__ val, const float* __restrict__ r,
+    const float* __restrict__ resmask, float* __restrict__ wmd,
+    int* __restrict__ iters, int q, int n, int VR, int N, int L, int n_iter,
+    float lam, int log_domain, int block_n, float tol, int check_every) {
+  using T = WarpTile<KC, LC, ROWS_SMEM>;
+  constexpr int KM = T::KM, LM = T::LM, LS = T::LS;
+  const int lane = threadIdx.x & 31;
+  const float4* slot4 = reinterpret_cast<const float4*>(slot);
+
+  float vl[LC], sh[LC];
+#pragma unroll
+  for (int c = 0; c < LC; ++c) {
+    const int l = lane + 32 * c;
+    vl[c] = l < L ? val[(size_t)n * L + l] : 0.f;
+    sh[c] = 0.f;
+  }
+  float ri[KC];
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    const int k = lane + 32 * c;
+    ri[c] = k < VR ? safe_inv(r[(size_t)q * VR + k]) : 0.f;
+  }
+
+  if (log_domain) {            // shift per column, exponentiate once
+#pragma unroll
+    for (int c = 0; c < LC; ++c) {
+      const int l = lane + 32 * c;
+      float m = -INFINITY;
+      for (int k = 0; k < VR; ++k) m = fmaxf(m, slot[k * LS + l]);
+      sh[c] = (l < L && isfinite(m)) ? m : 0.f;
+      for (int k = 0; k < VR; ++k) {
+        const float v = slot[k * LS + l];
+        slot[k * LS + l] = (l < L && isfinite(v)) ? expf(v - sh[c]) : 0.f;
+      }
+    }
+    __syncwarp();
+  }
+
+  float col[LC][KM];
+#pragma unroll
+  for (int c = 0; c < LC; ++c)
+#pragma unroll
+    for (int k = 0; k < KM; ++k) col[c][k] = slot[k * LS + lane + 32 * c];
+  constexpr int RK = ROWS_SMEM ? 1 : KC, RL = ROWS_SMEM ? 4 : LM;
+  float row[RK][RL];
+  bool rlive[KC];
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    const int k = lane + 32 * c;
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < LM / 4; ++j) {
+      const float4 v = slot4[(k * LS) / 4 + j];
+      any = any || v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+      if constexpr (!ROWS_SMEM) {
+        row[c][4 * j + 0] = v.x;
+        row[c][4 * j + 1] = v.y;
+        row[c][4 * j + 2] = v.z;
+        row[c][4 * j + 3] = v.w;
+      }
+    }
+    rlive[c] = any;
+  }
+  const unsigned rb0 = __ballot_sync(0xffffffffu, rlive[0]);
+  const unsigned rb1 = KC > 1 ? __ballot_sync(0xffffffffu, rlive[KC - 1])
+                              : 0u;
+  const unsigned sb0 = __ballot_sync(0xffffffffu, vl[0] > 0.f);
+  const unsigned sb1 = LC > 1 ? __ballot_sync(0xffffffffu, vl[LC - 1] > 0.f)
+                              : 0u;
+  const int cnt = __popc(rb0) + __popc(rb1);
+  const int kq = ((rb1 ? 64 - __clz(rb1) : 32 - __clz(rb0)) + 3) >> 2;
+  const int lq = ((sb1 ? 64 - __clz(sb1) : 32 - __clz(sb0)) + 3) >> 2;
+
+  float uk[KC];
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    const int k = lane + 32 * c;
+    uk[c] = rlive[c] ? safe_inv(1.f / (float)cnt) : 0.f;
+    us[k] = uk[c];
+    if constexpr (BF16) ub[k] = rnd<BF16>(uk[c]);
+  }
+  if constexpr (BF16) {       // the operands: round(G), round(G/r)
+#pragma unroll
+    for (int c = 0; c < LC; ++c)
+#pragma unroll
+      for (int k = 0; k < KM; ++k) col[c][k] = rnd<BF16>(col[c][k]);
+    if constexpr (!ROWS_SMEM) {
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+#pragma unroll
+        for (int l = 0; l < LM; ++l) row[c][l] = rnd<BF16>(row[c][l] * ri[c]);
+    }
+  }
+  const bool doc_in_scope =
+      resmask == nullptr || resmask[(size_t)q * N + n] > 0.f;
+  bool in_scope[LC];
+#pragma unroll
+  for (int c = 0; c < LC; ++c) in_scope[c] = doc_in_scope && vl[c] > 0.f;
+  __syncwarp();
+
+  float wcur[LC], wprev[LC];
+#pragma unroll
+  for (int c = 0; c < LC; ++c) wprev[c] = 0.f;
+  int end = check_every > 0 ? INT_MAX : n_iter, next = 1;
+  for (int done = 0;; ++done) {
+    {                                                       // SDDMM
+      const float4* u4 = reinterpret_cast<const float4*>(BF16 ? ub : us);
+      float t[LC][2];
+#pragma unroll
+      for (int c = 0; c < LC; ++c) t[c][0] = t[c][1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < KM / 4; ++i) {
+        if (i < kq) {
+          const float4 u = u4[i];
+#pragma unroll
+          for (int c = 0; c < LC; ++c) {
+            float& a = t[c][i & 1];
+            a = fmaf(col[c][4 * i + 0], u.x, a);
+            a = fmaf(col[c][4 * i + 1], u.y, a);
+            a = fmaf(col[c][4 * i + 2], u.z, a);
+            a = fmaf(col[c][4 * i + 3], u.w, a);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < LC; ++c) {
+        const float tt = t[c][0] + t[c][1];
+        const float inv = log_domain ? safe_inv(tt) : 1.f / tt;
+        wcur[c] = vl[c] > 0.f ? vl[c] * inv : 0.f;
+        ws[lane + 32 * c] = wcur[c];
+        if constexpr (BF16) wb[lane + 32 * c] = rnd<BF16>(wcur[c]);
+      }
+    }
+    __syncwarp();
+    if (done >= end) break;         // last pass: u and w for the distance
+    {                                                       // SpMM
+      const float4* w4 = reinterpret_cast<const float4*>(BF16 ? wb : ws);
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const int k = lane + 32 * c;
+        float x[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < LM / 4; ++j) {
+          if (j < lq) {
+            const float4 w = w4[j];
+            float4 gv;
+            if constexpr (ROWS_SMEM) {
+              gv = slot4[(k * LS) / 4 + j];
+              if constexpr (BF16) {
+                gv.x = rnd<BF16>(gv.x * ri[c]);
+                gv.y = rnd<BF16>(gv.y * ri[c]);
+                gv.z = rnd<BF16>(gv.z * ri[c]);
+                gv.w = rnd<BF16>(gv.w * ri[c]);
+              }
+            } else {
+              gv = make_float4(row[c][4 * j], row[c][4 * j + 1],
+                               row[c][4 * j + 2], row[c][4 * j + 3]);
+            }
+            float& a = x[j & 1];
+            a = fmaf(gv.x, w.x, a);
+            a = fmaf(gv.y, w.y, a);
+            a = fmaf(gv.z, w.z, a);
+            a = fmaf(gv.w, w.w, a);
+          }
+        }
+        float xx = x[0] + x[1];
+        if constexpr (!BF16) xx *= ri[c];
+        uk[c] = k < VR ? safe_inv(xx) : 0.f;
+        us[k] = uk[c];
+        if constexpr (BF16) ub[k] = rnd<BF16>(uk[c]);
+      }
+    }
+    __syncwarp();
+    if (check_every > 0 && done + 1 == next) {              // decide
+      float diff = 0.f, scale = 0.f;
+#pragma unroll
+      for (int c = 0; c < LC; ++c) {
+        if (in_scope[c]) {
+          diff = nanmax(diff, fabsf(wcur[c] - wprev[c]));
+          scale = nanmax(scale, fabsf(wcur[c]));
+        }
+        wprev[c] = wcur[c];
+      }
+      bool conv = false;
+      if (done > 0) {
+        for (int off = 16; off > 0; off >>= 1) {
+          diff = nanmax(diff, __shfl_xor_sync(0xffffffffu, diff, off));
+          scale = nanmax(scale, __shfl_xor_sync(0xffffffffu, scale, off));
+        }
+        conv = !(diff / fmaxf(scale, 1e-30f) > tol);
+      }
+      if (conv || done + 1 >= n_iter) {
+        end = done + 1;
+      } else {
+        next = done + 1 + check_every;
+      }
+    }
+  }
+
+  // distance line on the rows: u[k] sum_l GM[k,l] w[l]
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  float part = 0.f;
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    const int k = lane + 32 * c;
+    if (k < VR) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < LM / 4; ++j) {
+        if (j < lq) {
+          const float4 w = w4[j];
+          float4 gv;
+          if constexpr (BF16 || ROWS_SMEM) {
+            gv = slot4[(k * LS) / 4 + j];
+          } else {
+            gv = make_float4(row[c][4 * j], row[c][4 * j + 1],
+                             row[c][4 * j + 2], row[c][4 * j + 3]);
+          }
+          s = fmaf(gm_of(gv.x, lam), w.x, s);
+          s = fmaf(gm_of(gv.y, lam), w.y, s);
+          s = fmaf(gm_of(gv.z, lam), w.z, s);
+          s = fmaf(gm_of(gv.w, lam), w.w, s);
+        }
+      }
+      part = fmaf(uk[c], s, part);
+    }
+  }
+  float corr = 0.f;
+#pragma unroll
+  for (int c = 0; c < LC; ++c) corr = fmaf(sh[c], vl[c], corr);
+  for (int off = 16; off > 0; off >>= 1) {
+    part += __shfl_down_sync(0xffffffffu, part, off);
+    corr += __shfl_down_sync(0xffffffffu, corr, off);
+  }
+  if (lane == 0) {
+    wmd[(size_t)q * N + n] = log_domain ? part - corr / lam : part;
+    if (iters != nullptr)
+      atomicMax(iters + (size_t)q * ((N + block_n - 1) / block_n) +
+                    n / block_n,
+                end);
+  }
+}
+
+template <int KC, int LC, bool BF16, bool ROWS_SMEM>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+sinkhorn_fused_warp_kernel(const float* __restrict__ g,
+                           const float* __restrict__ val,
+                           const float* __restrict__ r,
+                           const float* __restrict__ resmask,
+                           float* __restrict__ wmd, int* __restrict__ iters,
+                           int Q, int VR, int N, int L, int n_iter, float lam,
+                           int log_domain, int block_n, float tol,
+                           int check_every, int vec4) {
+  using T = WarpTile<KC, LC, ROWS_SMEM>;
+  constexpr int NSLOT = T::NSLOT, LS = T::LS;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  float* base = smem + (threadIdx.x >> 5) * T::FLOATS;
+  float* us = base + NSLOT * T::SLOT;
+  float* ub = us + T::KM;
+  float* ws = ub + T::KM;
+  float* wb = ws + T::LM;
+  for (int i = lane; i < NSLOT * T::SLOT; i += 32) base[i] = 0.f;
+  __syncwarp();                  // pad rows and slots stay zero from here
+
+  const int total = Q * N;
+  const int warps = gridDim.x * kWarpsPerBlock;
+  const size_t nl = (size_t)N * L;
+  // the tile's copies: cpr per row (16-byte, or 4-byte), row k = c / cpr
+  const int cpr = vec4 ? L / 4 : L;
+  const int n_copies = VR * cpr;
+  const unsigned long long magic = ((1ull << 32) + cpr - 1) / cpr;
+  const int idle = inert_count(n_iter, tol, check_every);
+
+  auto doc_live = [&](int p) -> bool {
+    const int n = p % N;
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < LC; ++c) {
+      const int l = lane + 32 * c;
+      any = any || (l < L && val[(size_t)n * L + l] != 0.f);
+    }
+    return __any_sync(0xffffffffu, any);
+  };
+  auto load = [&](int p, float* slot) {
+    const int q = p / N, n = p - q * N;
+    const float* gq = g + (size_t)q * VR * nl + (size_t)n * L;
+    for (int c = lane; c < n_copies; c += 32) {
+      const int k = (int)(((unsigned long long)c * magic) >> 32);
+      const int j = c - k * cpr;
+      if (vec4) {
+        async_copy::copy16(slot + k * LS + 4 * j, gq + k * nl + 4 * j);
+      } else {
+        async_copy::copy4(slot + k * LS + j, gq + k * nl + j);
+      }
+    }
+  };
+
+  int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  int s = 0;
+  bool live = p < total && doc_live(p);
+  if (live) load(p, base);
+  async_copy::commit();
+  for (; p < total; p += warps) {
+    const int pn = p + warps;
+    bool live_n = false;
+    if constexpr (NSLOT == 2) {     // the next pair's tile, other slot
+      live_n = pn < total && doc_live(pn);
+      if (live_n) load(pn, base + (s ^ 1) * T::SLOT);
+      async_copy::commit();
+      async_copy::wait<1>();
+    } else {
+      async_copy::wait<0>();
+    }
+    __syncwarp();
+    const int q = p / N, n = p - q * N;
+    if (live) {
+      warp_solve<KC, LC, BF16, ROWS_SMEM>(
+          base + s * T::SLOT, us, ub, ws, wb, val, r, resmask, wmd, iters, q,
+          n, VR, N, L, n_iter, lam, log_domain, block_n, tol, check_every);
+    } else if (lane == 0) {
+      wmd[(size_t)q * N + n] = 0.f;
+      if (iters != nullptr)
+        atomicMax(iters + (size_t)q * ((N + block_n - 1) / block_n) +
+                      n / block_n,
+                  idle);
+    }
+    __syncwarp();                   // the slot is free for the next copy
+    if constexpr (NSLOT == 1) {
+      live_n = pn < total && doc_live(pn);
+      if (live_n) load(pn, base);
+      async_copy::commit();
+    } else {
+      s ^= 1;
+    }
+    live = live_n;
+  }
+  async_copy::wait<0>();
+}
+
 struct Args {
   const float *g, *val, *r, *resmask;
   float* wmd;
@@ -652,6 +1064,63 @@ struct Args {
   float tol;
   int check_every;
 };
+
+bool fits_warp(int VR, int L) { return VR <= 64 && L <= 64; }
+
+template <int KC, int LC, bool ROWS_SMEM>
+constexpr long long warp_smem_bytes() {
+  return (long long)sizeof(float) * kWarpsPerBlock *
+         WarpTile<KC, LC, ROWS_SMEM>::FLOATS;
+}
+
+long long warp_smem_bytes(int VR, int L) {
+  const bool k2 = VR > 32, l2 = L > 32;
+  if (k2 && l2) return warp_smem_bytes<2, 2, true>();
+  if (k2) return warp_smem_bytes<2, 1, false>();
+  if (l2) return warp_smem_bytes<1, 2, false>();
+  return warp_smem_bytes<1, 1, false>();
+}
+
+template <int KC, int LC, bool BF16, bool ROWS_SMEM>
+cudaError_t launch_warp(const Args& a, cudaStream_t stream) {
+  auto kernel = sinkhorn_fused_warp_kernel<KC, LC, BF16, ROWS_SMEM>;
+  constexpr int smem = (int)warp_smem_bytes<KC, LC, ROWS_SMEM>();
+  constexpr int threads = 32 * kWarpsPerBlock;
+  static long long room = 0;     // resident blocks on the card, asked once
+  if (room == 0) {
+    int per_sm = 0, dev = 0, sms = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+    room = (long long)per_sm * sms;
+  }
+  const long long pairs = (long long)a.Q * a.N;
+  const long long need = (pairs + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int blocks = (int)(need < room ? need : room);
+  const int vec4 = a.L % 4 == 0 &&
+                   reinterpret_cast<unsigned long long>(a.g) % 16 == 0;
+  kernel<<<blocks, threads, smem, stream>>>(
+      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.Q, a.VR, a.N, a.L,
+      a.n_iter, a.lam, a.log_domain, a.block_n, a.tol, a.check_every, vec4);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_warp_class(const Args& a, cudaStream_t s) {
+  const bool k2 = a.VR > 32, l2 = a.L > 32;
+  if (k2 && l2) return launch_warp<2, 2, BF16, true>(a, s);
+  if (k2) return launch_warp<2, 1, BF16, false>(a, s);
+  if (l2) return launch_warp<1, 2, BF16, false>(a, s);
+  return launch_warp<1, 1, BF16, false>(a, s);
+}
 
 template <int KM, int LM, bool BF16>
 cudaError_t launch_reg(const Args& a, cudaStream_t stream) {
@@ -677,19 +1146,33 @@ long long global_smem_bytes(int VR, int L) {
          (3LL * VR + 4LL * L + 2 * kGThreads / 32);
 }
 
-// Variant: 0 picks the register-resident kernel when the tile fits it,
-// else the shared-memory one when the tile fits the per-block limit, else
-// the one that reads G from device memory; 1 asks for the
+// Variant: 0 ("auto") picks the warp-per-tile kernel when the tile fits
+// 64 x 64, else the shared-memory one when the tile fits the per-block
+// limit, else the one that reads G from device memory; 1 asks for the
 // register-resident kernel (the tile must fit 64 x 64), 2 for the
-// shared-memory one, 3 for the device-memory one.
-bool use_registers(int VR, int L, int variant) {
-  return variant == 1 || (variant == 0 && fits_registers(VR, L));
+// shared-memory one, 3 for the device-memory one, 4 for the warp-per-tile
+// one (the tile must fit 64 x 64).
+bool use_warp(int VR, int L, int variant) {
+  return variant == 4 || (variant == 0 && fits_warp(VR, L));
 }
+
+bool use_registers(int VR, int L, int variant) {
+  return variant == 1 || (variant == 0 && !use_warp(VR, L, variant) &&
+                          fits_registers(VR, L));
+}
+
+// The shared-memory variant's block shares its SM with a second one up to
+// this size (the SM's 228 KB, 1 KB reserved per block). Past it the block
+// runs alone, and the device-memory variant is the faster one: on an H100
+// at 700 W the shared one wins up to 160 x 160 tiles (107 KB, two blocks
+// per SM) and loses at 192 x 192 (154 KB; chip_smoke.py phase
+// k1_crossover, PERF.md).
+constexpr long long kTwoBlockSmem = 115712;
 
 bool use_global(int VR, int L, int variant) {
   return variant == 3 ||
-         (variant == 0 && !fits_registers(VR, L) &&
-          smem_bytes(VR, L) > kMaxSmem);
+         (variant == 0 && !fits_warp(VR, L) && !fits_registers(VR, L) &&
+          smem_bytes(VR, L) > kTwoBlockSmem);
 }
 
 template <typename K>
@@ -707,6 +1190,7 @@ cudaError_t launch_dyn(K kernel, int threads, size_t smem, const Args& a,
 
 template <bool BF16>
 cudaError_t launch(const Args& a, int variant, cudaStream_t s) {
+  if (use_warp(a.VR, a.L, variant)) return launch_warp_class<BF16>(a, s);
   if (use_registers(a.VR, a.L, variant)) {
     const bool k32 = a.VR <= 32, l32 = a.L <= 32;
     if (k32 && l32) return launch_reg<32, 32, BF16>(a, s);
@@ -727,6 +1211,7 @@ cudaError_t launch(const Args& a, int variant, cudaStream_t s) {
 // the register-resident one, whose shared memory is static). The wrapper
 // refuses shapes above the card's per-block limit before launching.
 extern "C" long long sinkhorn_fused_smem_bytes(int VR, int L, int variant) {
+  if (use_warp(VR, L, variant)) return warp_smem_bytes(VR, L);
   if (use_registers(VR, L, variant)) return 0;
   return use_global(VR, L, variant) ? global_smem_bytes(VR, L)
                                     : smem_bytes(VR, L);
@@ -744,7 +1229,8 @@ extern "C" int sinkhorn_fused_batched_launch(
     float lam, int log_domain, int block_n, float tol, int check_every,
     int bf16, int variant, void* stream) {
   if (Q == 0 || N == 0) return 0;
-  if (variant == 1 && !fits_registers(VR, L))
+  if ((variant == 1 && !fits_registers(VR, L)) ||
+      (variant == 4 && !fits_warp(VR, L)) || (long long)Q * N >= (1 << 30))
     return (int)cudaErrorInvalidValue;
   const Args a{g,  val, r,      resmask,    wmd,     iters, Q,
                VR, N,   L,      n_iter,     lam,     log_domain,

@@ -4,9 +4,10 @@ path :func:`sinkhorn_wmd_kernel` built from them.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch (the kernels allocate nothing), launches on the current
 CUDA stream, raises if the launch failed, and adds one to its
-``launches`` counter for each kernel launch (``rwmd_min_cdist`` and
-``rwmd_min_cdist_subset`` launch once per 128 support rows, the others
-once per call; ``bsr_sddmm`` counts its launch under
+``launches`` counter for each kernel launch (``rwmd_min_cdist_subset``
+and the per-query ``rwmd_min_cdist`` launch once per 128 support rows,
+the stacked ``rwmd_min_cdist`` once per 64 queries, the others once per
+call; ``bsr_sddmm`` counts its launch under
 ``bsr_sddmm_blocks``). A tensor on the CPU goes to the plain version in
 :mod:`.ref` instead (and does not count); a CUDA tensor always launches
 the kernel — there is no fallback.
@@ -21,9 +22,12 @@ from . import ref
 
 # per-block dynamic shared memory limit of the H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
-# support rows per rwmd_min_cdist launch (kMaxB in rwmd_min_cdist.cu); a
-# wider query runs as one launch per chunk
+# support rows per launch of the per-query K2 and of K2s (kMaxB in
+# rwmd_min_cdist.cu); a wider query runs as one launch per chunk
 RWMD_SUPPORT_CHUNK = 128
+# queries per launch of the stacked K2 (kStMaxQ in rwmd_min_cdist.cu); more
+# queries run as one launch per slice
+RWMD_STACKED_MAX_Q = 64
 
 _LIB = None
 
@@ -74,11 +78,19 @@ def _rwmd_checks(a, mask, b) -> None:
 
 
 def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
-                   vocab_ids: torch.Tensor | None = None) -> torch.Tensor:
+                   vocab_ids: torch.Tensor | None = None,
+                   design: str = "stacked") -> torch.Tensor:
     """Masked min-over-support cdist (the RWMD prune stage).
     a (Q, B, w), mask (Q, B), b (V, w) -> minM (Q, V); all-masked rows
-    come out +inf. On the card, B > 128 runs as one launch per 128-row
-    chunk, each folding its min into the output.
+    come out +inf.
+
+    ``design`` picks the kernel on the card: ``"stacked"`` (one launch per
+    RWMD_STACKED_MAX_Q queries; a block per vocabulary tile serves every
+    live row of its queries, so b is read once per launch) or
+    ``"per_query"`` (the earlier design, kept for timing the two side by
+    side: a block per (vocabulary tile, query), one launch per 128 support
+    rows, each folding its min into the output). Both compute the same
+    function.
 
     ``vocab_ids`` (Vc,) int64 switches to K2s
     (:func:`rwmd_min_cdist_subset`): only those rows of b, and the result
@@ -86,16 +98,21 @@ def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
     if vocab_ids is not None:
         return rwmd_min_cdist_subset(a, mask, b, vocab_ids)
     _rwmd_checks(a, mask, b)
+    if design not in ("stacked", "per_query"):
+        raise ValueError(f"design must be 'stacked' or 'per_query', got "
+                         f"{design!r}")
+    q, bq, w = a.shape
     dev = a.device
     if dev.type == "cpu":
         return ref.rwmd_min_cdist_ref(a, mask, b)
-    q, bq, w = a.shape
+    stacked = design == "stacked"
     v = b.shape[0]
     out = torch.empty((q, v), dtype=torch.float32, device=dev)
     _raise_on(_lib().rwmd_min_cdist_launch(
-        _ptr(a), _ptr(mask), _ptr(b), _ptr(out), q, bq, w, v,
+        _ptr(a), _ptr(mask), _ptr(b), _ptr(out), q, bq, w, v, int(stacked),
         _stream(dev)), "rwmd_min_cdist")
-    rwmd_min_cdist.launches += -(-bq // RWMD_SUPPORT_CHUNK)
+    rwmd_min_cdist.launches += (-(-q // RWMD_STACKED_MAX_Q) if stacked
+                                else -(-bq // RWMD_SUPPORT_CHUNK))
     return out
 
 
@@ -326,14 +343,16 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
     ``tol``. ``gemm="bf16"`` rounds the operands of both reductions to
     bf16, with fp32 products and sums.
 
-    ``tile`` picks the kernel's variant on the card: ``"registers"`` (the
-    (v_r, L) tile in registers, up to 64 x 64), ``"shared"`` (in shared
-    memory, up to the per-block limit), ``"global"`` (G read from device
-    memory at every pass, any size) or ``"auto"`` (registers where the
-    tile fits, else shared memory where it fits, else global). All three
-    compute the same function; the engine always passes ``"auto"``, and
-    the others let tests and ``chip_smoke.py`` hold and time the variants
-    against each other at one shape.
+    ``tile`` picks the kernel's variant on the card: ``"warp"`` (one warp
+    per (query, doc) tile, asynchronous tile loads, inert docs skipped, up
+    to 64 x 64), ``"registers"`` (a block per tile, the tile in
+    registers, up to 64 x 64), ``"shared"`` (in shared memory, up to the
+    per-block limit), ``"global"`` (G read from device memory at every
+    pass, any size) or ``"auto"`` (warp where the tile fits, else shared
+    memory where it fits, else global). All compute the same function;
+    the engine always passes ``"auto"``, and the others let tests and
+    ``chip_smoke.py`` hold and time the variants against each other at
+    one shape.
     """
     dev = g.device
     _check("g", g, 4, torch.float32, dev)
@@ -349,8 +368,8 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
     if tile not in _TILES:
         raise ValueError(f"tile must be one of {sorted(_TILES)}, got "
                          f"{tile!r}")
-    if tile == "registers" and max(v_r, length) > 64:
-        raise ValueError(f"tile='registers' holds at most 64 x 64, got "
+    if tile in ("registers", "warp") and max(v_r, length) > 64:
+        raise ValueError(f"tile={tile!r} holds at most 64 x 64, got "
                          f"v_r={v_r}, L={length}")
     rm = _solver_options(tol, check_every, gemm, resmask, (q, n), dev)
     if dev.type == "cpu":
@@ -358,6 +377,8 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
             g, val, r, lam, n_iter, log_domain=log_domain, block_n=block_n,
             tol=tol, check_every=check_every, resmask=rm, gemm=gemm)
         return (wmd, iters) if with_iters else wmd
+    if q * n >= 2 ** 30:
+        raise ValueError(f"Q * N must be below 2**30, got {q} * {n}")
     wmd, iters = _solve_launch(
         sinkhorn_fused_all_batched, g, val, r, rm, lam, n_iter, block_n,
         tol, check_every, gemm, log_domain, tile, q, v_r, n, length,
@@ -366,7 +387,7 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
 
 
 sinkhorn_fused_all_batched.launches = 0
-_TILES = {"auto": 0, "registers": 1, "shared": 2, "global": 3}
+_TILES = {"auto": 0, "registers": 1, "shared": 2, "global": 3, "warp": 4}
 
 
 def sinkhorn_wmd_kernel(r: torch.Tensor, vecs_sel: torch.Tensor,

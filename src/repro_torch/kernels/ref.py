@@ -172,6 +172,25 @@ def sinkhorn_fused_all_batched_ref(g: torch.Tensor, val: torch.Tensor,
     return wmd, block_iters(counts, block_n)
 
 
+def inert_doc_iters(n_iter: int, tol=None, check_every: int = 4) -> int:
+    """The realized count of an inert doc, one whose ``val`` row has no
+    entry > 0, in :func:`sinkhorn_fused_all_batched_ref`: ``n_iter`` in
+    fixed mode. In adaptive mode its scope is empty, so its ratio is 0 at
+    every check: it stops at the first check after the seed, 1 +
+    ``check_every`` (which may pass ``n_iter``), unless ``tol`` < 0 keeps
+    it to the cap. Its distance is 0. K1's warp design skips the solve of
+    a doc whose val row is all zero and writes these two values
+    (``csrc/sinkhorn_fused.cu``)."""
+    if tol is None:
+        return n_iter
+    count = 1
+    while count < n_iter:
+        count += check_every
+        if not 0.0 > float(tol):
+            break
+    return count
+
+
 def block_iters(counts: torch.Tensor, block_n: int) -> torch.Tensor:
     """(Q, N) per-doc realized counts -> (Q, ceil(N / block_n)), each
     block's largest."""

@@ -513,6 +513,46 @@ def test_p3_gap_is_the_exit_granularity(dedup_indexes, dedup):
         "rtol"]
 
 
+def test_r7_log_domain_zero_padding_witness(small_indexes, small_corpus):
+    """ROADMAP queue 3, R7: the reference's K1 wrapper pads the slot axis
+    with 0, a valid log K, so in the log domain the bucket's pad query row
+    (-inf elsewhere) gets exp(0 - 0) = 1 at the pad slots and counts as
+    live in x0. Sinkhorn is scale-invariant, bf16 operand rounding is not.
+    The port keeps pad rows inert: its K1 twin equals the reference's
+    _solve_block on the tile as staged (6.2e-8) and padded with -inf, and
+    differs from it padded with 0 (1.55e-4). The kernel impl's bf16+log
+    engine is held to the reference's at R2 (5.3e-4); its realized counts
+    are not compared."""
+    from repro.kernels import sddmm_spmm as ref_sddmm
+    ref_index, index = small_indexes
+    eng = WmdEngine(index, lam=1.0, n_iter=15, precision="bf16+log")
+    grp = index.groups[0]
+    g, r, _ = _staged_g(eng, list(small_corpus.queries[:1]), grp)
+    g, r, val = g[0], r[0], grp.docs.val
+    assert not torch.isfinite(g[-1]).any()         # a bucket pad row
+    port = ops.sinkhorn_fused_all(g, val, r, 1.0, 15, gemm="bf16",
+                                  log_domain=True).numpy()
+
+    def reference(pad, fill):
+        gp = torch.nn.functional.pad(g, (0, pad), value=fill)
+        vp = torch.nn.functional.pad(val, (0, pad))
+        wmd, _ = ref_sddmm._solve_block(
+            jnp.asarray(gp.numpy()), jnp.asarray(vp.numpy()),
+            jnp.asarray(r.numpy())[:, None], 15, 1.0, gemm="bf16",
+            log_domain=True)
+        return np.abs(np.asarray(wmd) - port) / np.abs(port)
+
+    pad = 128 - g.shape[2]                         # ops.py pads L to 128
+    assert reference(0, 0.0).max() <= 1e-6
+    assert reference(pad, -np.inf).max() <= 1e-6
+    assert reference(pad, 0.0).max() > 1e-5
+    qs = list(small_corpus.queries)
+    got = eng.query_batch(qs).numpy()
+    want = np.asarray(RefEngine(ref_index, lam=1.0, n_iter=15, impl="kernel",
+                                precision="bf16+log").query_batch(qs))
+    np.testing.assert_allclose(got, want, **R2)
+
+
 def test_engine_kernel_impl_adaptive():
     """tol=0 at n_iter = 1 + 3*check_every runs to the cap and matches
     the reference's fixed sparse engine (the reference test's 5e-4)."""

@@ -20,7 +20,8 @@ def _card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [8, 24, 48, 100, 200])
 def test_rwmd_min_cdist_matches_plain(rng, b):
-    """b=200 runs as two launches (128 + 72 support rows)."""
+    """The default (stacked) design: one launch at any b; b=200 stacks
+    more live rows than one group of 128."""
     dev = _card()
     q, w, v = 4, 300, 5000
     a = torch.tensor(rng.standard_normal((q, b, w)), dtype=torch.float32,
@@ -34,7 +35,7 @@ def test_rwmd_min_cdist_matches_plain(rng, b):
     before = ops.rwmd_min_cdist.launches
     got = ops.rwmd_min_cdist(a, mask, vocab)
     torch.cuda.synchronize()
-    assert ops.rwmd_min_cdist.launches == before + -(-b // 128)
+    assert ops.rwmd_min_cdist.launches == before + 1     # stacked: one
     want = ref.rwmd_min_cdist_ref(a, mask, vocab)
     assert torch.isinf(got[-1]).all()
     fin = torch.isfinite(want)
@@ -512,3 +513,113 @@ def test_einsum_engine_and_kcache_on_card():
             np.testing.assert_array_equal(off.query_batch(qs).numpy(),
                                           on.query_batch(qs).numpy())
         assert on.kcache_stats()["hits"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["stacked", "per_query"])
+@pytest.mark.parametrize("q,b,v,w", [(4, 19, 5003, 300), (4, 24, 5003, 300),
+                                     (2, 200, 5003, 300),
+                                     (16, 48, 3000, 300), (3, 24, 1000, 61),
+                                     (65, 19, 5003, 300),
+                                     (130, 24, 3000, 300)])
+def test_rwmd_min_cdist_designs_match_plain(rng, design, q, b, v, w):
+    """K2's two designs: live rows that straddle queries (b of 19 and 24
+    put two queries' rows in one 8-row group), an all-masked query, more
+    live rows than one stacked group (b = 200), a ragged V, w = 61 (not a
+    multiple of 4: the stacked kernel's 4-byte copies), and more queries
+    than one stacked launch holds (65 and 130: a launch per 64). The query
+    words are vocabulary rows, so exact matches (d ~ 0) occur: held in
+    squared distance at chip_smoke.py's K2_SQ_RTOL."""
+    dev = _card()
+    vocab = torch.tensor(rng.standard_normal((v, w)), dtype=torch.float32,
+                         device=dev)
+    sup = torch.as_tensor(rng.choice(v, (q, b)), device=dev)
+    a = vocab[sup].contiguous()
+    mask = torch.tensor(rng.random((q, b)) > 0.25, dtype=torch.float32,
+                        device=dev)
+    mask[:, 0] = 1.0
+    mask[1] = 0.0                             # an all-masked query
+    before = ops.rwmd_min_cdist.launches
+    got = ops.rwmd_min_cdist(a, mask, vocab, design=design)
+    torch.cuda.synchronize()
+    n_launch = -(-q // 64) if design == "stacked" else -(-b // 128)
+    assert ops.rwmd_min_cdist.launches == before + n_launch
+    want = ref.rwmd_min_cdist_ref(a, mask, vocab)
+    assert torch.isinf(got[1]).all()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    a2 = torch.where(mask > 0, (a * a).sum(-1), torch.zeros_like(mask))
+    scale = a2.max(dim=1).values[:, None] + (vocab * vocab).sum(-1)[None]
+    err = (got * got - want * want).abs()
+    assert (err[fin] <= 1e-5 * scale[fin]).all()
+
+
+def _euclid_inputs(rng, dev, q, v_r, n, length, lam, log_domain, w=16):
+    """As :func:`_cost_inputs`, with the distances from one product (the
+    tiles up to 64 x 64 would not fit the broadcast)."""
+    a = rng.standard_normal((q, v_r, w))
+    b = rng.standard_normal((n, length, w))
+    d2 = ((a * a).sum(-1)[:, :, None, None] + (b * b).sum(-1)[None, None]
+          - 2.0 * np.einsum("qkw,nlw->qknl", a, b))
+    m = np.sqrt(np.maximum(d2, 0.0))
+    g = (-lam * m) if log_domain else np.exp(-lam * m)
+    r = np.ones((q, v_r))
+    for qi, nr in enumerate([v_r, v_r - 5, v_r // 2][:q]):
+        g[qi, nr:] = -np.inf if log_domain else 0.0
+        r[qi, :nr] = rng.uniform(0.1, 1.0, nr)
+        r[qi, :nr] /= r[qi, :nr].sum()
+    val = np.where(rng.random((n, length)) > 0.4, rng.random((n, length)),
+                   0.0)
+    val[:, 0] = np.maximum(val[:, 0], 0.05)
+    val[::3] = 0.0                            # a third of the docs inert
+    val /= np.maximum(val.sum(1, keepdims=True), 1e-9)
+    return tuple(torch.tensor(x, dtype=torch.float32, device=dev)
+                 for x in (g, val, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gemm", ["fp32", "bf16"])
+@pytest.mark.parametrize("log_domain", [False, True])
+@pytest.mark.parametrize("v_r,length", [(24, 28), (32, 32), (48, 48),
+                                        (64, 64), (40, 13)])
+def test_sinkhorn_fused_warp_matches_plain(rng, gemm, log_domain, v_r,
+                                           length):
+    """K1's warp-per-tile design (tile="warp", and "auto"): N = 701, not a
+    multiple of the docs a block holds; a third of the docs inert (their
+    solve is skipped: distance 0, the count of ref.inert_doc_iters);
+    fixed and adaptive with a resmask, fp32 and bf16, linear and log,
+    against the plain version (ref.hold_solve); fixed-mode counts equal.
+    L = 13 takes the 4-byte copies."""
+    dev = _card()
+    q, n, lam = 3, 701, 1.0
+    g, val, r = _euclid_inputs(rng, dev, q, v_r, n, length, lam, log_domain)
+    rm = torch.ones((q, n), device=dev)
+    rm[1, 1::2] = 0.0
+    for opts in (dict(), dict(tol=1e-2, check_every=2, resmask=rm),
+                 dict(tol=3e-2, check_every=3)):
+        want_idle = ref.inert_doc_iters(30, opts.get("tol"),
+                                        opts.get("check_every", 4))
+        for tile in ("warp", "auto"):
+            got, iters = ops.sinkhorn_fused_all_batched(
+                g, val, r, lam, 30, log_domain=log_domain, gemm=gemm,
+                with_iters=True, tile=tile, block_n=64, **opts)
+            torch.cuda.synchronize()
+            ref.hold_solve(got, iters, g, val, r, lam, 30, 1e-4, 1e-4,
+                           block_n=64, log_domain=log_domain, gemm=gemm,
+                           **opts)
+            assert (got[:, ::3] == 0).all()
+            if not opts:
+                assert (iters == 30).all()
+            one, it1 = ops.sinkhorn_fused_all_batched(
+                g, val, r, lam, 30, log_domain=log_domain, gemm=gemm,
+                with_iters=True, tile=tile, block_n=1, **opts)
+            assert (it1[:, ::3] == want_idle).all()
+            assert torch.equal(one, got)
+
+
+@pytest.mark.gpu
+def test_sinkhorn_fused_warp_refuses_wide_tiles(rng):
+    dev = _card()
+    g, val, r = _euclid_inputs(rng, dev, 1, 65, 8, 16, 1.0, False)
+    with pytest.raises(ValueError, match="64 x 64"):
+        ops.sinkhorn_fused_all_batched(g, val, r, 1.0, 5, tile="warp")

@@ -115,6 +115,45 @@ def test_sinkhorn_fused_plain_matches_pallas(rng, log_domain):
     assert np.all(got.numpy()[:, -20:] == 0.0)        # pad docs are inert
 
 
+@pytest.mark.parametrize("log_domain", [False, True])
+@pytest.mark.parametrize("opts", [
+    dict(), dict(tol=1e-2, check_every=2), dict(tol=1e-2, check_every=3,
+                                                resmask=True),
+    dict(tol=-1.0, check_every=4), dict(tol=1e-2, check_every=8)],
+    ids=["fixed", "adaptive", "resmask", "tol_below_0", "check_past_cap"])
+def test_inert_docs_give_zero_and_the_schedule_count(rng, log_domain, opts):
+    """The contract K1 keeps when it skips an inert doc's solve (one whose
+    val row has no entry > 0): the plain version gives such a doc
+    distance 0 and the count :func:`ref.inert_doc_iters` names, and a
+    block of block_n docs that mixes live and inert docs keeps its largest
+    count."""
+    g, val, r, lam = _k1_inputs(rng, log_domain)
+    n_iter, block_n = 7, 16
+    n = val.shape[0]
+    inert = np.zeros(n, bool)
+    inert[3::3] = True                        # live and inert in every block
+    inert[n - 20:] = True                     # the pad docs
+    val[inert] = 0.0
+    kw = dict(opts)
+    if kw.pop("resmask", False):
+        rm = (rng.random((g.shape[0], n)) > 0.5).astype(np.float32)
+        kw["resmask"] = torch.from_numpy(rm)
+    g, val, r = map(torch.from_numpy, (g, val, r))
+    wmd, counts, _ = ref.solve_per_doc_ref(g, val, r, lam, n_iter,
+                                           log_domain=log_domain, **kw)
+    want = ref.inert_doc_iters(n_iter, kw.get("tol"),
+                               kw.get("check_every", 4))
+    assert (wmd[:, inert] == 0.0).all()
+    assert (counts[:, inert] == want).all()
+    assert torch.isfinite(wmd[:, ~inert]).all() and (wmd[:, ~inert] > 0).all()
+    _, iters = ops.sinkhorn_fused_all_batched(g, val, r, lam, n_iter,
+                                              block_n=block_n,
+                                              with_iters=True,
+                                              log_domain=log_domain, **kw)
+    torch.testing.assert_close(iters, ref.block_iters(counts, block_n))
+    assert (iters[:, -1] == want).all()       # the last block is all inert
+
+
 def test_sinkhorn_fused_linear_underflow_is_nan():
     """A live doc word whose K column underflowed to all zero poisons the
     doc's distance (the engine raises LamUnderflowError on it)."""
@@ -261,6 +300,44 @@ def test_wrappers_validate_inputs(rng):
     with pytest.raises(ValueError, match="at most 64 x 64"):
         ops.sinkhorn_fused_all_batched(wide, vt, torch.ones((1, 65)), lam, 2,
                                        tile="registers")
+
+
+@pytest.mark.parametrize("tile", ["warp", "registers", "shared"])
+def test_k1_tiles_compute_one_function_on_the_host(rng, tile):
+    """Every K1 tile is the same function: on the host each is the plain
+    version; "warp" holds 64 x 64 at most, as "registers" does."""
+    g, val, r, lam = _k1_inputs(rng, True, n=24)
+    gt, vt, rt = map(torch.from_numpy, (g, val, r))
+    torch.testing.assert_close(
+        ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 3, tile=tile,
+                                       log_domain=True),
+        ops.sinkhorn_fused_all_batched(gt, vt, rt, lam, 3, log_domain=True))
+    if tile != "shared":
+        wide = torch.zeros((1, 8, 4, 65), dtype=torch.float32)
+        with pytest.raises(ValueError, match="at most 64 x 64"):
+            ops.sinkhorn_fused_all_batched(wide, torch.ones((4, 65)),
+                                           torch.ones((1, 8)), lam, 2,
+                                           tile=tile)
+
+
+def test_k2_designs_are_checked(rng):
+    """K2's two designs compute one function (on the host, the plain
+    version), at any number of queries (the stacked kernel runs a launch
+    per RWMD_STACKED_MAX_Q of them); an unknown design raises."""
+    a, mask, b = map(torch.from_numpy, _k2_inputs(rng))
+    for design in ("stacked", "per_query"):
+        torch.testing.assert_close(
+            ops.rwmd_min_cdist(a, mask, b, design=design),
+            ops.rwmd_min_cdist(a, mask, b))
+    with pytest.raises(ValueError, match="design must be"):
+        ops.rwmd_min_cdist(a, mask, b, design="tiled")
+    q = ops.RWMD_STACKED_MAX_Q + 1
+    many = torch.from_numpy(rng.standard_normal((q, 2, a.shape[2])).astype(
+        np.float32))
+    ones = torch.ones((q, 2))
+    torch.testing.assert_close(
+        ops.rwmd_min_cdist(many, ones, b, design="stacked"),
+        ref.rwmd_min_cdist_ref(many, ones, b))
 
 
 # ----------------------------------------------------------- K3 cdist_exp
