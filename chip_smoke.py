@@ -29,15 +29,13 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
 - the block-sparse SDDMM ``ops.bsr_sddmm`` (K6) on the paper corpus's
   doc matrix at 128 x 128 and 64 x 64 tiles, and K1 on a (v_r, L) tile
   over the shared-memory limit;
-- K1 and K2 each in two designs, timed side by side at the main path's
-  chunk and the paper's widest: K1's warp per tile (what ``tile="auto"``
-  runs up to 64 x 64) against the block per tile, with the fixed cost
-  (``n_iter`` 0 and 1) and the inert docs' share; K2's stacked queries
-  against a block per query (also at 128 queries, two stacked launches),
-  beside cuBLAS SGEMM of the same product; and K1's shared-memory
-  against its device-memory variant on each side of the tile where
-  ``auto`` switches between them (``--k1-crossover-sweep``: across eight
-  tiles from 96 x 28 to 192 x 192);
+- K1 at the main path's chunk and the paper's widest with its fixed cost
+  (``n_iter`` 0 and 1) and the inert docs' share, and in every tile
+  class up to 64 x 64; K2 beside cuBLAS SGEMM of the same product (also
+  at 128 queries, two launches); and K1's shared-memory against its
+  device-memory variant on each side of the tile where ``auto`` switches
+  between them (``--k1-crossover-sweep``: across eight tiles from 96 x 28
+  to 192 x 192);
 - the einsum engine ``WmdEngine(impl="sparse")``: search and
   ``query_batch`` against its exhaustive top-10 and the kernel engine's
   distances, ``warm_start`` on the near-duplicate corpus, the K-column
@@ -98,15 +96,10 @@ K2_SQ_RTOL = 1e-5
 # K1: sums over v_r and L run in another order, and 15 iterations of
 # the scaling fixed point carry the ulp differences into the distance
 K1_RTOL, K1_ATOL = 1e-4, 1e-4
-# K1's two designs for tiles up to 64 x 64, timed side by side: a block
-# per tile with the tile in registers (the earlier one) and a warp per
-# tile; K2's: a block per (vocabulary tile, query) (the earlier one) and
-# stacked queries
-K1_DESIGNS = ("registers", "warp")
 # K1 tiles of each class up to 64 x 64 that no paper chunk has, where
-# phase k1_tiles times the two designs (v_r and L on each side of 32)
+# phase k1_tiles times the warp-per-tile kernel (v_r and L on each side
+# of 32)
 K1_CLASSES = ((32, 32), (24, 56), (56, 24), (48, 48), (64, 64))
-K2_DESIGNS = ("per_query", "stacked")
 # K3: ref.K3_SQ_RTOL and ref.K3_ULP (ref.hold_cdist_exp holds it)
 # K4: tests/test_kernels.py's tolerance for the reference kernel
 K4_RTOL, K4_ATOL = 5e-5, 5e-5
@@ -377,17 +370,6 @@ def phase_k2(index, sup, mask, label: str) -> dict:
     n_bytes = 4.0 * (live_rows * w + mask.numel() + b.numel() + q * v)
     n_flops = 2.0 * live_rows * w * v + 2.0 * (v + live_rows) * w
     bms, by = bound_ms(n_bytes, n_flops)
-    designs = {}
-    for design in K2_DESIGNS:               # each held, then timed
-        def run(design=design):
-            return ops.rwmd_min_cdist(a, mask, b, design=design)
-        got_d = run()
-        torch.cuda.synchronize()
-        designs[design] = {
-            "max_abs_err": hold_min_cdist(f"K2 {design}", got_d, want, a,
-                                          mask, b)["max_abs_err"],
-            "ms": time_ms(run)}
-        del got_d
     a_live = a[mask > 0].contiguous()                    # (R, w)
     rec = {"phase": "k2", "name": "rwmd_min_cdist", "inputs": label,
            "shape": {"Q": q, "B": bq, "w": w, "V": v,
@@ -402,7 +384,6 @@ def phase_k2(index, sup, mask, label: str) -> dict:
            "library": "none: no single PyTorch call computes a masked "
                       "min-over-support cdist (torch.cdist + a masked min "
                       "is two)",
-           "designs": designs,
            # a yardstick for the product alone: cuBLAS SGEMM (TF32 off) of
            # the live rows against the vocabulary, no norms, no min
            "sgemm_ms": time_ms(lambda: torch.matmul(a_live, b.T)),
@@ -437,27 +418,20 @@ def phase_k1(index, sup, r, mask, log_domain: bool, lam: float,
                                f"K1 log_domain={log_domain}")
     q, v_r, n, length = g.shape
     n_live_docs = int((val > 0).any(dim=1).sum())
-    # the two designs at this chunk, each held against the plain version:
     # the fixed cost (n_iter = 0, 1) against the cost per iteration (15),
     # and the same call on the live docs alone (the inert docs' share)
     g_live = g[:, :, :n_live_docs].contiguous()
     val_live = val[:n_live_docs].contiguous()
     if not bool((val_live > 0).any(dim=1).all()):
         raise AssertionError("K1: the live docs do not lead the group")
-    designs = {}
-    for tile in K1_DESIGNS:
-        def run(tile=tile, g=g, val=val, n_iter=n_iter):
-            return ops.sinkhorn_fused_all_batched(
-                g, val, r, lam, n_iter, log_domain=log_domain, tile=tile)
-        designs[tile] = {"max_abs_err": compare(
-            run(), want, K1_RTOL, K1_ATOL,
-            f"K1 tile={tile} log_domain={log_domain}")[0]}
-        designs[tile].update({
-            "ms": time_ms(run),
-            **{f"n_iter_{i}_ms": time_ms(lambda i=i: run(n_iter=i))
-               for i in (0, 1)},
-            "live_docs_only_ms": time_ms(lambda: run(g=g_live,
-                                                     val=val_live))})
+
+    def run(g=g, val=val, n_iter=n_iter):
+        return ops.sinkhorn_fused_all_batched(g, val, r, lam, n_iter,
+                                              log_domain=log_domain)
+    breakdown = {
+        **{f"n_iter_{i}_ms": time_ms(lambda i=i: run(n_iter=i))
+           for i in (0, 1)},
+        "live_docs_only_ms": time_ms(lambda: run(g=g_live, val=val_live))}
     del g_live
     # bf16 operands and the adaptive exit (fig10's tol and check_every) at
     # this chunk through tile="auto": held against the plain version, and
@@ -504,16 +478,17 @@ def phase_k1(index, sup, r, mask, log_domain: bool, lam: float,
            "plain_ms": time_ms(plain, reps=5, warmup=1),
            "bound_ms": bms, "bound_by": by, "library_ms": None,
            "library": "none: no single PyTorch call computes a Sinkhorn "
-                      "solve", "designs": designs, "modes": modes}
+                      "solve", "breakdown": breakdown, "modes": modes}
     emit(rec)
     del g
     return rec
 
 
 def phase_k1_tiles(index, sup, r, mask) -> dict:
-    """K1's two variants on the main path's widest chunk: the tile in
-    registers (what ``tile="auto"`` picks there) against the tile in
-    shared memory, each held against the plain version and timed."""
+    """K1's variants on the main path's widest chunk: the warp per tile
+    (what ``tile="auto"`` picks there) against the tile in shared memory,
+    each held against the plain version and timed; then the warp per tile
+    in every tile class up to 64 x 64."""
     grp = index.subset(np.arange(index.n_docs, dtype=np.int32),
                        storage=True)
     rec = {"phase": "k1_tiles"}
@@ -524,7 +499,7 @@ def phase_k1_tiles(index, sup, r, mask) -> dict:
             g, grp.docs.val, r, lam, CONFIG.n_iter, log_domain=log_domain)[0]
         key = "log" if log_domain else "fp32"
         rec[key] = {"shape": list(g.shape)}
-        for tile in ("registers", "shared", "warp"):
+        for tile in ("shared", "warp"):
             def run(tile=tile):
                 return ops.sinkhorn_fused_all_batched(
                     g, grp.docs.val, r, lam, CONFIG.n_iter,
@@ -533,8 +508,8 @@ def phase_k1_tiles(index, sup, r, mask) -> dict:
                                  f"K1 tile={tile} log_domain={log_domain}")
             rec[key][tile] = {"ms": time_ms(run), "max_abs_err": abs_err}
         del g
-    # the other tile classes of the two designs (no paper chunk has them):
-    # Q=4, N=2048 synthetic docs, fp32 at lam=1 and log at lam=10
+    # the other tile classes (no paper chunk has them): Q=4, N=2048
+    # synthetic docs, fp32 at lam=1 and log at lam=10
     rec["classes"] = []
     for v_r, length in K1_CLASSES:
         sup_c, r_c, mask_c = paper_chunk(index.vocab_size, mask.device,
@@ -547,16 +522,13 @@ def phase_k1_tiles(index, sup, r, mask) -> dict:
                                       log_domain=log_domain), idx)
             want = ref.sinkhorn_fused_all_batched_ref(
                 g, val, r_c, lam, CONFIG.n_iter, log_domain=log_domain)[0]
-            times = {}
-            for tile in K1_DESIGNS:
-                def run(tile=tile, g=g, lam=lam, log_domain=log_domain):
-                    return ops.sinkhorn_fused_all_batched(
-                        g, val, r_c, lam, CONFIG.n_iter,
-                        log_domain=log_domain, tile=tile)
-                compare(run(), want, K1_RTOL, K1_ATOL,
-                        f"K1 {v_r}x{length} tile={tile} log={log_domain}")
-                times[tile] = time_ms(run)
-            row["log" if log_domain else "fp32"] = times
+            def run(g=g, lam=lam, log_domain=log_domain):
+                return ops.sinkhorn_fused_all_batched(
+                    g, val, r_c, lam, CONFIG.n_iter, log_domain=log_domain,
+                    tile="warp")
+            compare(run(), want, K1_RTOL, K1_ATOL,
+                    f"K1 {v_r}x{length} tile=warp log={log_domain}")
+            row["log" if log_domain else "fp32"] = {"warp": time_ms(run)}
             del g, want
         rec["classes"].append(row)
     emit(rec)
@@ -1100,8 +1072,11 @@ def phase_k2s(index, sup, mask, vids, label: str) -> dict:
     def plain():
         return ref.rwmd_min_cdist_subset_ref(a, mask, b, vids)
 
+    before = ops.rwmd_min_cdist_subset.launches
     got = kernel()
     torch.cuda.synchronize()
+    if ops.rwmd_min_cdist_subset.launches != before + 1:
+        raise AssertionError("K2s: a call must be one launch")
     errs = hold_min_cdist("K2s", got, plain(), a, mask, b[vids])
     q, bq, w = a.shape
     vc = vids.numel()
@@ -2088,7 +2063,7 @@ def main() -> int:
     phase_k1_bf16(index, sup, r, mask)
     phase_k1_wide(index, dev, K1_CROSSOVER_SWEEP
                   if "--k1-crossover-sweep" in sys.argv[1:] else K1_CROSSOVER)
-    # a query wider than one K2 launch's 128 support rows; more queries
+    # more live rows than one stacked group of 128 (two groups); more queries
     # than one stacked launch's 64, as refine stages every query of a
     # search (fig15's stream has 128) in one tensor
     phase_k2(index, *paper_chunk(index.vocab_size, dev, width=200, q=2,
@@ -2139,7 +2114,8 @@ def main() -> int:
     # the IVF cascade, refine and appends on the dedup corpus
     dedup, dindex, build_s = build_dedup(dev)
     k2s = phase_k2s_from_search(dindex, dedup)
-    # a query wider than one K2s launch's 128 support rows
+    # queries wider than one K2s pass of 128 support rows (two passes in
+    # the block), against 2048 candidate words
     sup, _, mask = paper_chunk(dindex.vocab_size, dev, width=200, q=2,
                                seed=3)
     vids = torch.as_tensor(np.random.default_rng(5).choice(
@@ -2191,12 +2167,7 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "launch_ms", "plain_ms", "bound_ms",
             "bound_by")
     kernels[1]["fp32_lam1"] = {key: k1_lin[key] for key in keys}
-    # K1 and K2 in both designs, timed in this run at the same inputs (the
-    # entry's ms is the default one: warp for K1, stacked for K2), and K2's
-    # product alone on cuBLAS SGEMM as a yardstick
-    kernels[1]["designs"] = k1_log["designs"]
-    kernels[1]["fp32_lam1"]["designs"] = k1_lin["designs"]
-    kernels[0]["designs"] = k2["designs"]
+    # K2's product alone on cuBLAS SGEMM as a yardstick
     kernels[0]["sgemm_ms"] = k2["sgemm_ms"]
     kernels[2]["full"] = {key: k3[0][key] for key in keys}
     kernels[2]["log_k_lam10"] = {key: k3[2][key] for key in keys}

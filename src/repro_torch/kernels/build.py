@@ -92,7 +92,7 @@ def load() -> ctypes.CDLL:
     """Build if needed, load the library and declare its C signatures."""
     lib = ctypes.CDLL(str(build()[0]))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rwmd_min_cdist_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.rwmd_min_cdist_launch.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.rwmd_min_cdist_launch.restype = i
     lib.rwmd_min_cdist_subset_launch.argtypes = [p, p, p, p, p, i, i, i, i,
                                                  i, p]

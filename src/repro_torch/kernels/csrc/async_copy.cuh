@@ -1,7 +1,8 @@
 // cp.async (sm_80+) helpers shared by K1's warp-per-tile kernel
-// (sinkhorn_fused.cu) and K2's stacked-query kernel (rwmd_min_cdist.cu):
-// copies from device memory into shared memory that run beside the
-// threads' arithmetic, grouped and waited on per thread.
+// (sinkhorn_fused.cu), K2's stacked-query kernel (rwmd_min_cdist.cu) and
+// the ring of K2s and K3 (cdist_ring.cuh): copies from device memory into
+// shared memory that run beside the threads' arithmetic, grouped and
+// waited on per thread.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -15,91 +15,124 @@
 //
 // What bounds it on the H100: reading b. At the paper's shape (VR ~ 24,
 // W = 300, V = 100 000) b is 120 MB, ~36 us at 3.35 TB/s; k_only writes
-// 9.6 MB more; the product is 2*VR*W*V ~ 1.4 GFLOP, ~21 us at the 67
+// 9.2 MB more; the product is 2*VR*W*V ~ 1.4 GFLOP, ~21 us at the 67
 // TFLOP/s fp32 rate outside the tensor cores. So it is bound by bytes.
 //
-// What the design does about it: the product is K2's register tile
-// (cdist_tile.cuh) with an elementwise epilogue in place of K2's min. A
-// block covers up to 64 query rows (a row tile) against 128 vocabulary
-// rows; a query wider than 64 words runs as several row tiles, so any VR
-// runs. The blocks that share a vocabulary tile are adjacent in launch
-// order, so b is read from device memory once per call (the extra row
-// tiles of a wide query find it in L2), and a, which is small, streams
-// from L2 in 32-wide chunks of w beside it. Only the requested outputs are
-// written, 16 bytes at a time where the row allows.
+// What the design does about it: b streams through a cp.async ring
+// (cdist_ring.cuh), so the copies of the next chunk of w are in flight
+// while the FFMAs of the current one run, and no thread waits on a load
+// of its own. A block covers up to 64 query rows (a row tile, a warp per 8
+// rows) against TV vocabulary rows (TV / 32 per lane): 64 for row tiles
+// of up to 32 rows (the paper's queries; at VR = 24 a block has 3 warps
+// and 25 KB of ring), 128 above, where the wider tile halves the re-reads
+// of a per vocabulary row; each was the faster one on its side on an H100
+// (PERF.md). A query wider than 64 words runs as several row tiles: the
+// blocks that share a vocabulary tile are adjacent in launch order, so b
+// is read from device memory once per call and the other row tiles find
+// it in L2. Only the requested outputs are written; a warp stores 32
+// consecutive floats of a row per instruction, so every store fills whole
+// 128-byte lines.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "cdist_tile.cuh"
+#include "cdist_ring.cuh"
 
 namespace {
 
-using cdist_tile::kTileV;
+using cdist_ring::kChunk;
+using cdist_ring::kStride;
 
-constexpr int kMaxRows = 64;   // query rows per block
+constexpr int kMaxRows = 64;          // query rows per block
+constexpr int kStages = 2;
 
-// out[0..n) = v[0..n); 16-byte stores when all 8 are in range and aligned
-__device__ __forceinline__ void store8(float* out, const float (&v)[8],
-                                       int n, bool vec) {
-  if (vec && n == 8) {
-    reinterpret_cast<float4*>(out)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(out)[1] = make_float4(v[4], v[5], v[6], v[7]);
-    return;
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    if (c < n) out[c] = v[c];
+// vocabulary rows per block for a row tile of BMAX query rows
+__host__ __device__ constexpr int tile_v(int BMAX) {
+  return BMAX <= 32 ? 64 : 128;
+}
+
+template <int BMAX>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * kStages * (BMAX + tile_v(BMAX)) * kStride;
 }
 
 template <int BMAX, bool BF16>
-__global__ void __launch_bounds__(2 * BMAX)
+__global__ void __launch_bounds__(4 * BMAX)
 cdist_exp_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  const float* __restrict__ r, float* __restrict__ m_out,
                  float* __restrict__ k_out, float* __restrict__ kr_out,
                  int VR, int W, int V, int n_row_tiles, float lam,
-                 int log_k) {
-  __shared__ __align__(16) cdist_tile::Staging<BMAX> st;
-  __shared__ float a2s[BMAX], rs[BMAX];
+                 int log_k, int vec4) {
+  constexpr int NT = 4 * BMAX;          // a warp per 8 query rows
+  constexpr int kTileV = tile_v(BMAX);
+  constexpr int kCols = kTileV / 32;    // vocabulary rows per lane
+  constexpr int ROWS = BMAX + kTileV;   // staged rows: a's, then b's
+  extern __shared__ __align__(16) float smem[];
 
   // row tile fastest: the blocks of one vocabulary tile run together
   const int k0 = (blockIdx.x % n_row_tiles) * BMAX;
   const int v0 = (blockIdx.x / n_row_tiles) * kTileV;
   const int B = min(BMAX, VR - k0);
-  const int tid = threadIdx.x;
-  const int vg = tid % 16, kg = tid / 16;
-
-  float acc[8][8], b2[8], a2;
-  cdist_tile::product<BMAX, false, BF16>(a + (size_t)k0 * W, B, b, v0, W,
-                                         V, st, acc, b2, a2);
-  if (tid < BMAX) {
-    a2s[tid] = a2;
-    rs[tid] = tid < B ? r[k0 + tid] : 1.f;
+  const int nv = min(kTileV, V - v0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool live = warp * 8 < B;       // the warp has a query row
+  const int n_chunks = (W + kChunk - 1) / kChunk;
+  auto row = [&](int i) -> const float* {
+    if (i < BMAX) return i < B ? a + (size_t)(k0 + i) * W : nullptr;
+    return i - BMAX < nv ? b + (size_t)(v0 + i - BMAX) * W : nullptr;
+  };
+  for (int s = 0; s < kStages - 1 && s < n_chunks; ++s) {
+    cdist_ring::stage<NT>(smem + s * ROWS * kStride, ROWS, row, b,
+                          s * kChunk, W, vec4);
+    async_copy::commit();
   }
-  __syncthreads();
 
-  const int vc = v0 + vg * 8;
-  const int n = min(8, V - vc);
-  const bool vec = (V & 3) == 0;        // rows start 16-byte aligned
-  if (n <= 0) return;
+  float acc[8][kCols], b2[kCols], a2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) b2[c] = 0.f;
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int next = ch + kStages - 1;
+    if (next < n_chunks)
+      cdist_ring::stage<NT>(smem + (next % kStages) * ROWS * kStride, ROWS,
+                            row, b, next * kChunk, W, vec4);
+    async_copy::commit();
+    async_copy::wait<kStages - 1>();
+    __syncthreads();                    // chunk ch is in for every thread
+    float* st = smem + (ch % kStages) * ROWS * kStride;
+    if (live) {
+      cdist_ring::prep_rows<BF16>(st + warp * 8 * kStride, a2);
+      const int nj4 = (min(kChunk, W - ch * kChunk) + 3) / 4;
+      cdist_ring::fma_chunk<kCols, BF16>(st + warp * 8 * kStride,
+                                         st + (BMAX + lane) * kStride, nj4,
+                                         acc, b2);
+    }
+    __syncthreads();                    // the stage is read before it refills
+  }
+  if (!live) return;
+
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int k = kg * 8 + i;
-    if (k >= B) break;
-    float mv[8], kv[8];
+    const int k = warp * 8 + i;
+    if (k >= B) break;                  // the same on every lane
+    const float a2k = __shfl_sync(0xffffffffu, a2, i);
+    const size_t o = (size_t)(k0 + k) * V + v0;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float d2 = a2s[k] + b2[c] - 2.f * acc[i][c];
-      mv[c] = sqrtf(fmaxf(d2, 0.f));
-      kv[c] = log_k ? -lam * mv[c] : expf(-lam * mv[c]);
-    }
-    const size_t o = (size_t)(k0 + k) * V + vc;
-    store8(k_out + o, kv, n, vec);
-    if (m_out != nullptr) {
-      store8(m_out + o, mv, n, vec);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) kv[c] = kv[c] / rs[k];
-      store8(kr_out + o, kv, n, vec);
+    for (int c = 0; c < kCols; ++c) {
+      const int v = lane + 32 * c;
+      if (v >= nv) break;
+      const float d2 = a2k + b2[c] - 2.f * acc[i][c];
+      const float mv = sqrtf(fmaxf(d2, 0.f));
+      const float kv = log_k ? -lam * mv : expf(-lam * mv);
+      k_out[o + v] = kv;
+      if (m_out != nullptr) {
+        m_out[o + v] = mv;
+        kr_out[o + v] = kv / r[k0 + k];
+      }
     }
   }
 }
@@ -108,12 +141,20 @@ template <int BMAX, bool BF16>
 cudaError_t launch(const float* a, const float* b, const float* r, float* m,
                    float* k, float* kr, int VR, int W, int V, float lam,
                    int log_k, cudaStream_t stream) {
+  auto kernel = cdist_exp_kernel<BMAX, BF16>;
+  static bool smem_set = false;
+  const cudaError_t err =
+      cdist_ring::allow_smem(kernel, smem_bytes<BMAX>(), smem_set);
+  if (err != cudaSuccess) return err;
   const int row_tiles = (VR + BMAX - 1) / BMAX;
   const long long blocks =
-      (long long)row_tiles * ((V + kTileV - 1) / kTileV);
+      (long long)row_tiles * ((V + tile_v(BMAX) - 1) / tile_v(BMAX));
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cdist_exp_kernel<BMAX, BF16><<<(unsigned)blocks, 2 * BMAX, 0, stream>>>(
-      a, b, r, m, k, kr, VR, W, V, row_tiles, lam, log_k);
+  const int vec4 = W % 4 == 0 &&
+                   reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(b) % 16 == 0;
+  kernel<<<(unsigned)blocks, 4 * BMAX, smem_bytes<BMAX>(), stream>>>(
+      a, b, r, m, k, kr, VR, W, V, row_tiles, lam, log_k, vec4);
   return cudaGetLastError();
 }
 

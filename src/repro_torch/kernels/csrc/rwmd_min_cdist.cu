@@ -16,26 +16,15 @@
 //
 // What the design does about it: a register-tiled FFMA GEMM with the
 // sqrt / mask / min epilogue fused in, so the (Q*B, V) distance block never
-// leaves the SM. Two designs compute it:
-// - stacked (rwmd_min_cdist_stacked_kernel, what the wrapper runs by
-//   default): one block per tile of 128 vocabulary rows serves
-//   every query's live rows, so b is read once per 64 queries (a launch
-//   each) and masked rows are never computed; cp.async stages the next 32
-//   coordinates during the FFMAs (its comment below). At the main path's
-//   chunk on an H100 at 700 W it takes 0.24 ms where the per-query design
-//   takes 0.56 (PERF.md).
-// - per query (rwmd_min_cdist_kernel, the earlier design): one block per
-//   (query, tile of 128 vocabulary rows), with 2*BMAX threads, each owning
-//   an 8 (support rows) x 8 (vocabulary rows) tile of partial dot products
-//   in registers (the product is cdist_tile.cuh's, shared with K3); masked
-//   rows are computed and dropped. Each block reads the whole of b's tile
-//   for its query, so b is read Q times in all. A query wider than 128
-//   support rows runs as one launch per 128-row chunk on the same stream;
-//   every chunk after the first folds its min into the output already
-//   written (min is exact in any order).
-// Both mask the ragged V edge and do not pad w.
+// leaves the SM. One block per tile of 128 vocabulary rows serves every
+// query's live rows, so b is read once per 64 queries (a launch each) and
+// masked rows are never computed; cp.async stages the next 32 coordinates
+// during the FFMAs (rwmd_min_cdist_stacked_kernel's comment below). At the
+// main path's chunk on an H100 at 700 W it took 0.24 ms where the
+// per-query design it replaced took 0.56 (PERF.md). The ragged V edge is
+// masked and w is not padded.
 //
-// K2s, the same kernel over a candidate subset of the vocabulary.
+// K2s, the same function over a candidate subset of the vocabulary.
 // Replaces: src/repro/kernels/rwmd.py, rwmd_min_cdist_subset, reached from
 // repro.core.prune.CascadePruner._rwmd_prep (the IVF cascade's RWMD stage)
 // through repro.kernels.ops.rwmd_min_cdist(..., vocab_ids=...).
@@ -43,85 +32,131 @@
 //   minM[q, c] = min over live k of ||a[q, k] - b[vocab_ids[c]]||, (Q, Vc).
 //
 // The Pallas version lets XLA gather b[vocab_ids] into a new (Vc, w) array
-// before the launch. Here the gather is in the b-tile load
-// (cdist_tile::product with `rows`): tile row c reads b's row
-// vocab_ids[c], so the (Vc, w) copy is never written. Everything else
-// (norms, clamp, sqrt, mask, min epilogue, 128-row chunks) is the
-// per-query K2's code.
-// vocab_ids are int64 (the wrapper checks); Vc needs no padding, the
-// ragged edge is masked. At the cascade's shape (Q = 16 padded queries,
-// B <= 48, w = 300, Vc of a few hundred to a few thousand) the product is
-// ~0.3 GFLOP at Vc = 1024, ~5 us at 67 TFLOP/s: bound by operations, and
-// small enough that the launch and the host staging around it may cost
-// more than the kernel.
+// before the launch. Here the gather is in the load: a block reads its 32
+// ids once and copies those rows of b whole, so the (Vc, w) copy is never
+// written. What bounds it: nothing of the card's rates. At the cascade's
+// widest RWMD stage (Q = 4 padded queries, B = 24, w = 300, Vc = 128) the
+// product is ~7 MFLOP and the distinct rows ~0.1 MB, well under a
+// microsecond at either peak; the kernel's time is the latency of one
+// block's walk over w. So the design spreads the walk over many blocks and
+// keeps every load in flight (rwmd_min_cdist_subset_kernel's comment).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "async_copy.cuh"
-#include "cdist_tile.cuh"
+#include "cdist_ring.cuh"
 
 namespace {
 
-using cdist_tile::kTileV;
+// K2s: one block per (query, 32 output columns), a lane per column and a
+// warp per 8 support rows, 16 warps. The block streams w through a 2-stage
+// cp.async ring (cdist_ring.cuh): its rows of a and its 32 gathered rows of
+// b, 16-byte copies of whole rows when w % 4 == 0 and the bases are
+// aligned, 4-byte ones otherwise, so no thread waits on a load of its own
+// and the next chunk is in flight during the FFMAs of the current one. A
+// query wider than 128 support rows runs its rows in passes of 128 inside
+// the block, each folding into the lanes' running min (min is exact in
+// any order), so any B runs in one launch. On an H100 16 warps beat 8 at
+// 200 rows (two passes instead of four) and cost about a microsecond at
+// the cascade's 24, and a deeper ring gained nothing (PERF.md). Warps whose rows are all masked
+// (the cascade's filler queries) skip the FFMAs. An id outside [0, Vb)
+// loads as a zero row: a wrong column, never an out-of-bounds read.
+constexpr int kSubCols = 32;                // output columns per block
+constexpr int kSubWarps = 16;
+constexpr int kSubRows = 8 * kSubWarps;     // support rows per pass
+constexpr int kSubStages = 2;
+constexpr int kSubStaged = kSubRows + kSubCols;
+constexpr size_t kSubSmem =
+    sizeof(float) * kSubStages * kSubStaged * cdist_ring::kStride;
 
-template <int BMAX, bool GATHER>
-__global__ void __launch_bounds__(2 * BMAX)
-rwmd_min_cdist_kernel(const float* __restrict__ a,
-                      const float* __restrict__ mask,
-                      const float* __restrict__ b,
-                      const long long* __restrict__ ids,
-                      float* __restrict__ out, int B, int LDB, int W,
-                      int V, int Vb, int accumulate) {
-  constexpr int KG = BMAX / 8;          // support-row groups of 8
-  constexpr int NT = KG * 16;           // 16 vocabulary groups of 8
-  __shared__ __align__(16) cdist_tile::Staging<BMAX> st;
-  __shared__ float a2s[BMAX], ms[BMAX];
+__global__ void __launch_bounds__(32 * kSubWarps)
+rwmd_min_cdist_subset_kernel(const float* __restrict__ a,
+                             const float* __restrict__ mask,
+                             const float* __restrict__ b,
+                             const long long* __restrict__ ids,
+                             float* __restrict__ out, int B, int W, int Vb,
+                             int Vc, int vec4) {
+  using cdist_ring::kChunk;
+  using cdist_ring::kStride;
+  constexpr int NT = 32 * kSubWarps;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ long long rows[kSubCols];      // b's row per column, or -1
+  __shared__ float red[kSubWarps][kSubCols];
 
   const int q = blockIdx.y;
-  const int v0 = blockIdx.x * kTileV;
-  const int tid = threadIdx.x;
-  const int vg = tid % 16, kg = tid / 16;
-  const float* aq = a + (size_t)q * LDB * W;   // B of the query's LDB rows
-
-  float acc[8][8], b2[8], a2;
-  cdist_tile::product<BMAX, GATHER>(aq, B, b, v0, W, V, st, acc, b2, a2,
-                                    ids, Vb);
-  if (tid < BMAX) {
-    a2s[tid] = a2;
-    ms[tid] = tid < B ? mask[(size_t)q * LDB + tid] : 0.f;
-  }
-  __syncthreads();                      // also: every read of bT is done
-
-  // min over this thread's 8 rows, then over the KG row groups
-  float* red = st.bT;                   // (KG, kTileV)
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    float best = INFINITY;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int k = kg * 8 + r;
-      if (ms[k] > 0.f) {
-        const float d2 = a2s[k] + b2[c] - 2.f * acc[r][c];
-        best = fminf(best, sqrtf(fmaxf(d2, 0.f)));
-      }
-    }
-    red[kg * kTileV + vg * 8 + c] = best;
+  const int c0 = blockIdx.x * kSubCols;
+  const int nc = min(kSubCols, Vc - c0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x < kSubCols) {
+    const long long id = threadIdx.x < nc ? ids[c0 + threadIdx.x] : -1;
+    rows[threadIdx.x] = id >= 0 && id < Vb ? id : -1;
   }
   __syncthreads();
-  for (int v = tid; v < kTileV; v += NT) {
-    float best = INFINITY;
-    for (int gi = 0; gi < KG; ++gi) best = fminf(best, red[gi * kTileV + v]);
-    if (v0 + v < V) {
-      float* o = out + (size_t)q * V + v0 + v;
-      *o = accumulate ? fminf(*o, best) : best;
+  const float* aq = a + (size_t)q * B * W;
+  const float* mq = mask + (size_t)q * B;
+  const int n_chunks = (W + kChunk - 1) / kChunk;
+  float best = INFINITY;
+
+  for (int p0 = 0; p0 < B; p0 += kSubRows) {
+    const int nr = min(kSubRows, B - p0);
+    auto row = [&](int i) -> const float* {
+      if (i < kSubRows) return i < nr ? aq + (size_t)(p0 + i) * W : nullptr;
+      const long long id = rows[i - kSubRows];
+      return id >= 0 ? b + (size_t)id * W : nullptr;
+    };
+    // the warp takes part in the product if one of its rows is live
+    const int k = warp * 8 + (lane & 7);
+    const bool live =
+        __any_sync(0xffffffffu, k < nr && mq[p0 + min(k, nr - 1)] > 0.f);
+    for (int s = 0; s < kSubStages - 1 && s < n_chunks; ++s) {
+      cdist_ring::stage<NT>(smem + s * kSubStaged * kStride, kSubStaged,
+                            row, b, s * kChunk, W, vec4);
+      async_copy::commit();
     }
+    float acc[8][1], b2[1] = {0.f}, a2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][0] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int next = ch + kSubStages - 1;
+      if (next < n_chunks)
+        cdist_ring::stage<NT>(smem + (next % kSubStages) * kSubStaged * kStride,
+                              kSubStaged, row, b, next * kChunk, W, vec4);
+      async_copy::commit();
+      async_copy::wait<kSubStages - 1>();
+      __syncthreads();                  // chunk ch is in for every thread
+      float* st = smem + (ch % kSubStages) * kSubStaged * kStride;
+      if (live) {
+        cdist_ring::prep_rows<false>(st + warp * 8 * kStride, a2);
+        const int nj4 = (min(kChunk, W - ch * kChunk) + 3) / 4;
+        cdist_ring::fma_chunk<1, false>(st + warp * 8 * kStride,
+                                        st + (kSubRows + lane) * kStride,
+                                        nj4, acc, b2);
+      }
+      __syncthreads();                  // the stage is read before it refills
+    }
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float a2k = __shfl_sync(0xffffffffu, a2, i);
+        const float d2 = a2k + b2[0] - 2.f * acc[i][0];
+        const int kk = warp * 8 + i;
+        if (kk < nr && mq[p0 + kk] > 0.f)
+          best = fminf(best, sqrtf(fmaxf(d2, 0.f)));
+      }
+    }
+  }
+  red[warp][lane] = best;
+  __syncthreads();
+  if (warp == 0 && lane < nc) {
+    float m = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < kSubWarps; ++w) m = fminf(m, red[w][lane]);
+    out[(size_t)q * Vc + c0 + lane] = m;
   }
 }
 
-constexpr int kMaxB = 128;   // support rows per launch
-
-// K2's stacked-query kernel (the redesign; K2s keeps the kernel above).
+// K2's stacked-query kernel.
 // One block per tile of kStTileV vocabulary rows serves every query of the
 // chunk: it stacks the chunk's live support rows (mask > 0, in order, each
 // with its query id; compacted on the device from mask by the block
@@ -351,64 +386,24 @@ rwmd_min_cdist_stacked_kernel(const float* __restrict__ a,
   }
 }
 
-// Output columns v0.. of out (Q, V); with ids, column v is b's row ids[v]
-// of Vb rows, else b's row v.
+// a (Q, B, W), mask (Q, B), b (V, W), out (Q, V); the kernel's
+// arguments for one launch over every query of the call or of a slice.
 struct Args {
   const float* a;
   const float* mask;
   const float* b;
-  const long long* ids;
   float* out;
-  int Q, B, LDB, W, V, Vb, accumulate;
+  int Q, B, W, V;
 };
-
-template <int BMAX>
-cudaError_t launch(const Args& x, cudaStream_t stream) {
-  dim3 grid((x.V + kTileV - 1) / kTileV, x.Q);
-  if (x.ids)
-    rwmd_min_cdist_kernel<BMAX, true><<<grid, 2 * BMAX, 0, stream>>>(
-        x.a, x.mask, x.b, x.ids, x.out, x.B, x.LDB, x.W, x.V, x.Vb,
-        x.accumulate);
-  else
-    rwmd_min_cdist_kernel<BMAX, false><<<grid, 2 * BMAX, 0, stream>>>(
-        x.a, x.mask, x.b, x.ids, x.out, x.B, x.LDB, x.W, x.V, x.Vb,
-        x.accumulate);
-  return cudaGetLastError();
-}
-
-// One launch over x.B <= kMaxB consecutive support rows of every query;
-// x.a and x.mask point at the chunk's first row, x.LDB is the rows per
-// query.
-cudaError_t launch_chunk(const Args& x, cudaStream_t s) {
-  switch (x.B <= 64 ? ((x.B + 7) / 8) * 8 : ((x.B + 15) / 16) * 16) {
-    case 8: return launch<8>(x, s);
-    case 16: return launch<16>(x, s);
-    case 24: return launch<24>(x, s);
-    case 32: return launch<32>(x, s);
-    case 40: return launch<40>(x, s);
-    case 48: return launch<48>(x, s);
-    case 56: return launch<56>(x, s);
-    case 64: return launch<64>(x, s);
-    case 80: return launch<80>(x, s);
-    case 96: return launch<96>(x, s);
-    case 112: return launch<112>(x, s);
-    case 128: return launch<128>(x, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 template <int RB>
 cudaError_t launch_stacked(const Args& x, cudaStream_t stream) {
   auto kernel = rwmd_min_cdist_stacked_kernel<RB>;
   const size_t smem = stacked_smem_bytes<RB>(x.Q);
   static bool attr = false;     // the largest size, set once
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)stacked_smem_bytes<RB>(kStMaxQ));
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
+  const cudaError_t err = cdist_ring::allow_smem(
+      kernel, stacked_smem_bytes<RB>(kStMaxQ), attr);
+  if (err != cudaSuccess) return err;
   const int vec4 = x.W % 4 == 0 &&
                    reinterpret_cast<unsigned long long>(x.a) % 16 == 0 &&
                    reinterpret_cast<unsigned long long>(x.b) % 16 == 0;
@@ -417,22 +412,24 @@ cudaError_t launch_stacked(const Args& x, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The stacked-query kernel: one launch per kStMaxQ queries (the shared
-// min array's room), each writing its own rows of out, for any number of
-// support rows.
-int launch_stacked_all(Args x, cudaStream_t s) {
-  if (x.Q == 0 || x.V == 0) return 0;
-  if (x.B < 1) return (int)cudaErrorInvalidValue;
-  const int Q = x.Q;
-  const float* a = x.a;
-  const float* mask = x.mask;
-  float* out = x.out;
+}  // namespace
+
+// K2: a (Q, B, W), mask (Q, B), b (V, W), out (Q, V); all fp32,
+// contiguous, on the device, B >= 1. The stacked-query kernel runs one
+// launch per kStMaxQ queries (the shared min array's room), each writing
+// its own rows of out, for any number of support rows. Returns the
+// cudaError_t of the first launch that failed, else 0.
+extern "C" int rwmd_min_cdist_launch(const float* a, const float* mask,
+                                     const float* b, float* out, int Q,
+                                     int B, int W, int V, void* stream) {
+  if (Q == 0 || V == 0) return 0;
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int q0 = 0; q0 < Q; q0 += kStMaxQ) {
-    x.a = a + (size_t)q0 * x.B * x.W;
-    x.mask = mask + (size_t)q0 * x.B;
-    x.out = out + (size_t)q0 * x.V;
-    x.Q = Q - q0 < kStMaxQ ? Q - q0 : kStMaxQ;
-    const cudaError_t err = (long long)x.Q * x.B <= 64
+    const Args x{a + (size_t)q0 * B * W, mask + (size_t)q0 * B, b,
+                 out + (size_t)q0 * V, Q - q0 < kStMaxQ ? Q - q0 : kStMaxQ,
+                 B, W, V};
+    const cudaError_t err = (long long)x.Q * B <= 64
                                 ? launch_stacked<64>(x, s)
                                 : launch_stacked<128>(x, s);
     if (err != cudaSuccess) return (int)err;
@@ -440,50 +437,27 @@ int launch_stacked_all(Args x, cudaStream_t s) {
   return 0;
 }
 
-// Every 128-row chunk of the support axis, one launch each.
-int launch_all(Args x, cudaStream_t s) {
-  if (x.Q == 0 || x.V == 0) return 0;
-  if (x.B < 1) return (int)cudaErrorInvalidValue;
-  const int B = x.B;
-  const float* a = x.a;
-  const float* mask = x.mask;
-  x.LDB = B;
-  for (int k0 = 0; k0 < B; k0 += kMaxB) {
-    x.a = a + (size_t)k0 * x.W;
-    x.mask = mask + k0;
-    x.B = B - k0 < kMaxB ? B - k0 : kMaxB;
-    x.accumulate = k0 > 0;
-    const cudaError_t err = launch_chunk(x, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-}  // namespace
-
-// a (Q, B, W), mask (Q, B), b (V, W), out (Q, V); all fp32, contiguous,
-// on the device, B >= 1. stacked != 0 runs the stacked-query kernel (a
-// launch per 64 queries), else the per-query one (a launch per 128
-// support rows). Returns the cudaError_t of the first launch that failed,
-// else 0.
-extern "C" int rwmd_min_cdist_launch(const float* a, const float* mask,
-                                     const float* b, float* out, int Q,
-                                     int B, int W, int V, int stacked,
-                                     void* stream) {
-  const Args x{a, mask, b, nullptr, out, Q, B, B, W, V, V, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return stacked ? launch_stacked_all(x, s) : launch_all(x, s);
-}
-
-// K2s: a (Q, B, W), mask (Q, B), b (Vb, W), vocab_ids (Vc,) int64 with
-// every id in [0, Vb), out (Q, Vc); fp32, contiguous, on the device,
-// B >= 1. Returns the cudaError_t of the first launch that failed, else 0.
+// K2s: a (Q, B, W), mask (Q, B), b (Vb, W), vocab_ids (Vc,) int64, out
+// (Q, Vc); fp32, contiguous, on the device, B >= 1, Q <= 65535. One
+// launch at any B, Vc and W. Returns the cudaError_t of the launch.
 extern "C" int rwmd_min_cdist_subset_launch(const float* a,
                                             const float* mask,
                                             const float* b,
                                             const long long* vocab_ids,
                                             float* out, int Q, int B, int W,
                                             int Vb, int Vc, void* stream) {
-  return launch_all({a, mask, b, vocab_ids, out, Q, B, B, W, Vc, Vb, 0},
-                    static_cast<cudaStream_t>(stream));
+  if (Q == 0 || Vc == 0) return 0;
+  if (B < 1 || Q > 65535) return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  cudaError_t err =
+      cdist_ring::allow_smem(rwmd_min_cdist_subset_kernel, kSubSmem, attr);
+  if (err != cudaSuccess) return (int)err;
+  const int vec4 = W % 4 == 0 &&
+                   reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(b) % 16 == 0;
+  const dim3 grid((Vc + kSubCols - 1) / kSubCols, Q);
+  rwmd_min_cdist_subset_kernel<<<grid, 32 * kSubWarps, kSubSmem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      a, mask, b, vocab_ids, out, B, W, Vb, Vc, vec4);
+  return (int)cudaGetLastError();
 }

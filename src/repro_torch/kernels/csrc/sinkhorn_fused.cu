@@ -42,11 +42,9 @@
 // nearest even, __float2bfloat16_rn, as torch's and JAX's casts), after
 // the log-domain shift; u is rounded as the SDDMM operand and w as the
 // SpMM operand; products and sums stay fp32, and the residual and the
-// distance line read the unrounded w, u and G. The register variant
-// rounds each operand once, where it is made: its registers hold round(G)
-// (column threads) and round(G/r) (row threads), u and w are stored both
-// unrounded and rounded, and the distance line rebuilds G from the tile
-// still in shared memory; the shared-memory variant rounds as it reads.
+// distance line read the unrounded w, u and G. The warp variant rounds
+// each operand once, where it is made (its comment below); the shared-
+// and device-memory variants round as they read.
 //
 // Docs are independent. The reference starts x from 1/(live rows of a
 // block of block_n docs); here the count is the doc's own. The two differ
@@ -66,13 +64,11 @@
 // once per (query, doc) tile, and every iteration and the distance line
 // run on chip; u, x, t, w never leave the SM, and GM is rebuilt from the
 // tile (no second array). The final sum is in a fixed order, so the
-// result is deterministic. Four variants:
+// result is deterministic. Three variants:
 // - sinkhorn_fused_warp_kernel ("warp", what "auto" runs up to 64 x 64,
 //   every shape of the paper's workload): a warp per tile, no block
 //   barrier, asynchronous tile loads, inert docs skipped (its comment
 //   below);
-// - sinkhorn_fused_reg_kernel ("registers", the earlier design): a block
-//   per tile, the tile in registers, half the threads idle in each pass;
 // - the kernel just below ("shared"): the tile in dynamic shared memory
 //   (row stride padded to an odd count so the SpMM's row-per-thread reads
 //   hit distinct banks), what "auto" runs past 64 x 64 while two blocks
@@ -80,10 +76,10 @@
 // - sinkhorn_fused_global_kernel ("global"): G read from device memory at
 //   every pass, what "auto" runs past that (kTwoBlockSmem).
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py phases k1, k1_tiles,
-// k1_crossover; PERF.md) the warp variant is 2.2-3.3x faster than the
-// register one at the paper's chunks and faster in every class up to
-// 64 x 64. All are latency-bound, not bound by bytes: 16 dependent passes
-// per doc.
+// k1_crossover; PERF.md) the warp variant was 2.2-3.3x faster than the
+// block-per-tile design it replaced at the paper's chunks, and faster in
+// every class up to 64 x 64. All are latency-bound, not bound by bytes:
+// 16 dependent passes per doc.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -296,207 +292,6 @@ sinkhorn_fused_batched_kernel(const float* __restrict__ g,
   }
 }
 
-// Register-resident variant for tiles up to 64 x 64 (every shape of the
-// paper's workload). The same arithmetic as the kernel above, but each
-// of LM "column" threads keeps its column G[:, l] in registers for the
-// SDDMM and each of KM "row" threads its row G[k, :] for the SpMM and the
-// distance line, so the loop reads only u and w from shared memory, as
-// float4 broadcasts: about one shared load per four FMAs instead of two
-// per FMA. Rows k >= VR and slots l >= L are zero in the registers and add
-// exact zeros. Two block barriers per iteration instead of three; a column
-// thread keeps its slot's w at the last decision in a register. Under
-// BF16 the registers hold the rounded operands (round(G), round(G/r)),
-// the loop reads rounded copies ub, wb of u and w, and the distance line
-// rebuilds the unrounded G from Gs.
-template <int KM, int LM, bool BF16>
-__global__ void __launch_bounds__(KM + LM)
-sinkhorn_fused_reg_kernel(const float* __restrict__ g,
-                          const float* __restrict__ val,
-                          const float* __restrict__ r,
-                          const float* __restrict__ resmask,
-                          float* __restrict__ wmd, int* __restrict__ iters,
-                          int VR, int N, int L, int n_iter, float lam,
-                          int log_domain, int block_n, float tol,
-                          int check_every) {
-  constexpr int RM = KM > LM ? KM : LM;
-  constexpr int NT = KM + LM;
-  __shared__ float Gs[KM * (LM + 1)];
-  __shared__ __align__(16) float us[KM];
-  __shared__ __align__(16) float ws[LM];
-  // the SDDMM's and SpMM's operands under BF16: u and w rounded (the
-  // loops name the arrays directly, so their loads stay shared loads)
-  __shared__ __align__(16) float ub[BF16 ? KM : 4];
-  __shared__ __align__(16) float wb[BF16 ? LM : 4];
-  __shared__ float vals[LM], shift[LM], rinv[KM], red[2 * (NT / 32)];
-
-  const int n = blockIdx.x;
-  const int q = blockIdx.y;
-  const int tid = threadIdx.x;
-  const bool is_col = tid < LM;             // column thread l = tid
-  const int k = tid - LM;                   // row thread k (if !is_col)
-  const size_t nl = (size_t)N * L;
-  const float* gq = g + (size_t)q * VR * nl + (size_t)n * L;
-
-  for (int i = tid; i < VR * L; i += NT) {
-    int kk = i / L, l = i % L;
-    Gs[kk * (LM + 1) + l] = gq[(size_t)kk * nl + l];
-  }
-  if (is_col) {
-    vals[tid] = tid < L ? val[(size_t)n * L + tid] : 0.f;
-  } else {
-    rinv[k] = k < VR ? safe_inv(r[(size_t)q * VR + k]) : 0.f;
-  }
-  __syncthreads();
-
-  float reg[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    float v = 0.f;
-    if (is_col) {
-      if (i < KM && i < VR && tid < L) v = Gs[i * (LM + 1) + tid];
-    } else {
-      if (i < LM && i < L && k < VR) v = Gs[k * (LM + 1) + i];
-    }
-    reg[i] = v;
-  }
-
-  float sh = 0.f;
-  if (is_col) {
-    if (log_domain && tid < L) {
-      float m = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < KM; ++i)
-        if (i < VR) m = fmaxf(m, reg[i]);
-      sh = isfinite(m) ? m : 0.f;
-    }
-    shift[tid] = sh;
-  }
-  __syncthreads();
-  if (log_domain) {
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      bool in = is_col ? (i < KM && i < VR && tid < L)
-                       : (i < LM && i < L && k < VR);
-      float s = is_col ? sh : shift[i < LM ? i : 0];
-      reg[i] = (in && isfinite(reg[i])) ? expf(reg[i] - s) : 0.f;
-    }
-  }
-
-  // live rows of this doc: any G != 0 (pad rows are all zero)
-  bool live = false;
-  if (!is_col && k < VR) {
-#pragma unroll
-    for (int i = 0; i < LM; ++i) live = live || reg[i] != 0.f;
-  }
-  const int cnt = __syncthreads_count(live);
-  if (!is_col) {
-    us[k] = live ? safe_inv(1.f / (float)cnt) : 0.f;
-    if constexpr (BF16) ub[k] = rnd<BF16>(us[k]);
-  }
-  // under BF16 the registers take the rounded operands, G/r on the rows
-  if constexpr (BF16) {
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-      reg[i] = rnd<BF16>(is_col ? reg[i] : reg[i] * rinv[k < KM ? k : 0]);
-  }
-  const bool in_scope =
-      is_col && tid < L && vals[tid] > 0.f &&
-      (resmask == nullptr || resmask[(size_t)q * N + n] > 0.f);
-  __syncthreads();
-
-  float w_cur = 0.f, w_prev = 0.f;   // column thread: this pass's w, and
-                                     // its w at the last decision
-  int end = check_every > 0 ? INT_MAX : n_iter, next = 1;
-  for (int done = 0;; ++done) {
-    if (is_col) {                                           // SDDMM
-      float t = 0.f;
-#pragma unroll
-      for (int i = 0; i < KM / 4; ++i) {
-        const float4 u = BF16 ? reinterpret_cast<const float4*>(ub)[i]
-                              : reinterpret_cast<const float4*>(us)[i];
-        t = fmaf(reg[4 * i + 0], u.x, t);
-        t = fmaf(reg[4 * i + 1], u.y, t);
-        t = fmaf(reg[4 * i + 2], u.z, t);
-        t = fmaf(reg[4 * i + 3], u.w, t);
-      }
-      const float v = vals[tid];
-      const float inv = log_domain ? safe_inv(t) : 1.f / t;
-      w_cur = v > 0.f ? v * inv : 0.f;
-      ws[tid] = w_cur;
-      if constexpr (BF16) wb[tid] = rnd<BF16>(w_cur);
-    }
-    __syncthreads();
-    if (done >= end) break;         // last pass: u and w for the distance
-    if (!is_col) {                                          // SpMM
-      // read here, not hoisted: a loop-invariant 1/r lets the compiler
-      // keep every G/r product in registers beside G, which costs
-      // occupancy (K1 ran 39% slower at the main path's chunk, H100)
-      const float ri = BF16 ? 1.f : rinv[k];
-      float x = 0.f;
-#pragma unroll
-      for (int i = 0; i < LM / 4; ++i) {
-        const float4 w = BF16 ? reinterpret_cast<const float4*>(wb)[i]
-                              : reinterpret_cast<const float4*>(ws)[i];
-        x = fmaf(reg[4 * i + 0] * ri, w.x, x);
-        x = fmaf(reg[4 * i + 1] * ri, w.y, x);
-        x = fmaf(reg[4 * i + 2] * ri, w.z, x);
-        x = fmaf(reg[4 * i + 3] * ri, w.w, x);
-      }
-      const float u = k < VR ? safe_inv(x) : 0.f;
-      us[k] = u;
-      if constexpr (BF16) ub[k] = rnd<BF16>(u);
-    }
-    __syncthreads();
-    if (check_every > 0 && done + 1 == next) {              // decide
-      const float diff = in_scope ? fabsf(w_cur - w_prev) : 0.f;
-      const float scale = in_scope ? fabsf(w_cur) : 0.f;
-      w_prev = w_cur;
-      const bool conv = done > 0 && converged<NT>(diff, scale, tol, red);
-      if (conv || done + 1 >= n_iter) {
-        end = done + 1;
-      } else {
-        next = done + 1 + check_every;
-      }
-    }
-  }
-
-  // distance line on the row threads: u[k] sum_l GM[k,l] w[l]
-  float part = 0.f;
-  if (!is_col && k < VR) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < LM; ++i) {
-      float gv = reg[i];
-      if constexpr (BF16) {         // the unrounded G, as the tile gave it
-        const float raw = i < L ? Gs[k * (LM + 1) + i] : 0.f;
-        gv = !log_domain ? raw
-             : (i < L && isfinite(raw)) ? expf(raw - shift[i]) : 0.f;
-      }
-      const float gm = gv > 0.f ? (-gv * logf(gv)) / lam : 0.f;
-      s = fmaf(gm, ws[i], s);
-    }
-    part = us[k] * s;
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    part += __shfl_down_sync(0xffffffffu, part, off);
-  if ((tid & 31) == 0) red[tid >> 5] = part;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.f;
-    for (int i = 0; i < NT / 32; ++i) total += red[i];
-    if (log_domain) {
-      float corr = 0.f;
-      for (int l = 0; l < L; ++l) corr = fmaf(shift[l], vals[l], corr);
-      total -= corr / lam;
-    }
-    wmd[(size_t)q * N + n] = total;
-    if (iters != nullptr)
-      atomicMax(iters + (size_t)q * ((N + block_n - 1) / block_n) +
-                    n / block_n,
-                end);
-  }
-}
-
 // Variant for a (v_r, L) tile over the per-block shared-memory limit (for
 // example 256 query rows against 256 doc slots, 263 KB): G stays in device
 // memory and every pass reads it there, so only u, x, 1/r, w, val, the
@@ -677,8 +472,9 @@ sinkhorn_fused_global_kernel(const float* __restrict__ g,
 //   from the exponentiated G as the other variants do.
 // - fp32 SpMM: x[k] = (1/r[k]) * sum_l G[k,l] w[l] (the other variants
 //   multiply G by 1/r per element; a rounding apart). bf16: the registers
-//   hold round(G) and round(G/r) as in the register variant, and the
-//   distance line reads the unrounded G from the slot.
+//   hold round(G) (columns) and round(G/r) (rows), u and w are kept both
+//   unrounded and rounded, and the distance line reads the unrounded G
+//   from the slot.
 // - The decision reductions are warp shuffles that propagate NaN; the
 //   final sum is a fixed-order shuffle tree.
 constexpr int kWarpsPerBlock = 4;
@@ -1122,20 +918,6 @@ cudaError_t launch_warp_class(const Args& a, cudaStream_t s) {
   return launch_warp<1, 1, BF16, false>(a, s);
 }
 
-template <int KM, int LM, bool BF16>
-cudaError_t launch_reg(const Args& a, cudaStream_t stream) {
-  dim3 grid(a.N, a.Q);
-  sinkhorn_fused_reg_kernel<KM, LM, BF16><<<grid, KM + LM, 0, stream>>>(
-      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.VR, a.N, a.L, a.n_iter,
-      a.lam, a.log_domain, a.block_n, a.tol, a.check_every);
-  return cudaGetLastError();
-}
-
-bool fits_registers(int VR, int L) { return VR <= 64 && L <= 64; }
-
-// the card's per-block shared-memory limit (227 KB on the H100)
-constexpr long long kMaxSmem = 232448;
-
 long long smem_bytes(int VR, int L) {
   return (long long)sizeof(float) *
          ((long long)VR * (L | 1) + 3LL * VR + 4LL * L + 2 * kThreads / 32);
@@ -1147,18 +929,12 @@ long long global_smem_bytes(int VR, int L) {
 }
 
 // Variant: 0 ("auto") picks the warp-per-tile kernel when the tile fits
-// 64 x 64, else the shared-memory one when the tile fits the per-block
-// limit, else the one that reads G from device memory; 1 asks for the
-// register-resident kernel (the tile must fit 64 x 64), 2 for the
-// shared-memory one, 3 for the device-memory one, 4 for the warp-per-tile
-// one (the tile must fit 64 x 64).
+// 64 x 64, else the shared-memory one while two of its blocks fit an SM,
+// else the one that reads G from device memory; 1 asks for the
+// warp-per-tile kernel (the tile must fit 64 x 64), 2 for the
+// shared-memory one, 3 for the device-memory one.
 bool use_warp(int VR, int L, int variant) {
-  return variant == 4 || (variant == 0 && fits_warp(VR, L));
-}
-
-bool use_registers(int VR, int L, int variant) {
-  return variant == 1 || (variant == 0 && !use_warp(VR, L, variant) &&
-                          fits_registers(VR, L));
+  return variant == 1 || (variant == 0 && fits_warp(VR, L));
 }
 
 // The shared-memory variant's block shares its SM with a second one up to
@@ -1171,7 +947,7 @@ constexpr long long kTwoBlockSmem = 115712;
 
 bool use_global(int VR, int L, int variant) {
   return variant == 3 ||
-         (variant == 0 && !fits_warp(VR, L) && !fits_registers(VR, L) &&
+         (variant == 0 && !fits_warp(VR, L) &&
           smem_bytes(VR, L) > kTwoBlockSmem);
 }
 
@@ -1191,13 +967,6 @@ cudaError_t launch_dyn(K kernel, int threads, size_t smem, const Args& a,
 template <bool BF16>
 cudaError_t launch(const Args& a, int variant, cudaStream_t s) {
   if (use_warp(a.VR, a.L, variant)) return launch_warp_class<BF16>(a, s);
-  if (use_registers(a.VR, a.L, variant)) {
-    const bool k32 = a.VR <= 32, l32 = a.L <= 32;
-    if (k32 && l32) return launch_reg<32, 32, BF16>(a, s);
-    if (k32) return launch_reg<32, 64, BF16>(a, s);
-    if (l32) return launch_reg<64, 32, BF16>(a, s);
-    return launch_reg<64, 64, BF16>(a, s);
-  }
   if (use_global(a.VR, a.L, variant))
     return launch_dyn(sinkhorn_fused_global_kernel<BF16>, kGThreads,
                       (size_t)global_smem_bytes(a.VR, a.L), a, s);
@@ -1207,12 +976,11 @@ cudaError_t launch(const Args& a, int variant, cudaStream_t s) {
 
 }  // namespace
 
-// Dynamic shared-memory bytes one block of the chosen variant needs (0 for
-// the register-resident one, whose shared memory is static). The wrapper
-// refuses shapes above the card's per-block limit before launching.
+// Dynamic shared-memory bytes one block of the chosen variant needs. The
+// wrapper refuses shapes above the card's per-block limit before
+// launching.
 extern "C" long long sinkhorn_fused_smem_bytes(int VR, int L, int variant) {
   if (use_warp(VR, L, variant)) return warp_smem_bytes(VR, L);
-  if (use_registers(VR, L, variant)) return 0;
   return use_global(VR, L, variant) ? global_smem_bytes(VR, L)
                                     : smem_bytes(VR, L);
 }
@@ -1229,8 +997,8 @@ extern "C" int sinkhorn_fused_batched_launch(
     float lam, int log_domain, int block_n, float tol, int check_every,
     int bf16, int variant, void* stream) {
   if (Q == 0 || N == 0) return 0;
-  if ((variant == 1 && !fits_registers(VR, L)) ||
-      (variant == 4 && !fits_warp(VR, L)) || (long long)Q * N >= (1 << 30))
+  if (variant < 0 || variant > 3 || (variant == 1 && !fits_warp(VR, L)) ||
+      (long long)Q * N >= (1 << 30))
     return (int)cudaErrorInvalidValue;
   const Args a{g,  val, r,      resmask,    wmd,     iters, Q,
                VR, N,   L,      n_iter,     lam,     log_domain,

@@ -4,12 +4,10 @@ path :func:`sinkhorn_wmd_kernel` built from them.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch (the kernels allocate nothing), launches on the current
 CUDA stream, raises if the launch failed, and adds one to its
-``launches`` counter for each kernel launch (``rwmd_min_cdist_subset``
-and the per-query ``rwmd_min_cdist`` launch once per 128 support rows,
-the stacked ``rwmd_min_cdist`` once per 64 queries, the others once per
-call; ``bsr_sddmm`` counts its launch under
-``bsr_sddmm_blocks``). A tensor on the CPU goes to the plain version in
-:mod:`.ref` instead (and does not count); a CUDA tensor always launches
+``launches`` counter for each kernel launch (``rwmd_min_cdist`` once per
+64 queries, the others once per call; ``bsr_sddmm`` counts its launch
+under ``bsr_sddmm_blocks``). A tensor on the CPU goes to the plain
+version in :mod:`.ref` instead (and does not count); a CUDA tensor always launches
 the kernel — there is no fallback.
 """
 from __future__ import annotations
@@ -22,9 +20,6 @@ from . import ref
 
 # per-block dynamic shared memory limit of the H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
-# support rows per launch of the per-query K2 and of K2s (kMaxB in
-# rwmd_min_cdist.cu); a wider query runs as one launch per chunk
-RWMD_SUPPORT_CHUNK = 128
 # queries per launch of the stacked K2 (kStMaxQ in rwmd_min_cdist.cu); more
 # queries run as one launch per slice
 RWMD_STACKED_MAX_Q = 64
@@ -78,19 +73,12 @@ def _rwmd_checks(a, mask, b) -> None:
 
 
 def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
-                   vocab_ids: torch.Tensor | None = None,
-                   design: str = "stacked") -> torch.Tensor:
+                   vocab_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Masked min-over-support cdist (the RWMD prune stage).
     a (Q, B, w), mask (Q, B), b (V, w) -> minM (Q, V); all-masked rows
-    come out +inf.
-
-    ``design`` picks the kernel on the card: ``"stacked"`` (one launch per
-    RWMD_STACKED_MAX_Q queries; a block per vocabulary tile serves every
-    live row of its queries, so b is read once per launch) or
-    ``"per_query"`` (the earlier design, kept for timing the two side by
-    side: a block per (vocabulary tile, query), one launch per 128 support
-    rows, each folding its min into the output). Both compute the same
-    function.
+    come out +inf. On the card one launch per RWMD_STACKED_MAX_Q queries:
+    a block per vocabulary tile serves every live row of its queries, so
+    b is read once per launch.
 
     ``vocab_ids`` (Vc,) int64 switches to K2s
     (:func:`rwmd_min_cdist_subset`): only those rows of b, and the result
@@ -98,21 +86,16 @@ def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
     if vocab_ids is not None:
         return rwmd_min_cdist_subset(a, mask, b, vocab_ids)
     _rwmd_checks(a, mask, b)
-    if design not in ("stacked", "per_query"):
-        raise ValueError(f"design must be 'stacked' or 'per_query', got "
-                         f"{design!r}")
     q, bq, w = a.shape
     dev = a.device
     if dev.type == "cpu":
         return ref.rwmd_min_cdist_ref(a, mask, b)
-    stacked = design == "stacked"
     v = b.shape[0]
     out = torch.empty((q, v), dtype=torch.float32, device=dev)
     _raise_on(_lib().rwmd_min_cdist_launch(
-        _ptr(a), _ptr(mask), _ptr(b), _ptr(out), q, bq, w, v, int(stacked),
-        _stream(dev)), "rwmd_min_cdist")
-    rwmd_min_cdist.launches += (-(-q // RWMD_STACKED_MAX_Q) if stacked
-                                else -(-bq // RWMD_SUPPORT_CHUNK))
+        _ptr(a), _ptr(mask), _ptr(b), _ptr(out), q, bq, w, v, _stream(dev)),
+        "rwmd_min_cdist")
+    rwmd_min_cdist.launches += -(-q // RWMD_STACKED_MAX_Q)
     return out
 
 
@@ -126,7 +109,7 @@ def rwmd_min_cdist_subset(a: torch.Tensor, mask: torch.Tensor,
     ``b[vocab_ids]`` only. a (Q, B, w), mask (Q, B), b (V, w), vocab_ids
     (Vc,) int64 with every id in [0, V) -> (Q, Vc) in ``vocab_ids`` order.
     The kernel gathers the rows in its load; no (Vc, w) copy is made. Vc
-    needs no padding. Launches as K2 does, once per 128 support rows.
+    needs no padding. One launch at any B and Vc (at most 65535 queries).
     On the CPU an id outside [0, V) raises ``ValueError``; the card does
     not check them (that would cost a sync per launch), so a caller on the
     card checks its ids on the host, as the cascade does."""
@@ -144,7 +127,8 @@ def rwmd_min_cdist_subset(a: torch.Tensor, mask: torch.Tensor,
     _raise_on(_lib().rwmd_min_cdist_subset_launch(
         _ptr(a), _ptr(mask), _ptr(b), _ptr(vocab_ids), _ptr(out), q, bq, w,
         b.shape[0], vc, _stream(dev)), "rwmd_min_cdist_subset")
-    rwmd_min_cdist_subset.launches += -(-bq // RWMD_SUPPORT_CHUNK)
+    if q and vc:
+        rwmd_min_cdist_subset.launches += 1
     return out
 
 
@@ -345,14 +329,14 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
 
     ``tile`` picks the kernel's variant on the card: ``"warp"`` (one warp
     per (query, doc) tile, asynchronous tile loads, inert docs skipped, up
-    to 64 x 64), ``"registers"`` (a block per tile, the tile in
-    registers, up to 64 x 64), ``"shared"`` (in shared memory, up to the
-    per-block limit), ``"global"`` (G read from device memory at every
-    pass, any size) or ``"auto"`` (warp where the tile fits, else shared
-    memory where it fits, else global). All compute the same function;
-    the engine always passes ``"auto"``, and the others let tests and
-    ``chip_smoke.py`` hold and time the variants against each other at
-    one shape.
+    to 64 x 64; ``"registers"`` is an alias of it, the name of the
+    block-per-tile design it replaced), ``"shared"`` (in shared memory,
+    up to the per-block limit), ``"global"`` (G read from device memory
+    at every pass, any size) or ``"auto"`` (warp where the tile fits,
+    else shared memory while two of its blocks fit an SM, else global).
+    All compute the same function; the engine always passes ``"auto"``,
+    and the others let tests and ``chip_smoke.py`` hold and time the
+    variants against each other at one shape.
     """
     dev = g.device
     _check("g", g, 4, torch.float32, dev)
@@ -387,7 +371,7 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
 
 
 sinkhorn_fused_all_batched.launches = 0
-_TILES = {"auto": 0, "registers": 1, "shared": 2, "global": 3, "warp": 4}
+_TILES = {"auto": 0, "warp": 1, "registers": 1, "shared": 2, "global": 3}
 
 
 def sinkhorn_wmd_kernel(r: torch.Tensor, vecs_sel: torch.Tensor,

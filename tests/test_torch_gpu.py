@@ -51,7 +51,7 @@ def test_rwmd_min_cdist_matches_plain(rng, b):
     (24, 28, "shared")])
 def test_sinkhorn_fused_matches_plain(rng, log_domain, v_r, length, tile):
     """(96, 40) and tile="shared" take the shared-memory variant, the
-    others the register-resident one."""
+    others the warp-per-tile one."""
     dev = _card()
     q, n, lam = 3, 700, 4.0
     m = rng.uniform(0.1, 1.5, (q, v_r, n, length))
@@ -80,13 +80,16 @@ def test_sinkhorn_fused_matches_plain(rng, log_domain, v_r, length, tile):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("v_r", [5, 19, 43, 64, 200])
+@pytest.mark.parametrize("v_r,w", [(5, 300), (19, 300), (43, 300),
+                                   (64, 300), (200, 300), (23, 61),
+                                   (70, 61)])
 @pytest.mark.parametrize("mode", ["full", "k_only", "log_k"])
-def test_cdist_exp_matches_plain(rng, v_r, mode):
-    """v_r=200 runs as four row tiles; V=5001 takes the scalar-store edge.
-    The query words are vocabulary rows, so exact matches (d ~ 0) occur."""
+def test_cdist_exp_matches_plain(rng, v_r, w, mode):
+    """v_r=200 runs as four row tiles, 70 as two; V=5001 is no multiple of
+    the 128-row vocabulary tile; w=61 takes the 4-byte copies. The query
+    words are vocabulary rows, so exact matches (d ~ 0) occur."""
     dev = _card()
-    v, w = 5001, 300
+    v = 5001
     vocab = torch.tensor(rng.standard_normal((v, w)), dtype=torch.float32,
                          device=dev)
     a = vocab[torch.as_tensor(rng.choice(v, v_r, replace=False),
@@ -195,12 +198,17 @@ def test_one_to_many_on_card_matches_host(impl):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,vc", [(24, 1000), (48, 128), (200, 3000)])
-def test_rwmd_min_cdist_subset_matches_plain(rng, b, vc):
+@pytest.mark.parametrize("b,vc,w", [(24, 1000, 300), (48, 128, 300),
+                                    (200, 3000, 300), (24, 77, 61),
+                                    (130, 45, 61), (65, 2048, 300)])
+def test_rwmd_min_cdist_subset_matches_plain(rng, b, vc, w):
     """K2s: ids in any order, with repeats (the cascade pads with
-    vids[0]) and a ragged last tile; b=200 runs as two launches."""
+    vids[0]), a Vc that is no multiple of the 32-column tile, an
+    all-masked query, w=61 (4-byte copies), and more than 128 support
+    rows (b=130, 200: passes of 128 rows inside the block; b=65 fills
+    nine of the block's 16 row warps); one launch at every shape."""
     dev = _card()
-    q, w, v = 4, 300, 20000
+    q, v = 4, 20000
     a = torch.tensor(rng.standard_normal((q, b, w)), dtype=torch.float32,
                      device=dev)
     mask = torch.tensor(rng.random((q, b)) > 0.3, dtype=torch.float32,
@@ -215,7 +223,7 @@ def test_rwmd_min_cdist_subset_matches_plain(rng, b, vc):
     before = ops.rwmd_min_cdist_subset.launches
     got = ops.rwmd_min_cdist(a, mask, vocab, vocab_ids=ids)
     torch.cuda.synchronize()
-    assert ops.rwmd_min_cdist_subset.launches == before + -(-b // 128)
+    assert ops.rwmd_min_cdist_subset.launches == before + 1
     assert got.shape == (q, vc)
     want = ref.rwmd_min_cdist_subset_ref(a, mask, vocab, ids)
     assert torch.isinf(got[-1]).all()
@@ -358,13 +366,15 @@ def test_sinkhorn_fused_all_adaptive_matches_plain(rng, gemm, log_domain):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("v_r", [5, 43, 200])
+@pytest.mark.parametrize("v_r,w", [(5, 300), (43, 300), (200, 300),
+                                   (23, 61), (70, 61)])
 @pytest.mark.parametrize("mode", ["full", "k_only", "log_k"])
-def test_cdist_exp_bf16_matches_plain(rng, v_r, mode):
+def test_cdist_exp_bf16_matches_plain(rng, v_r, w, mode):
     """K3's bf16 operands against the plain version, held in squared
-    distance as the fp32 kernel is (ref.hold_cdist_exp, P1)."""
+    distance as the fp32 kernel is (ref.hold_cdist_exp, P1), at the fp32
+    test's edges."""
     dev = _card()
-    v, w = 5001, 300
+    v = 5001
     vocab = torch.tensor(rng.standard_normal((v, w)), dtype=torch.float32,
                          device=dev)
     a = vocab[torch.as_tensor(rng.choice(v, v_r, replace=False),
@@ -373,9 +383,11 @@ def test_cdist_exp_bf16_matches_plain(rng, v_r, mode):
     r = torch.tensor(rw / rw.sum(), dtype=torch.float32, device=dev)
     k_only, log_k = mode != "full", mode == "log_k"
     lam = 10.0 if log_k else 1.0
+    before = ops.cdist_exp.launches
     got = ops.cdist_exp(a, vocab, r, lam, k_only=k_only, log_k=log_k,
                         gemm="bf16")
     torch.cuda.synchronize()
+    assert ops.cdist_exp.launches == before + 1
     ref.hold_cdist_exp(got, a, vocab, r, lam, k_only, log_k, gemm="bf16")
 
 
@@ -516,15 +528,14 @@ def test_einsum_engine_and_kcache_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("design", ["stacked", "per_query"])
 @pytest.mark.parametrize("q,b,v,w", [(4, 19, 5003, 300), (4, 24, 5003, 300),
                                      (2, 200, 5003, 300),
                                      (16, 48, 3000, 300), (3, 24, 1000, 61),
                                      (65, 19, 5003, 300),
                                      (130, 24, 3000, 300)])
-def test_rwmd_min_cdist_designs_match_plain(rng, design, q, b, v, w):
-    """K2's two designs: live rows that straddle queries (b of 19 and 24
-    put two queries' rows in one 8-row group), an all-masked query, more
+def test_rwmd_min_cdist_designs_match_plain(rng, q, b, v, w):
+    """K2's stacked-query kernel: live rows that straddle queries (b of 19
+    and 24 put two queries' rows in one 8-row group), an all-masked query, more
     live rows than one stacked group (b = 200), a ragged V, w = 61 (not a
     multiple of 4: the stacked kernel's 4-byte copies), and more queries
     than one stacked launch holds (65 and 130: a launch per 64). The query
@@ -540,10 +551,9 @@ def test_rwmd_min_cdist_designs_match_plain(rng, design, q, b, v, w):
     mask[:, 0] = 1.0
     mask[1] = 0.0                             # an all-masked query
     before = ops.rwmd_min_cdist.launches
-    got = ops.rwmd_min_cdist(a, mask, vocab, design=design)
+    got = ops.rwmd_min_cdist(a, mask, vocab)
     torch.cuda.synchronize()
-    n_launch = -(-q // 64) if design == "stacked" else -(-b // 128)
-    assert ops.rwmd_min_cdist.launches == before + n_launch
+    assert ops.rwmd_min_cdist.launches == before + -(-q // 64)
     want = ref.rwmd_min_cdist_ref(a, mask, vocab)
     assert torch.isinf(got[1]).all()
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
@@ -589,7 +599,8 @@ def test_sinkhorn_fused_warp_matches_plain(rng, gemm, log_domain, v_r,
     solve is skipped: distance 0, the count of ref.inert_doc_iters);
     fixed and adaptive with a resmask, fp32 and bf16, linear and log,
     against the plain version (ref.hold_solve); fixed-mode counts equal.
-    L = 13 takes the 4-byte copies."""
+    L = 13 takes the 4-byte copies. tile="registers" is an alias of
+    "warp"."""
     dev = _card()
     q, n, lam = 3, 701, 1.0
     g, val, r = _euclid_inputs(rng, dev, q, v_r, n, length, lam, log_domain)
@@ -599,7 +610,7 @@ def test_sinkhorn_fused_warp_matches_plain(rng, gemm, log_domain, v_r,
                  dict(tol=3e-2, check_every=3)):
         want_idle = ref.inert_doc_iters(30, opts.get("tol"),
                                         opts.get("check_every", 4))
-        for tile in ("warp", "auto"):
+        for tile in ("warp", "registers", "auto"):
             got, iters = ops.sinkhorn_fused_all_batched(
                 g, val, r, lam, 30, log_domain=log_domain, gemm=gemm,
                 with_iters=True, tile=tile, block_n=64, **opts)

@@ -41,17 +41,29 @@ def test_rwmd_min_cdist_plain_matches_reference(rng):
     np.testing.assert_allclose(got, oracle, **K2_TOL)
 
 
-@pytest.mark.parametrize("b_rows", [12, 200])
-def test_rwmd_min_cdist_subset_plain_matches_pallas(rng, b_rows):
+@pytest.mark.parametrize("b_rows,w,n_ids,edge", [
+    (12, 40, 70, None), (200, 40, 70, None), (24, 40, 45, "repeats"),
+    (24, 61, 70, "dead_query"), (130, 40, 33, "dead_query")],
+    ids=["12", "200", "vc_ragged_repeats", "w61_dead_query",
+         "b130_dead_query"])
+def test_rwmd_min_cdist_subset_plain_matches_pallas(rng, b_rows, w, n_ids,
+                                                    edge):
     """K2s's plain version (and the wrapper's vocab_ids path on the CPU)
     against the Pallas rwmd_min_cdist_subset in interpret mode, at
-    tests/test_ivf.py's shapes and tolerance; b_rows=200 is a query wider
-    than one launch's 128 support rows on the card."""
-    a = rng.standard_normal((3, b_rows, 40)).astype(np.float32)
-    b = rng.standard_normal((300, 40)).astype(np.float32)
+    tests/test_ivf.py's shapes and tolerance, on the card kernel's edges:
+    a Vc that is no multiple of its 32-column tile, repeated ids (the
+    cascade pads its tail with the first id), a query with every row
+    masked (+inf), more than 128 support rows (passes of 128 rows on the
+    card), and w = 61 (no multiple of 4: the card's 4-byte copies)."""
+    a = rng.standard_normal((3, b_rows, w)).astype(np.float32)
+    b = rng.standard_normal((300, w)).astype(np.float32)
     mask = (rng.random((3, b_rows)) > 0.3).astype(np.float32)
     mask[:, 0] = 1.0
-    vids = np.unique(rng.integers(0, 300, 70)).astype(np.int32)
+    vids = np.unique(rng.integers(0, 300, n_ids)).astype(np.int32)
+    if edge == "repeats":
+        vids[-len(vids) // 4:] = vids[0]
+    if edge == "dead_query":
+        mask[1] = 0.0
     ta, tm, tb = map(torch.from_numpy, (a, mask, b))
     tv = torch.from_numpy(vids.astype(np.int64))
     got = ops.rwmd_min_cdist(ta, tm, tb, vocab_ids=tv).numpy()
@@ -60,6 +72,8 @@ def test_rwmd_min_cdist_subset_plain_matches_pallas(rng, b_rows):
         jnp.asarray(a), jnp.asarray(mask), jnp.asarray(b), block_v=128,
         interpret=True, vocab_ids=jnp.asarray(vids)))
     assert got.shape == pallas.shape == (3, vids.size)
+    if edge == "dead_query":
+        assert np.isinf(got[1]).all() and np.isinf(pallas[1]).all()
     np.testing.assert_array_equal(got, plain)
     np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-4)
     full = ops.rwmd_min_cdist(ta, tm, tb).numpy()
@@ -321,23 +335,24 @@ def test_k1_tiles_compute_one_function_on_the_host(rng, tile):
 
 
 def test_k2_designs_are_checked(rng):
-    """K2's two designs compute one function (on the host, the plain
-    version), at any number of queries (the stacked kernel runs a launch
-    per RWMD_STACKED_MAX_Q of them); an unknown design raises."""
+    """K2 has one design, the stacked-query kernel, at any number of
+    queries (a launch per RWMD_STACKED_MAX_Q of them on the card): more
+    queries than one launch holds equal the plain version query by query,
+    and the removed ``design`` keyword raises TypeError."""
     a, mask, b = map(torch.from_numpy, _k2_inputs(rng))
-    for design in ("stacked", "per_query"):
-        torch.testing.assert_close(
-            ops.rwmd_min_cdist(a, mask, b, design=design),
-            ops.rwmd_min_cdist(a, mask, b))
-    with pytest.raises(ValueError, match="design must be"):
-        ops.rwmd_min_cdist(a, mask, b, design="tiled")
+    with pytest.raises(TypeError):
+        ops.rwmd_min_cdist(a, mask, b, design="stacked")
     q = ops.RWMD_STACKED_MAX_Q + 1
-    many = torch.from_numpy(rng.standard_normal((q, 2, a.shape[2])).astype(
+    many = torch.from_numpy(rng.standard_normal((q, 3, a.shape[2])).astype(
         np.float32))
-    ones = torch.ones((q, 2))
-    torch.testing.assert_close(
-        ops.rwmd_min_cdist(many, ones, b, design="stacked"),
-        ref.rwmd_min_cdist_ref(many, ones, b))
+    live = torch.from_numpy((rng.random((q, 3)) > 0.3).astype(np.float32))
+    live[:, 0] = 1.0
+    got = ops.rwmd_min_cdist(many, live, b)
+    assert got.shape == (q, b.shape[0])
+    for qi in range(q):
+        torch.testing.assert_close(
+            got[qi], ref.rwmd_min_cdist_ref(many[qi:qi + 1],
+                                            live[qi:qi + 1], b)[0])
 
 
 # ----------------------------------------------------------- K3 cdist_exp
@@ -347,11 +362,15 @@ def _t(*arrays):
 
 @pytest.mark.parametrize("v_r,v,w", [(8, 256, 128), (19, 512, 300),
                                      (43, 384, 64), (5, 128, 32),
-                                     (64, 1024, 256)])
+                                     (64, 1024, 256), (23, 200, 61),
+                                     (70, 300, 300)])
 @pytest.mark.parametrize("mode", ["full", "k_only", "log_k"])
 def test_cdist_exp_plain_matches_pallas(rng, v_r, v, w, mode):
     """tests/test_kernels.py's shapes and tolerances, in the three modes
-    (lam=5; log_k emits -lam*M, so its tolerance scales by lam)."""
+    (lam=5; log_k emits -lam*M, so its tolerance scales by lam), and the
+    card kernel's edges: w = 61 (no multiple of 4: its 4-byte copies) with
+    V = 200 (no multiple of its 128-row vocabulary tile), and v_r = 70
+    (two row tiles of 64)."""
     a = rng.standard_normal((v_r, w)).astype(np.float32)
     b = rng.standard_normal((v, w)).astype(np.float32)
     r = rng.uniform(0.01, 1.0, v_r).astype(np.float32)
@@ -500,7 +519,8 @@ def test_unported_one_query_options_raise(rng, call):
 
 
 @pytest.mark.parametrize("v_r,v,w", [(8, 256, 128), (19, 512, 300),
-                                     (64, 1024, 256)])
+                                     (64, 1024, 256), (23, 200, 61),
+                                     (70, 300, 300)])
 @pytest.mark.parametrize("mode", ["k_only", "log_k"])
 def test_cdist_exp_bf16_plain_matches_pallas(rng, v_r, v, w, mode):
     """gemm="bf16": bf16 operands for a.b, fp32 norms and sums, against
