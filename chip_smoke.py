@@ -13,8 +13,9 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
 - the paper's one-query workload, ``one_to_many`` with all five impls
   (``impl="kernel"`` runs K3 and K4), checked against ``impl="dense"``,
   and ``many_to_many`` against the per-query loop;
-- the fused step ``ops.sddmm_spmm_step`` (K5) looped as a solve,
-  checked against the sparse solver's iteration;
+- the fused step ``ops.sddmm_spmm_step`` (K5) on the widest paper query
+  and a 200-word one, and looped as a solve, checked against the sparse
+  solver's iteration;
 - on the reference benchmark's near-duplicate corpus at the same widths
   (4992 documents, 4 queries), the IVF cascade ``search(prune="ivf+...",
   nprobe=...)`` (K2s and K1) and ``mode="refine"``, checked against the
@@ -819,13 +820,13 @@ def phase_k4(vecs, docs, r, vecs_sel) -> list[dict]:
     return recs
 
 
-def phase_k5(vecs, docs, r, vecs_sel) -> dict:
-    """K5 on one paper query's G and G/r from the uniform start, then its
-    path: ``CONFIG.n_iter`` steps through ``ops.sddmm_spmm_step`` against
-    the sparse solver's fused loop."""
-    pre = precompute_sparse(r, vecs_sel, vecs, docs, 1.0)
+def k5_check(pre, x0, label: str) -> dict:
+    """K5 once on ``pre``'s G and G/r from ``x0`` against its plain
+    version; its time, and its two bounds: the bytes its data needs (G and
+    G/r at live slots, where w can be nonzero) and the bytes as laid out
+    (G and G/r at every slot, what the kernel reads), with the rate it
+    reads those at. The bound of the kernels line is the first."""
     v_r, n, length = pre.G.shape
-    x0 = torch.full((v_r, n), 1.0 / v_r, device=vecs.device)
 
     def kernel():
         return ops.sddmm_spmm_step(pre.G, pre.G_over_r, pre.val, x0)
@@ -835,34 +836,73 @@ def phase_k5(vecs, docs, r, vecs_sel) -> dict:
 
     got = kernel()
     torch.cuda.synchronize()
-    abs_err, rel_err = compare(got, plain(), K5_RTOL, K5_ATOL, "K5")
+    abs_err, rel_err = compare(got, plain(), K5_RTOL, K5_ATOL,
+                               f"K5 {label}")
     live_slots = float((pre.val > 0).sum())
     # G and G/r at live slots (w is 0 on pad slots, so neither is needed
     # there), val at live slots, x in, x' out
     n_bytes = 4.0 * (2 * v_r * live_slots + live_slots + 2 * v_r * n)
     bms, by = bound_ms(n_bytes, 4.0 * v_r * live_slots)
-    ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5, warmup=1)
+    laid_out = 4.0 * (2 * v_r * n * length + n * length + 2 * v_r * n)
+    ms = time_ms(kernel)
+    return {"label": label, "shape": {"v_r": v_r, "N": n, "L": length,
+                                      "live_slots": int(live_slots)},
+            "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "rtol": K5_RTOL, "atol": K5_ATOL, "ms": ms,
+            "launch_ms": launch_ms(kernel),
+            "plain_ms": time_ms(plain, reps=5, warmup=1),
+            "bound_ms": bms, "bound_by": by,
+            "bound_laid_out_ms": bound_ms(laid_out,
+                                          4.0 * v_r * n * length)[0],
+            "laid_out_tb_per_s": laid_out / (ms * 1e-3) / 1e12}
+
+
+def phase_k5(vecs, docs, r, vecs_sel) -> dict:
+    """K5 on one paper query's G and G/r from the uniform start, and on a
+    200-word query's; then its path: ``CONFIG.n_iter`` steps through
+    ``ops.sddmm_spmm_step`` against the sparse solver's fused loop, with
+    the path's device time."""
+    pre = precompute_sparse(r, vecs_sel, vecs, docs, 1.0)
+    v_r, n, length = pre.G.shape
+    x0 = torch.full((v_r, n), 1.0 / v_r, device=vecs.device)
+    paper = k5_check(pre, x0, "widest_paper_query")
+
+    def path():
+        x = x0
+        for _ in range(CONFIG.n_iter):
+            x = ops.sddmm_spmm_step(pre.G, pre.G_over_r, pre.val, x)
+        return x
 
     ops.reset_launches()                  # the path: a solve of K5 steps
-    x = x0
-    for _ in range(CONFIG.n_iter):
-        x = ops.sddmm_spmm_step(pre.G, pre.G_over_r, pre.val, x)
+    x = path()
     torch.cuda.synchronize()
     launches = ops.launches()
     path_err = compare(x, _iterate(pre, CONFIG.n_iter), 1e-4, 0.0,
                        "K5 path against the sparse solver's loop")
     if launches["sddmm_spmm_step"] != CONFIG.n_iter:
         raise AssertionError(f"K5 path launched {launches}")
+    path_ms = time_ms(path, reps=10)
+
+    rng = np.random.default_rng(4)
+    wide = torch.as_tensor(rng.choice(vecs.shape[0], 200, replace=False),
+                           device=vecs.device)
+    rw = rng.uniform(0.1, 1.0, 200)
+    pre200 = precompute_sparse(
+        torch.as_tensor(rw / rw.sum(), dtype=torch.float32,
+                        device=vecs.device),
+        vecs[wide].contiguous(), vecs, docs, 1.0)
+    del pre
+    wide_rec = k5_check(pre200, torch.full((200, n), 1.0 / 200,
+                                           device=vecs.device), "query_200")
+    del pre200
     rec = {"phase": "k5", "name": "sddmm_spmm_step", "lam": 1.0,
-           "shape": {"v_r": v_r, "N": n, "L": length,
-                     "live_slots": int(live_slots)},
-           "max_abs_err": abs_err, "max_rel_err": rel_err, "rtol": K5_RTOL,
-           "atol": K5_ATOL, "ms": ms, "launch_ms": launch_ms(kernel),
-           "plain_ms": plain_ms,
-           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           **{k: v for k, v in paper.items() if k != "label"},
+           "library_ms": None,
            "library": "none: no single PyTorch call computes an SDDMM "
                       "fused with an SpMM",
+           "query_200": wide_rec,
            "path": {"steps": CONFIG.n_iter, "launches": launches,
+                    "ms": path_ms,
                     "x_max_abs_and_rel_err_vs_sparse_loop": path_err}}
     emit(rec)
     return rec
@@ -2172,6 +2212,11 @@ def main() -> int:
     kernels[2]["full"] = {key: k3[0][key] for key in keys}
     kernels[2]["log_k_lam10"] = {key: k3[2][key] for key in keys}
     kernels[3]["log_lam10"] = {key: k4[1][key] for key in keys}
+    # K5: the 15-step path's device time, and a 200-word query
+    kernels[4]["path_ms"] = k5["path"]["ms"]
+    kernels[4]["query_200"] = {
+        **{key: k5["query_200"][key] for key in keys},
+        "shape": k5["query_200"]["shape"], "library_ms": None}
     # the adaptive and bf16 modes: K1's adaptive exit on the main path's
     # widest chunk, launched by an adaptive "ivf+wcd+rwmd" search of the
     # dedup queries; K3's and K4's bf16 operands and K4's adaptive exit,

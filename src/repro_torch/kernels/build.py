@@ -106,7 +106,7 @@ def load() -> ctypes.CDLL:
     lib.cdist_exp_launch.restype = i
     lib.sddmm_spmm_step_launch.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.sddmm_spmm_step_launch.restype = i
-    lib.sddmm_spmm_step_smem_bytes.argtypes = [i, i]
+    lib.sddmm_spmm_step_smem_bytes.argtypes = [i]
     lib.sddmm_spmm_step_smem_bytes.restype = ctypes.c_longlong
     lib.bsr_sddmm_blocks_launch.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.bsr_sddmm_blocks_launch.restype = i

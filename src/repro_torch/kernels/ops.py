@@ -192,11 +192,10 @@ def sddmm_spmm_step(g: torch.Tensor, g_over_r: torch.Tensor,
     if dev.type == "cpu":
         return ref.sddmm_spmm_step_ref(g, g_over_r, val, x)
     lib = _lib()
-    smem = lib.sddmm_spmm_step_smem_bytes(v_r, length)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"sddmm_spmm_step keeps u and w of four docs in "
-                         f"shared memory: v_r={v_r}, L={length} needs {smem} "
-                         f"B, the limit is {MAX_SMEM_BYTES}")
+    if lib.sddmm_spmm_step_smem_bytes(length) < 0:
+        raise ValueError(f"sddmm_spmm_step keeps each warp's w (L floats) "
+                         f"in shared memory: L={length} needs "
+                         f"{4 * length} B, the limit is {MAX_SMEM_BYTES}")
     out = torch.empty((v_r, n), dtype=torch.float32, device=dev)
     _raise_on(lib.sddmm_spmm_step_launch(
         _ptr(g), _ptr(g_over_r), _ptr(val), _ptr(x), _ptr(out), v_r, n,

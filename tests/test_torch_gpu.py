@@ -148,29 +148,85 @@ def test_sinkhorn_fused_all_matches_plain(rng, log_domain, v_r, length):
     torch.testing.assert_close(got, trimmed, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("v_r,n,length", [(8, 128, 128), (19, 64, 40),
-                                          (24, 5000, 28), (3, 32, 8),
-                                          (70, 256, 64)])
-def test_sddmm_spmm_step_matches_plain(rng, v_r, n, length):
-    """K5 at tests/test_kernels.py's shapes and tolerance, plus the
-    paper's one-query shape; zero x entries and all-pad docs are guarded."""
-    dev = _card()
+def _k5_inputs(rng, v_r, n, length, edge):
+    """K5's inputs (as tests/test_torch_kernels.py's): "last_live" ends
+    each doc's live slots at a slot drawn from 0 (all-pad) to L, with dead
+    slots inside; "x_zero" zeroes whole rows and columns of x;
+    "subnormal" adds to "last_live" a subnormal G column at a dead slot
+    past doc n - 4's last live one, so 1/t overflows and w = 0 * inf =
+    NaN there; "gr_inf" (the G/r inf is set by the test) makes doc n - 5's
+    last slot dead. The first n // 8 docs are all-pad in every case."""
     g = np.abs(rng.standard_normal((v_r, n, length))) + 0.1
     val = np.abs(rng.standard_normal((n, length)))
     val = np.where(val > 0.8, val, 0.0)
-    val[: n // 8] = 0.0                       # all-pad docs: t > 0, w = 0
     x = np.abs(rng.standard_normal((v_r, n))) + 0.5
     x[0, : n // 4] = 0.0                      # u = safe_inv(0) = 0
+    if edge in ("last_live", "subnormal", "gr_inf"):
+        ends = rng.integers(0, length + 1, n)
+        ends[-3:] = (0, length, 1)
+        for d, e in enumerate(ends):
+            val[d, e:] = 0.0
+            if e:
+                val[d, e - 1] = 1.0 + rng.random()
+    if edge == "x_zero":
+        x[v_r // 2] = 0.0
+        x[:, n // 2] = 0.0
+        x[rng.random((v_r, n)) < 0.1] = 0.0
+    if edge == "subnormal":
+        val[n - 4, 5:] = 0.0
+        g[:, n - 4, 9] = 1e-42
+    if edge == "gr_inf":
+        val[n - 5, length - 1] = 0.0
+    val[: n // 8] = 0.0                       # all-pad docs: t > 0, w = 0
+    return g, val, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v_r,n,length,edge", [
+    pytest.param(8, 128, 128, None, id="8-128-128"),
+    pytest.param(19, 64, 40, None, id="19-64-40"),
+    pytest.param(24, 5000, 28, None, id="24-5000-28"),
+    pytest.param(3, 32, 8, None, id="3-32-8"),
+    pytest.param(70, 256, 64, None, id="70-256-64"),
+    pytest.param(200, 5000, 28, "last_live", id="query_200"),
+    pytest.param(23, 5000, 28, "last_live", id="last_live"),
+    pytest.param(23, 700, 30, "last_live", id="last_live_l30"),
+    pytest.param(5, 480, 13, "last_live", id="last_live_l13"),
+    pytest.param(40, 640, 28, "last_live", id="vr40"),
+    pytest.param(70, 640, 36, "last_live", id="vr70_l36"),
+    pytest.param(23, 640, 28, "x_zero", id="x_zero"),
+    pytest.param(23, 640, 28, "subnormal", id="subnormal"),
+    pytest.param(23, 640, 30, "subnormal", id="subnormal_l30"),
+    pytest.param(23, 640, 28, "gr_inf", id="gr_inf"),
+    pytest.param(40, 640, 36, "gr_inf", id="gr_inf_vr40_l36")])
+def test_sddmm_spmm_step_matches_plain(rng, v_r, n, length, edge):
+    """K5 at tests/test_kernels.py's shapes and tolerance, the paper's
+    one-query shape and a 200-word query (seven row chunks), and the
+    edges of its design: each doc's last live slot from 0 to L, L no
+    multiple of 4 or over 32 (slot classes), v_r over 24, 32 and 64 (row
+    chunks), zero x, all-pad docs, a NaN w at a dead slot (subnormal t)
+    and an inf G/r entry at a dead slot (inf * 0): NaN where the plain
+    version has NaN, and only there."""
+    dev = _card()
     g, val, x = (torch.tensor(t, dtype=torch.float32, device=dev)
-                 for t in (g, val, x))
+                 for t in _k5_inputs(rng, v_r, n, length, edge))
     gor = g * 1.7
+    if edge == "gr_inf":
+        gor[3, n - 5, length - 1] = float("inf")
     before = ops.sddmm_spmm_step.launches
     got = ops.sddmm_spmm_step(g, gor, val, x)
     torch.cuda.synchronize()
     assert ops.sddmm_spmm_step.launches == before + 1
     want = ref.sddmm_spmm_step_ref(g, gor, val, x)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    if edge == "subnormal":
+        assert nan[:, n - 4].all() and int(nan.sum()) == v_r
+    elif edge == "gr_inf":
+        assert nan[3, n - 5] and int(nan.sum()) == 1
+    else:
+        assert not nan.any()
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=1e-5, atol=1e-5)
     assert (got[:, : n // 8] == 0).all()
 
 

@@ -452,9 +452,18 @@ def test_sinkhorn_fused_all_padded_rows_and_docs_are_inert(rng,
 
 
 # ------------------------------------------------- K5 sddmm_spmm_step
-@pytest.mark.parametrize("v_r,n,length", [(8, 128, 128), (19, 64, 40),
-                                          (32, 256, 64), (3, 32, 8)])
-def test_sddmm_spmm_step_plain_matches_pallas(rng, v_r, n, length):
+# the dead slot whose G column is subnormal (edge "subnormal"): t ~ 1e-41,
+# so 1/t overflows to inf and w = 0 * inf = NaN there
+K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT = 1, 9
+
+
+def _k5_inputs(rng, v_r, n, length, edge):
+    """K5's inputs on the card kernel's edges. "last_live": each doc's
+    live slots end at a slot drawn from 0 (all-pad) to L, with dead slots
+    inside; "x_zero": whole rows and columns of x are 0 (u = 0);
+    "subnormal": "last_live", and one dead slot past a doc's last live
+    one has a subnormal G column; "gr_inf": "last_live", and one G/r entry
+    at doc 2's dead last slot is inf (inf * w = inf * 0 = NaN)."""
     g = np.abs(rng.standard_normal((v_r, n, length))).astype(np.float32)
     g += 0.1
     gor = g * 1.7
@@ -462,10 +471,66 @@ def test_sddmm_spmm_step_plain_matches_pallas(rng, v_r, n, length):
     val = np.where(val > 0.8, val, 0.0).astype(np.float32)
     x = (np.abs(rng.standard_normal((v_r, n))) + 0.5).astype(np.float32)
     x[0, :4] = 0.0                                    # guarded 1/x
-    got = ops.sddmm_spmm_step(*_t(g, gor, val, x))
-    want = ref_ops.sddmm_spmm_step(*map(jnp.asarray, (g, gor, val, x)),
-                                   block_n=32, interpret=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **K5_TOL)
+    if edge in ("last_live", "subnormal", "gr_inf"):
+        ends = rng.integers(0, length + 1, n)
+        ends[:3] = (0, length, 1)
+        for d, e in enumerate(ends):
+            val[d, e:] = 0.0
+            if e:
+                val[d, e - 1] = 1.0 + rng.random()
+    if edge == "x_zero":
+        x[v_r // 2] = 0.0
+        x[:, n // 2] = 0.0
+        x[rng.random((v_r, n)) < 0.1] = 0.0
+    if edge == "subnormal":
+        val[K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT - 4:] = 0.0
+        g[:, K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 1e-42
+    if edge == "gr_inf":
+        val[2, length - 1] = 0.0
+        gor[3, 2, length - 1] = np.inf
+    return g, gor, val, x
+
+
+@pytest.mark.parametrize("v_r,n,length,edge", [
+    pytest.param(8, 128, 128, None, id="8-128-128"),
+    pytest.param(19, 64, 40, None, id="19-64-40"),
+    pytest.param(32, 256, 64, None, id="32-256-64"),
+    pytest.param(3, 32, 8, None, id="3-32-8"),
+    pytest.param(19, 96, 28, "last_live", id="last_live"),
+    pytest.param(23, 96, 30, "last_live", id="last_live_l30"),
+    pytest.param(5, 48, 13, "last_live", id="last_live_l13"),
+    pytest.param(40, 64, 28, "last_live", id="vr40"),
+    pytest.param(70, 64, 36, "last_live", id="vr70_l36"),
+    pytest.param(23, 64, 28, "x_zero", id="x_zero"),
+    pytest.param(23, 64, 28, "subnormal", id="subnormal"),
+    pytest.param(23, 64, 28, "gr_inf", id="gr_inf")])
+def test_sddmm_spmm_step_plain_matches_pallas(rng, v_r, n, length, edge):
+    """K5's plain version against the Pallas kernel in interpret mode, on
+    the edges of the card kernel's design: the last live slot anywhere
+    from 0 to L, L no multiple of 4 or over 32 (slot classes), v_r over
+    32 and over 64 (row chunks of 32), zero x, an inf G/r entry at a
+    dead slot (NaN in both, at that entry alone). With a subnormal dead G
+    column the plain version gives NaN in that doc, as the card does; XLA
+    on the CPU flushes the subnormal products to 0 (ROADMAP queue 3, P2),
+    so there the Pallas kernel equals the plain version on the flushed
+    column."""
+    g, gor, val, x = _k5_inputs(rng, v_r, n, length, edge)
+    got = ops.sddmm_spmm_step(*_t(g, gor, val, x)).numpy()
+    want = np.asarray(ref_ops.sddmm_spmm_step(
+        *map(jnp.asarray, (g, gor, val, x)), block_n=32, interpret=True))
+    if edge == "subnormal":
+        nan = np.zeros_like(got, dtype=bool)
+        nan[:, K5_SUBNORMAL_DOC] = True
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        np.testing.assert_allclose(got[~nan], want[~nan], **K5_TOL)
+        g[:, K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 0.0
+        got = ops.sddmm_spmm_step(*_t(g, gor, val, x)).numpy()
+    if edge == "gr_inf":
+        nan = np.zeros_like(got, dtype=bool)
+        nan[3, 2] = True
+        np.testing.assert_array_equal(np.isnan(want), nan)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got, want, **K5_TOL)
 
 
 # ------------------------------------------------ the kernel path (K3 -> K4)

@@ -1,7 +1,7 @@
-"""Time design variants of K3 (cdist_exp) and K2s (rwmd_min_cdist_subset)
-side by side on one card, in one process.
+"""Time design variants of K3 (cdist_exp), K2s (rwmd_min_cdist_subset)
+and K5 (sddmm_spmm_step) side by side on one card, in one process.
 
-    python3 tools/time_kernel_variants.py
+    python3 tools/time_kernel_variants.py [k3] [k2s] [k5]
 
 Each variant is the committed source with a few lines replaced (VARIANTS
 below). Every variant is compiled by nvcc into a library of its own under
@@ -10,17 +10,22 @@ shapes its path gives it: K3 on one query of 16, 23, 43 and 64 words
 against the paper vocabulary (V = 100 000, w = 300), K2s at a cascade
 RWMD stage (4 queries of 24 support rows, one of them filler, 128 candidate
 words with a repeated tail) and at 2 queries of 200 rows against 2048
-words. Two variants of each kernel time parts of it and give wrong
-results: "stage_only" skips the FFMAs (the ring and the epilogue), and
-"compute_only" stages the first chunk alone (the FFMAs and the epilogue).
-The others are checked against the committed kernel. Prints the card's
-name and power limit, then one JSON object per timing: the mean device
-time of 30 launches run back to back behind a held stream, in ms.
+words, K5 on the G and G/r of the paper corpus (N = 5000, L = 28) for its
+widest query (v_r = 23) and for a 200-word query. Some variants time
+parts of a kernel and give wrong results: "stage_only" (K3, K2s) and
+"loads_only" (K5) skip the FFMAs (K5: sums the loaded values instead),
+"compute_only" stages the first chunk alone (K3, K2s) or loads no G or
+G/r (K5). The others are checked against the committed kernel. Prints
+the card's name and power limit, one JSON object per compiled kernel
+instance of each variant (registers a thread and spill bytes, from ptxas
+-v), then one per timing: the mean device time of 30 launches run back
+to back behind a held stream, in ms.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -34,7 +39,9 @@ OUT = ROOT / "build" / "kernel_variants"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-shared"]
 
-K3_SRC, K2S_SRC = "cdist_exp.cu", "rwmd_min_cdist.cu"
+K3_SRC, K2S_SRC, K5_SRC = ("cdist_exp.cu", "rwmd_min_cdist.cu",
+                            "sddmm_spmm_step.cu")
+SRC = {"k3": K3_SRC, "k2s": K2S_SRC, "k5": K5_SRC}
 K3_TV64 = (K3_SRC, "return BMAX <= 32 ? 64 : 128;", "return 64;")
 K3_TV128 = (K3_SRC, "return BMAX <= 32 ? 64 : 128;", "return 128;")
 K3_STAGES3 = (K3_SRC, "constexpr int kStages = 2;",
@@ -59,6 +66,52 @@ def k2s_stages(n):
             f"constexpr int kSubStages = {n};")
 
 
+K5_LIM = "const int lim = ONE ? __reduce_max_sync(kFull, L) : L;"
+# G/r read only up to each doc's last val != 0 (w = 0 past it; equal to
+# the committed kernel where G/r is finite and no w past it is NaN, as on
+# the inputs here)
+K5_GR_LIVE_EXTENT = [
+    (K5_SRC, "    for (int l0 = 0; l0 < (ONE ? 1 : L); l0 += 32) {       "
+             "// SDDMM\n",
+     "    int last = -1;\n"
+     "    for (int l0 = 0; l0 < (ONE ? 1 : L); l0 += 32) {       // SDDMM\n"),
+    (K5_SRC, "      const float v = on ? val[(size_t)n * L + l] : 0.f;\n",
+     "      const float v = on ? val[(size_t)n * L + l] : 0.f;\n"
+     "      if (v != 0.f) last = l;\n"),
+    (K5_SRC, K5_LIM, "const int lim = __reduce_max_sync(kFull, last) + 1;")]
+# lim = L known to the compiler (no reduction), also behind a compiler
+# memory barrier; the reduction on the any-shape loops too
+K5_LIM_PLAIN = [(K5_SRC, K5_LIM, "const int lim = L;")]
+K5_LIM_ASM = [(K5_SRC, K5_LIM,
+               "const int lim = L;\n    asm volatile(\"\" ::: \"memory\");")]
+K5_LIM_REDUX_ALL = [(K5_SRC, K5_LIM,
+                     "const int lim = __reduce_max_sync(kFull, L);")]
+# the doc's G/r asked into L2 before its SDDMM (G and G/r in flight
+# together; registers would hold both only at half the warps)
+K5_GR_PREFETCH = (
+    K5_SRC, "    for (int l0 = 0; l0 < (ONE ? 1 : L); l0 += 32) {       "
+            "// SDDMM\n",
+    "    for (int l = lane; l < L; l += 32)\n"
+    "      for (int k = 0; k < VR; ++k)\n"
+    "        asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(grn + k * nl"
+    " + l));\n"
+    "    for (int l0 = 0; l0 < (ONE ? 1 : L); l0 += 32) {       // SDDMM\n")
+K5_NO_FMA = [
+    (K5_SRC, "          t0 = fmaf(col[k], __shfl_sync(kFull, uk, k), t0);\n"
+             "          t1 = fmaf(col[k + 1], __shfl_sync(kFull, uk, k + 1), "
+             "t1);",
+     "          t0 += col[k];\n          t1 += col[k + 1];"),
+    (K5_SRC, "        s += transpose_sum(p, lane);",
+     "#pragma unroll\n        for (int k = 0; k < 32; ++k) s += p[k];")]
+K5_NO_LOAD = [(K5_SRC, "gn[(k0 + k) * nl + l]", "(float)(k0 + k)"),
+              (K5_SRC, "grn[(k0 + k) * nl + l]", "(float)(k0 + k)")]
+
+
+def k5_min_blocks(n, wide):
+    return (K5_SRC, "constexpr int kMinBlocks = 10, kMinBlocksWide = 8;",
+            f"constexpr int kMinBlocks = {n}, kMinBlocksWide = {wide};")
+
+
 # (kernel, variant) -> replacements (file, old, new); "committed" is none
 VARIANTS = {
     ("k3", "committed"): [], ("k3", "tv64"): [K3_TV64],
@@ -69,16 +122,29 @@ VARIANTS = {
     ("k2s", "stages4"): [k2s_stages(4)],
     ("k2s", "stage_only"): [K2S_NO_FMA],
     ("k2s", "compute_only"): [K2S_ONE_STAGE],
+    ("k5", "committed"): [], ("k5", "gr_live_extent"): K5_GR_LIVE_EXTENT,
+    ("k5", "lim_plain"): K5_LIM_PLAIN, ("k5", "lim_asm"): K5_LIM_ASM,
+    ("k5", "lim_redux_all"): K5_LIM_REDUX_ALL,
+    ("k5", "gr_prefetch_l2"): [K5_GR_PREFETCH],
+    ("k5", "min_blocks1"): [k5_min_blocks(1, 1)],
+    ("k5", "min_blocks8_6"): [k5_min_blocks(8, 6)],
+    ("k5", "loads_only"): K5_NO_FMA, ("k5", "compute_only"): K5_NO_LOAD,
+    # the loops over row chunks and slot classes at any VR and L; one
+    # tile of 32 rows (spills at 48 registers) where VR <= 24
+    ("k5", "generic"): [(K5_SRC, "L > 32 || VR > 24 ?", "true ?")],
+    ("k5", "rows32"): [(K5_SRC, "launch<24, true>", "launch<32, true>")],
 }
-WRONG = ("stage_only", "compute_only")
+WRONG = ("stage_only", "compute_only", "loads_only")
 HOLD_CYCLES = 50_000_000
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def build_all() -> dict:
+def build_all(kernels) -> dict:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = {}
     for (kernel, name), subs in VARIANTS.items():
+        if kernel not in kernels:
+            continue
         d = OUT / f"{kernel}_{name}"
         d.mkdir(parents=True, exist_ok=True)
         for f in list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")):
@@ -90,17 +156,34 @@ def build_all() -> dict:
                                          f"{fname}")
                     text = text.replace(old, new)
             (d / f.name).write_text(text)
-        src = K3_SRC if kernel == "k3" else K2S_SRC
         procs[(kernel, name)] = subprocess.Popen(
-            [nvcc, *FLAGS, str(d / src), "-o", str(d / "lib.so")],
+            [nvcc, *FLAGS, "-Xptxas", "-v", str(d / SRC[kernel]), "-o",
+             str(d / "lib.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for key, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {key}:\n{out}")
+        print_resources(key, out)
         libs[key] = ctypes.CDLL(str(OUT / f"{key[0]}_{key[1]}" / "lib.so"))
     return libs
+
+
+def print_resources(key, ptxas: str) -> None:
+    """One JSON line per kernel instance from ptxas -v: its registers a
+    thread and its spill bytes."""
+    for entry in re.split(r"Compiling entry function '", ptxas)[1:]:
+        name = entry.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        print(json.dumps({
+            "kernel": key[0], "variant": key[1], "instance": name,
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_stores": int(spill.group(1)) if spill else None,
+            "spill_loads": int(spill.group(2)) if spill else None}),
+            flush=True)
 
 
 def time_ms(fn, reps: int = 30) -> float:
@@ -193,18 +276,85 @@ def run_k2s(libs, vecs, gen) -> None:
                               "ms": time_ms(call, reps=50)}), flush=True)
 
 
+def k5_inputs():
+    """The paper corpus's doc matrix (N = 5000, L = 28) and the G and G/r
+    of its widest query (v_r = 23) and of 200 random vocabulary words, as
+    chip_smoke.py's phase k5 makes them."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    from repro_torch.core.sinkhorn import select_support
+    from repro_torch.core.sinkhorn_sparse import precompute_sparse
+    from repro_torch.core.sparse import PaddedDocs
+    from repro_torch.data.corpus import paper_corpus
+    corpus = paper_corpus(seed=0)
+    dev = torch.device("cuda")
+    vecs = torch.as_tensor(corpus.vecs, device=dev)
+    docs = PaddedDocs(idx=torch.as_tensor(corpus.docs.idx, dtype=torch.int64,
+                                          device=dev),
+                      val=torch.as_tensor(corpus.docs.val, device=dev))
+    widest = max(corpus.queries, key=lambda q: int((q > 0).sum()))
+    r, sel, _ = select_support(widest, vecs)
+    rng = np.random.default_rng(4)
+    wide = torch.as_tensor(rng.choice(vecs.shape[0], 200, replace=False),
+                           device=dev)
+    rw = rng.uniform(0.1, 1.0, 200)
+    r200 = torch.as_tensor(rw / rw.sum(), dtype=torch.float32, device=dev)
+    return {"widest_paper_query": precompute_sparse(r, sel, vecs, docs, 1.0),
+            "query_200": precompute_sparse(r200, vecs[wide].contiguous(),
+                                           vecs, docs, 1.0)}
+
+
+def run_k5(libs) -> None:
+    stream = P(torch.cuda.current_stream().cuda_stream)
+    for label, pre in k5_inputs().items():
+        v_r, n, length = pre.G.shape
+        x = torch.full((v_r, n), 1.0 / v_r, device=pre.G.device)
+        out = torch.empty_like(x)
+        want = None
+        for (kernel, name), lib in libs.items():
+            if kernel != "k5":
+                continue
+            fn = lib.sddmm_spmm_step_launch
+            fn.argtypes = [P] * 5 + [I] * 3 + [P]
+
+            def call():
+                return fn(ptr(pre.G), ptr(pre.G_over_r), ptr(pre.val),
+                          ptr(x), ptr(out), v_r, n, length, stream)
+            if call() != 0:
+                raise RuntimeError(f"k5 {name}: launch failed")
+            torch.cuda.synchronize()
+            if name == "committed":
+                want = out.clone()
+            elif name not in WRONG and not torch.equal(out, want):
+                raise AssertionError(f"k5 {name} differs from committed")
+            print(json.dumps({"kernel": "sddmm_spmm_step", "variant": name,
+                              "inputs": label, "v_r": v_r, "N": n,
+                              "L": length, "ms": time_ms(call)}),
+                  flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_kernel_variants: no CUDA device", file=sys.stderr)
         return 1
+    kernels = set(sys.argv[1:]) or set(SRC)
+    if not kernels <= set(SRC):
+        print(f"time_kernel_variants: kernels are {sorted(SRC)}",
+              file=sys.stderr)
+        return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    libs = build_all()
+    libs = build_all(kernels)
     gen = torch.Generator().manual_seed(0)
     vecs = torch.randn((100_000, 300), generator=gen).to("cuda")
-    run_k3(libs, vecs, gen)
-    run_k2s(libs, vecs, gen)
+    if "k3" in kernels:
+        run_k3(libs, vecs, gen)
+    if "k2s" in kernels:
+        run_k2s(libs, vecs, gen)
+    del vecs
+    if "k5" in kernels:
+        run_k5(libs)
     return 0
 
 
