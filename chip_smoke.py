@@ -41,7 +41,26 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
   ``query_batch`` against its exhaustive top-10 and the kernel engine's
   distances, ``warm_start`` on the near-duplicate corpus, the K-column
   cache under fig15's Zipfian traffic (cache-on equals cache-off bit for
-  bit, hit rate), and ``many_to_many`` / ``search`` with their defaults.
+  bit, hit rate), and ``many_to_many`` / ``search`` with their defaults;
+- the serving runtime, ``ServingRuntime`` driven open-loop by
+  ``run_open_loop`` over the kernel engine (log, lam=10, the runtime's
+  ``"ivf+wcd+rwmd"``): K2s against its plain version at the inputs of a
+  one-query cascade search of the paper corpus (what a served request
+  runs), capacity C from back-to-back 8-query searches and C1 from
+  one-query searches, every tier through the runtime (K1, K2 and K2s
+  launches per dispatch), 64 requests at 0.25 C1 (light load: every
+  response exact, equal to the replay of its batch and to the exhaustive
+  top-10) and 256 at 2 C (every request resolves, load degrades or is
+  rejected, exact responses equal their replay and the exhaustive
+  top-10, rwmd-tier bounds admissible), injected transients, latency and
+  poison at 0.25 C1 (exactly the poisoned requests fail), fp32 lam=10's
+  ``lam_underflow`` through the guard, the einsum engine under the
+  runtime's default K-column cache on fig15's whole stream (every
+  response equals the cache-off engine's search of its batch), and a
+  profiled window at 0.25 C (the card's idle share, device time per
+  request, the rank stage's host time). A serving phase without
+  injected faults fails on any ``internal`` or ``retries_exhausted``
+  response.
 
 Each path runs once with the launch counts set to 0 just before it and
 read just after. Prints one JSON object per phase; the line before the
@@ -81,6 +100,11 @@ from repro_torch.core.sparse import PaddedDocs  # noqa: E402
 from repro_torch.data.corpus import (dedup_corpus, make_corpus,  # noqa: E402
                                      paper_corpus, zipf_queries)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.data.pipeline import wmd_request_stream  # noqa: E402
+from repro_torch.runtime.serving import (FaultInjector,  # noqa: E402
+                                         ServeConfig, ServingRuntime,
+                                         default_tiers, poisson_arrivals,
+                                         run_open_loop)
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 FFMA
 # rate outside the tensor cores, both at the full 700 W power limit
@@ -180,7 +204,28 @@ EINSUM_RTOL = 5e-4
 # the K-column cache phase: fig15's capacity and prune spec
 KCACHE_SLOTS = 512
 KCACHE_PRUNE = "ivf+wcd+rwmd"
-
+# the serving phases: the runtime's defaults (ServeConfig) but for
+# max_batch, over the runtime's default prune spec, open-loop Poisson
+# arrivals. Capacity C is SERVE_BATCH over the median of E2E_REPS
+# back-to-back searches of SERVE_BATCH stream queries; C1 the same with
+# one query a search, the batch the coalescer forms at light load (its
+# 10 ms window is shorter than the gap between arrivals). The cascade
+# costs about the same per search at any batch (PERF.md §5), so the
+# runtime sustains about C1, not C: the exactness, fault and cache runs
+# offer SERVE_LOW * C1 (light load), the load run SERVE_HIGH * C, and the
+# profiled window SERVE_LOW * C (saturated)
+SERVE_BATCH = 8
+SERVE_PRUNE = ServeConfig.prune
+SERVE_LOW, SERVE_HIGH = 0.25, 2.0
+# requests per run: the load run, the light runs, each tier's warm-up
+# through the runtime (one runtime per tier), the profiled window; the
+# cache run serves fig15's whole stream (128 queries)
+SERVE_REQUESTS, SERVE_LIGHT, SERVE_WARM, SERVE_PROFILED = 256, 64, 8, 64
+SERVE_FAULTS = dict(transient_rate=0.2, poison_rate=0.05, latency_rate=0.1,
+                    latency_s=0.05, seed=7)
+# codes that mean a dispatch failed on the card: a serving phase without
+# injected faults raises on any of them
+SERVE_FAILED = ("internal", "retries_exhausted")
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -1256,18 +1301,20 @@ def phase_cascade(corpus, index, build_s: float) -> dict:
     return rec
 
 
-def phase_k2s_from_search(index, corpus) -> dict:
+def phase_k2s_from_search(index, batches, label: str) -> dict:
     """K2s at the shapes the cascade gives it: the inputs of the widest
-    RWMD stage of a real log-domain "ivf+wcd+rwmd" search."""
+    RWMD stage among real log-domain "ivf+wcd+rwmd" searches, one of
+    each query batch in ``batches``."""
     t0 = time.perf_counter()
     eng = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
                     precision="log")
     casc = CapturingCascade(stages=("wcd", "rwmd"))
-    eng.search(list(corpus.queries), TOP_K, prune=casc)
+    for qs in batches:
+        eng.search(qs, TOP_K, prune=casc)
     if not casc.calls:
         raise AssertionError("the cascade search made no K2s call")
     sup, mask, vids = max(casc.calls, key=lambda c: c[2].numel())
-    rec = phase_k2s(index, sup, mask, vids, "cascade_search")
+    rec = phase_k2s(index, sup, mask, vids, label)
     rec["calls_captured"] = len(casc.calls)
     rec["seconds"] = time.perf_counter() - t0
     return rec
@@ -2046,6 +2093,376 @@ def phase_kcache(corpus, index) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------- serving
+def serve_requests(corpus, n: int, seed: int = 0):
+    """``n`` requests of ``wmd_request_stream(corpus, seed)`` and each
+    one's row in ``corpus.queries``."""
+    stream = wmd_request_stream(corpus, seed)
+    reqs = [next(stream) for _ in range(n)]
+    ids = [next(i for i, q in enumerate(corpus.queries)
+                if np.array_equal(q, r)) for r in reqs]
+    return reqs, ids
+
+
+def serve_capacity(engine, reqs, label: str, card: str,
+                   batch: int = SERVE_BATCH) -> dict:
+    """``engine.search`` on batches of ``batch`` requests, back to back
+    (``prune=SERVE_PRUNE``, k=10): capacity = batch over the median of
+    E2E_REPS warm calls, in requests per second."""
+    batches = [reqs[i:i + batch]
+               for i in range(0, len(reqs) - batch + 1, batch)]
+    it = iter(batches * (E2E_REPS + 4))
+    for _ in range(3):
+        engine.search(next(it), TOP_K, prune=SERVE_PRUNE)    # warm-up
+    t = wall_ms(lambda: engine.search(next(it), TOP_K, prune=SERVE_PRUNE))
+    rec = {"phase": "serve_capacity", "engine": label, "card": card,
+           "impl": engine.impl, "precision": engine.precision.name,
+           "lam": engine.lam, "batch": batch, "prune": SERVE_PRUNE,
+           "k": TOP_K, "search_ms": t,
+           "capacity_per_s": batch / (t["median"] / 1e3)}
+    emit(rec)
+    return rec
+
+
+def serve_run(engine, reqs, rate: float, cfg: ServeConfig, label: str,
+              injector=None, tiers=None, failed=SERVE_FAILED):
+    """One open-loop run through a fresh runtime (its dispatch thread is
+    new too): ``reqs`` at Poisson arrivals of ``rate`` per second (seed 1).
+    Returns (responses, stats, record); the record holds p50/p99 of
+    queue + service time, throughput, the tier mix, the first dispatch's
+    service time apart from the others', and K1/K2/K2s launches per
+    dispatch. Raises on a response whose code is in ``failed``."""
+    rt = ServingRuntime(engine, cfg, injector=injector, tiers=tiers)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    resps, stats = run_open_loop(rt, reqs, poisson_arrivals(
+        len(reqs), rate, seed=1), k=TOP_K)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    if len(resps) != len(reqs):
+        raise AssertionError(f"serve {label}: {len(resps)} responses for "
+                             f"{len(reqs)} requests")
+    codes = {}
+    for r in resps:
+        if not r.ok:
+            codes[r.error["code"]] = codes.get(r.error["code"], 0) + 1
+    bad = {c: n for c, n in codes.items() if c in failed}
+    if bad:
+        first = next(r for r in resps if not r.ok
+                     and r.error["code"] in failed)
+        raise AssertionError(f"serve {label}: failed dispatches {bad}: "
+                             f"{first.error}")
+    lat = np.asarray([r.queue_ms + r.service_ms for r in resps if r.ok])
+    service, sizes = {}, {}
+    for r in resps:
+        if r.dispatch_id >= 0:
+            service[r.dispatch_id] = r.service_ms
+            sizes[r.dispatch_id] = r.batch_size
+    rest = [ms for d, ms in service.items() if d != min(service)]
+    n_disp = max(1, stats["dispatches"])
+    rec = {"label": label, "requests": len(reqs), "rate_per_s": rate,
+           "wall_s": wall, "answered": int(lat.size),
+           "throughput_per_s": lat.size / wall,
+           "latency_ms_p50": float(np.percentile(lat, 50)) if lat.size
+           else None,
+           "latency_ms_p99": float(np.percentile(lat, 99)) if lat.size
+           else None,
+           "tiers": stats["tiers"], "degraded_frac": stats["degraded_frac"],
+           "rejected": stats["rejected"], "retries": stats["retries"],
+           "errors": codes, "dispatches": stats["dispatches"],
+           "mean_batch": float(np.mean(list(sizes.values())))
+           if sizes else None,
+           "first_dispatch_service_ms": service.get(min(service))
+           if service else None,
+           "other_dispatch_service_ms_p50": float(np.median(rest))
+           if rest else None,
+           "launches_per_dispatch": {
+               name: launches[name] / n_disp for name in
+               ("sinkhorn_fused_all_batched", "rwmd_min_cdist",
+                "rwmd_min_cdist_subset")},
+           "launches": launches}
+    if "kcache" in stats:
+        rec["kcache"] = stats["kcache"]
+    return resps, stats, rec
+
+
+def near_tie_ids(got, want, d, rtol: float, label: str) -> None:
+    """Ids position by position, except in runs of distances within
+    ``rtol`` of each other (P1), which are held as sets."""
+    start = 0
+    for j in range(1, len(d) + 1):
+        if j == len(d) or d[j] - d[j - 1] > 2 * rtol * abs(d[j]):
+            if set(got[start:j]) != set(want[start:j]):
+                raise AssertionError(f"{label}: ids {list(got)} != "
+                                     f"{list(want)}")
+            start = j
+
+
+def hold_served(resps, reqs, engine, label: str, ids=None, want=None,
+                all_exact: bool = True) -> int:
+    """Responses served at the exact tier equal ``engine.search`` of their
+    own dispatch's batch replayed on the main thread (the same call: ids
+    equal, distances at E2E_RTOL); with ``all_exact`` every response must
+    be one. With ``want`` (the exhaustive top-k of all the queries at
+    once, ``search(prune=None)``: no bound, so a cascade that drops a
+    true neighbour fails here), each is also held against its query's
+    row: another batch makes other chunk shapes, for which cuBLAS sums
+    the K block in another order, so at exact word matches the distances
+    move by P1 (ROADMAP queue 3): held at P1_RTOL, near ties as sets.
+    Returns the responses checked."""
+    batches = {}
+    for r in resps:
+        if r.ok and r.exact and r.tier == "exact":
+            batches.setdefault(r.dispatch_id, []).append(r.rid)
+        elif all_exact:
+            raise AssertionError(f"serve {label}: rid {r.rid} not exact: "
+                                 f"{r.tier} {r.error}")
+    by_rid = {r.rid: r for r in resps}
+    for did, rids in batches.items():
+        rids = sorted(rids)                  # the dispatch's own order
+        if len(rids) != by_rid[rids[0]].batch_size:
+            raise AssertionError(f"serve {label}: dispatch {did} mixes "
+                                 "tiers")
+        res = engine.search([reqs[i] for i in rids], TOP_K,
+                            prune=SERVE_PRUNE)
+        for j, rid in enumerate(rids):
+            r = by_rid[rid]
+            if r.indices != res.indices[j].tolist():
+                raise AssertionError(f"serve {label} rid {rid}: ids "
+                                     f"{r.indices} != replayed "
+                                     f"{res.indices[j].tolist()}")
+            np.testing.assert_allclose(
+                r.distances, res.distances[j], rtol=E2E_RTOL, atol=0,
+                err_msg=f"serve {label} rid {rid} (replayed)")
+    checked = [rid for rids in batches.values() for rid in rids]
+    if want is not None:
+        for rid in checked:
+            r, d = by_rid[rid], want.distances[ids[rid]]
+            np.testing.assert_allclose(r.distances, d, rtol=P1_RTOL, atol=0,
+                                       err_msg=f"serve {label} rid {rid}")
+            near_tie_ids(r.indices, want.indices[ids[rid]].tolist(), d,
+                         P1_RTOL, f"serve {label} rid {rid}")
+    return len(checked)
+
+
+def launched(rec, names, label: str) -> None:
+    for name in names:
+        if rec["launches"][name] <= 0:
+            raise AssertionError(f"serve {label}: {name} was not launched "
+                                 f"({rec['launches']})")
+
+
+def hold_admissible(resps, ids, exact, engine, label: str) -> int:
+    """Every rwmd-tier distance (an RWMD bound) at most the query's
+    exhaustive distance to the same doc, within the engine's own prune
+    margin (``prune_slack``: the margin search trusts the bound with; on
+    the card K2 and the cuBLAS K block differ by up to 2e-2 at exact word
+    matches, ROADMAP queue 3, P1). Returns the responses checked."""
+    n = 0
+    for r, qi in zip(resps, ids):
+        if not (r.ok and r.tier == "rwmd"):
+            continue
+        ex = exact[qi, r.indices]
+        slack = engine.prune_slack * (np.abs(ex) + 1.0)
+        if not (np.asarray(r.distances) <= ex + slack).all():
+            raise AssertionError(f"serve {label} rid {r.rid}: rwmd bound "
+                                 f"{r.distances} above {ex.tolist()}")
+        n += 1
+    return n
+
+
+def phase_serve(corpus, index, card: str) -> dict:
+    """The serving runtime over the kernel engine (log, lam=10) at the
+    paper's widths: capacities C and C1, a warm-up through the runtime at
+    every tier (one runtime per tier: launches per dispatch), then
+    requests at 0.25 C1 (light load: every response exact, equal to the
+    replay of its batch and to the exhaustive top-10) and at 2 C (every
+    future resolves, no failed dispatch, exact responses equal their
+    replay and the exhaustive top-10, load degrades or is rejected,
+    rwmd-tier bounds admissible)."""
+    engine = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
+                       precision="log")
+    reqs, ids = serve_requests(corpus, SERVE_REQUESTS)
+    c = serve_capacity(engine, reqs, "kernel_log", card)["capacity_per_s"]
+    c1 = serve_capacity(engine, reqs, "kernel_log", card,
+                        batch=1)["capacity_per_s"]
+    qs = list(corpus.queries)
+    exhaustive = engine.search(qs, TOP_K, prune=None)
+    exact = engine.query_batch(qs).numpy()
+    cfg = ServeConfig(max_batch=SERVE_BATCH)
+    rec = {"phase": "serve", "card": card, "capacity_per_s": c,
+           "capacity_1_per_s": c1,
+           "config": {"max_batch": cfg.max_batch, "window_s": cfg.window_s,
+                      "max_queue": cfg.max_queue,
+                      "deadline_s": cfg.deadline_s, "prune": cfg.prune},
+           "tiers": {}, "runs": {}}
+    for tier in default_tiers(engine, SERVE_PRUNE):
+        n = SERVE_WARM
+        resps, _, run = serve_run(
+            engine, reqs[:n], SERVE_LOW * c1,
+            ServeConfig(max_batch=SERVE_BATCH, deadline_s=None),
+            f"tier {tier.name}", tiers=(tier,))
+        if not all(r.ok and r.tier == tier.name for r in resps):
+            raise AssertionError(f"serve tier {tier.name}: not all served "
+                                 "at that tier")
+        if tier.solve:
+            launched(run, ("sinkhorn_fused_all_batched",
+                           "rwmd_min_cdist_subset"), tier.name)
+        else:
+            launched(run, ("rwmd_min_cdist",), tier.name)
+            run["admissible_checked"] = hold_admissible(
+                resps, ids[:n], exact, engine, tier.name)
+        rec["tiers"][tier.name] = run
+    for key, n, rate in (("0.25C1", SERVE_LIGHT, SERVE_LOW * c1),
+                         ("2C", SERVE_REQUESTS, SERVE_HIGH * c)):
+        resps, stats, run = serve_run(engine, reqs[:n], rate, cfg, key)
+        run["exact_checked"] = hold_served(resps, reqs, engine, key, ids,
+                                           exhaustive,
+                                           all_exact=key == "0.25C1")
+        launched(run, ("sinkhorn_fused_all_batched",), key)
+        if stats["tiers"]["exact"]:
+            launched(run, ("rwmd_min_cdist_subset",), key)
+        if stats["tiers"].get("rwmd"):
+            launched(run, ("rwmd_min_cdist",), key)
+        run["admissible_checked"] = hold_admissible(resps, ids, exact,
+                                                    engine, key)
+        if key == "2C" and not (stats["degraded_frac"] > 0
+                                or stats["rejected"] > 0):
+            raise AssertionError(f"serve {key}: no degradation and no "
+                                 f"rejection ({stats['tiers']})")
+        rec["runs"][key] = run
+    emit(rec)
+    return rec
+
+
+def phase_serve_faults(corpus, index, c1: float, card: str) -> dict:
+    """Light load (0.25 C1) under injected transients, latency and poison:
+    exactly the rids the injector poisons fail as ``poison``, every other
+    response is answered, the guard retried. Then an fp32 lam=10 engine
+    (its K underflows on this corpus): every response is
+    ``lam_underflow`` with diagnostics, the card's own LamUnderflowError
+    through the guard."""
+    engine = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
+                       precision="log")
+    reqs, _ = serve_requests(corpus, SERVE_LIGHT)
+    poisoned = {rid for rid in range(len(reqs))
+                if FaultInjector(**SERVE_FAULTS).poison(rid)}
+    resps, stats, run = serve_run(
+        engine, reqs, SERVE_LOW * c1, ServeConfig(max_batch=SERVE_BATCH),
+        "faults", injector=FaultInjector(**SERVE_FAULTS), failed=())
+    for r in resps:
+        if r.rid in poisoned:
+            if r.ok or r.error["code"] != "poison":
+                raise AssertionError(f"serve_faults: rid {r.rid} was "
+                                     f"poisoned but got {r.error}")
+        elif not r.ok:
+            raise AssertionError(f"serve_faults: rid {r.rid} failed: "
+                                 f"{r.error}")
+    if stats["retries"] <= 0:
+        raise AssertionError("serve_faults: the guard never retried")
+    hot = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter)
+    uresps, ustats, urun = serve_run(
+        hot, reqs[:8], SERVE_LOW * c1, ServeConfig(max_batch=SERVE_BATCH),
+        "underflow", failed=())
+    for r in uresps:
+        if r.ok or r.error["code"] != "lam_underflow" \
+                or not r.error.get("diagnostics"):
+            raise AssertionError(f"serve_faults: fp32 lam={CONFIG.lam} "
+                                 f"rid {r.rid} gave {r.error}")
+    rec = {"phase": "serve_faults", "card": card, "capacity_1_per_s": c1,
+           "injector": SERVE_FAULTS, "poisoned": sorted(poisoned),
+           "run": run, "watchdog_trips": stats["watchdog_trips"],
+           "isolations": stats["isolations"],
+           "underflow": {**urun, "isolations": ustats["isolations"],
+                         "precision": "fp32", "lam": CONFIG.lam}}
+    emit(rec)
+    return rec
+
+
+def phase_serve_kcache(index, card: str) -> dict:
+    """The einsum engine (log, lam=10) under the runtime's default
+    K-column cache, on fig15's whole Zipf stream at 0.25 of its own C1.
+    Every response is exact and equals the cache-off engine's search of
+    its own dispatch's batch, replayed on the main thread: the cache-off
+    run of the same batches (ids equal, distances at E2E_RTOL)."""
+    stream = zipf_queries(128, index.vocab_size, words=32, s=1.0, seed=11)
+    kw = dict(lam=CONFIG.lam, n_iter=CONFIG.n_iter, impl="sparse",
+              precision="log")
+    off = WmdEngine(index, **kw)
+    c1 = serve_capacity(off, stream, "sparse_log", card,
+                        batch=1)["capacity_per_s"]
+    on = WmdEngine(index, **kw)
+    resps, stats, run = serve_run(on, stream, SERVE_LOW * c1,
+                                  ServeConfig(max_batch=SERVE_BATCH),
+                                  "kcache on")
+    if stats.get("kcache") is None:
+        raise AssertionError("serve_kcache: the runtime did not enable the "
+                             "cache on the einsum engine")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    checked = hold_served(resps, stream, off, "kcache on")
+    torch.cuda.synchronize()
+    off_launches = ops.launches()
+    for label, launches in (("on", run["launches"]), ("off", off_launches)):
+        if launches["rwmd_min_cdist_subset"] <= 0:
+            raise AssertionError(f"serve kcache {label}: "
+                                 "rwmd_min_cdist_subset was not launched "
+                                 f"({launches})")
+    rec = {"phase": "serve_kcache", "card": card, "capacity_1_per_s": c1,
+           "stream": {"queries": len(stream), "words": 32, "zipf_s": 1.0,
+                      "seed": 11}, "slots": ServeConfig.kcache_slots,
+           "hit_rate": stats["kcache"]["hit_rate"], "on": run,
+           "off_replayed": {"responses": checked,
+                            "launches": off_launches},
+           "ids_equal": True}
+    emit(rec)
+    return rec
+
+
+def phase_profile_serve(corpus, index, c: float, card: str) -> dict:
+    """Where a served request's time goes under load: torch.profiler over
+    one open-loop run of 64 requests at 0.25 C (a fresh runtime; a warm
+    run before the window): the card's idle share over the window, device
+    time per request, and the host time of the rank stage (the stable
+    argsort and gathers at the end of search, timed on each request's
+    exhaustive distances cut to its query's solved count)."""
+    engine = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
+                       precision="log")
+    reqs, ids = serve_requests(corpus, SERVE_PROFILED, seed=2)
+    out = {}
+
+    def run():
+        out["run"] = serve_run(engine, reqs, SERVE_LOW * c,
+                               ServeConfig(max_batch=SERVE_BATCH),
+                               "profile")
+
+    wall_us, dev_ev, host, busy_us = profile_window(run, 1)
+    resps, _, run_rec = out["run"]
+    launched(run_rec, ("sinkhorn_fused_all_batched",), "profile")
+    qs = list(corpus.queries)
+    solved = engine.search(qs, TOP_K, prune=SERVE_PRUNE).solved
+    exact = engine.query_batch(qs).numpy()
+    t0 = time.perf_counter()
+    for qi in ids:
+        d = exact[qi, :solved[qi]]
+        order = np.argsort(d, kind="stable")[:TOP_K]
+        _ = (order.astype(np.int32), d[order])
+    rank_ms = (time.perf_counter() - t0) * 1e3 / len(ids)
+    rec = profile_record("profile_serve", wall_us, dev_ev, host, busy_us, 1,
+                         card=card, requests=len(reqs),
+                         rate_per_s=SERVE_LOW * c)
+    if dev_ev:
+        rec["device_idle_share"] = 1.0 - busy_us / wall_us
+        rec["device_ms_per_request"] = busy_us / 1e3 / len(reqs)
+    rec["rank_host_ms_per_request"] = rank_ms
+    rec["solved_per_query"] = solved.tolist()
+    rec["run"] = run_rec
+    emit(rec)
+    return rec
+
+
 def phase_wmd_defaults(dev) -> dict:
     """``many_to_many`` and ``wmd.search`` with every default argument
     (impl "sparse", lam=10, n_iter=15, prune "rwmd", k=10) on the card,
@@ -2141,6 +2558,18 @@ def main() -> int:
     phase_einsum(corpus, index)
     phase_profile(corpus, index, impl="sparse")
     phase_kcache(corpus, index)
+    smi = info["nvidia_smi"]
+    t_serve = time.perf_counter()
+    # K2s at the shapes serving gives it on this corpus: one query a
+    # dispatch at light load, and a cascade that keeps almost every doc,
+    # so a candidate vocabulary of tens of thousands of words
+    k2s_serve = phase_k2s_from_search(index, [[q] for q in corpus.queries],
+                                      "serve_one_query")
+    serve = phase_serve(corpus, index, smi)
+    phase_serve_faults(corpus, index, serve["capacity_1_per_s"], smi)
+    phase_serve_kcache(index, smi)
+    phase_profile_serve(corpus, index, serve["capacity_per_s"], smi)
+    emit({"phase": "serving", "seconds": time.perf_counter() - t_serve})
     del index
     torch.cuda.empty_cache()
     otm = phase_one_to_many(corpus, dev)
@@ -2153,7 +2582,8 @@ def main() -> int:
 
     # the IVF cascade, refine and appends on the dedup corpus
     dedup, dindex, build_s = build_dedup(dev)
-    k2s = phase_k2s_from_search(dindex, dedup)
+    k2s = phase_k2s_from_search(dindex, [list(dedup.queries)],
+                                "cascade_search")
     # queries wider than one K2s pass of 128 support rows (two passes in
     # the block), against 2048 candidate words
     sup, _, mask = paper_chunk(dindex.vocab_size, dev, width=200, q=2,
@@ -2207,6 +2637,16 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "launch_ms", "plain_ms", "bound_ms",
             "bound_by")
     kernels[1]["fp32_lam1"] = {key: k1_lin[key] for key in keys}
+    # K2s at the widest RWMD stage of a one-query search of the paper
+    # corpus (what a served request runs); its launches: the light-load
+    # serving run's
+    light = serve["runs"]["0.25C1"]
+    kernels[5]["serve_one_query"] = {
+        **{key: k2s_serve[key] for key in keys}, "shape": k2s_serve["shape"],
+        "library_ms": None,
+        "launches": light["launches"]["rwmd_min_cdist_subset"],
+        "launches_per_dispatch":
+            light["launches_per_dispatch"]["rwmd_min_cdist_subset"]}
     # K2's product alone on cuBLAS SGEMM as a yardstick
     kernels[0]["sgemm_ms"] = k2["sgemm_ms"]
     kernels[2]["full"] = {key: k3[0][key] for key in keys}

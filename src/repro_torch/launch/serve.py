@@ -1,7 +1,7 @@
-"""WMD query server (port of ``repro.launch.serve --wmd``; the LM decode
-server and the async serving runtime are not ported yet).
+"""WMD query server (port of ``repro.launch.serve --wmd`` and ``--serve``;
+the LM decode server is not ported yet).
 
-Scores ``--batch-queries`` stream requests per step through the
+``--wmd`` scores ``--batch-queries`` stream requests per step through the
 persistent engine: exhaustive ``query_batch`` by default, or the staged
 top-k retrieval (prune -> solve -> rank) with ``--top-k K``; ``--prune
 ivf+...`` runs the IVF cascade (``--nprobe P`` clusters per query,
@@ -29,6 +29,21 @@ the card it ran on::
         --n-docs 5000 --vocab 100000 --embed-dim 300 --lam 1
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --device cpu \\
         --n-docs 64 --vocab 512 --embed-dim 16 --steps 3   # host run
+
+``--serve`` drives the long-lived :class:`ServingRuntime` open-loop
+(``--requests`` Poisson arrivals at ``--rate`` per second; deadline-or-full
+micro-batching, backpressure, tiered degradation, ``--inject-*`` fault
+injection) and prints one JSON line per request and a summary record.
+The engine is the port's default ``--impl kernel`` (K1, K2 and K2s on the
+card), which cannot host the K-column cache, so the runtime serves
+without it; ``--impl sparse`` serves the einsum engine with the cache::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --serve \\
+        --top-k 10 --prune ivf+wcd+rwmd --n-docs 5000 --vocab 100000 \\
+        --embed-dim 300 --precision log --lam 10 --requests 256 --rate 100
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --serve \\
+        --device cpu --n-docs 48 --vocab 256 --embed-dim 8 --requests 8 \\
+        --top-k 4 --rate 50                                  # host run
 """
 from __future__ import annotations
 
@@ -52,7 +67,9 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_wmd(args) -> dict:
+def _build_engine(args):
+    """(corpus, engine) for the flags: the synthetic corpus (seed 0) and
+    its index on ``--device``."""
     device = resolve_device(args.device)
     corpus = make_corpus(vocab_size=args.vocab, embed_dim=args.embed_dim,
                          n_docs=args.n_docs, n_queries=8, seed=0)
@@ -65,6 +82,17 @@ def serve_wmd(args) -> dict:
                        warm_start=args.warm_start,
                        kcache_slots=(args.kcache_slots
                                      if args.kcache_slots > 0 else None))
+    return corpus, engine
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def serve_wmd(args) -> dict:
+    corpus, engine = _build_engine(args)
+    index, device = engine.index, engine.device
     reqs = wmd_request_stream(corpus)
     bq = max(1, args.batch_queries)
     prune = None if args.prune == "none" else args.prune
@@ -109,8 +137,7 @@ def serve_wmd(args) -> dict:
     rec = {
         "workload": "wmd_topk" if args.top_k > 0 else "wmd_batched",
         "impl": args.impl,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
+        "device": _device_name(device),
         "n_docs": args.n_docs, "vocab": args.vocab,
         "embed_dim": args.embed_dim, "batch_queries": bq,
         "steps": args.steps, "lam": args.lam, "n_iter": args.n_iter,
@@ -149,13 +176,84 @@ def serve_wmd(args) -> dict:
     return rec
 
 
+def serve_async(args) -> dict:
+    """Drive the long-lived :class:`ServingRuntime` open-loop and print
+    per-request JSON lines + a summary record (returned too)."""
+    from repro_torch.runtime.serving import (FaultInjector, ServeConfig,
+                                             ServingRuntime,
+                                             poisson_arrivals, rwmd_topk,
+                                             run_open_loop)
+    corpus, engine = _build_engine(args)
+    injector = None
+    if args.inject_latency_rate or args.inject_transient_rate \
+            or args.inject_poison_rate:
+        injector = FaultInjector(
+            latency_rate=args.inject_latency_rate,
+            latency_s=args.inject_latency_ms / 1e3,
+            transient_rate=args.inject_transient_rate,
+            poison_rate=args.inject_poison_rate,
+            seed=args.inject_seed)
+    cfg = ServeConfig(
+        max_batch=max(1, args.batch_queries),
+        window_s=args.window_ms / 1e3, max_queue=args.max_queue,
+        deadline_s=args.deadline_ms / 1e3 if args.deadline_ms > 0 else None,
+        prune="rwmd" if args.prune == "none" else args.prune,
+        nprobe=args.nprobe if args.nprobe > 0 else None,
+        refine_factor=args.refine_factor,
+        kcache_slots=(args.kcache_slots if args.kcache_slots >= 0
+                      else ServeConfig.kcache_slots))
+    runtime = ServingRuntime(engine, cfg, injector=injector)
+    k = max(1, args.top_k)
+    # warm every tier OUTSIDE the measured stream (the first call builds
+    # the kernels and warms the allocator)
+    reqs = wmd_request_stream(corpus)
+    warm = [next(reqs) for _ in range(2)]
+    for tier in runtime.tiers:
+        if tier.solve:
+            engine.search(warm, k, prune=cfg.prune, nprobe=tier.nprobe,
+                          mode=tier.mode,
+                          refine_factor=tier.refine_factor or 4)
+        else:
+            rwmd_topk(engine, warm, k)
+    engine.reset_iter_stats()
+    n = max(1, args.requests)
+    queries = [next(reqs) for _ in range(n)]
+    arrivals = poisson_arrivals(n, rate_per_s=args.rate, seed=1)
+    # handle_signals: SIGTERM/SIGINT drain the admission queue instead of
+    # killing in-flight futures; late arrivals get `shutting_down`
+    responses, stats = run_open_loop(runtime, queries, arrivals, k=k,
+                                     handle_signals=True)
+    for r in responses:
+        print(json.dumps(r.to_json()))
+    lat = np.asarray([r.queue_ms + r.service_ms for r in responses
+                      if r.ok])
+    span = float(arrivals[-1]) + max(
+        (r.service_ms for r in responses), default=0.0) / 1e3
+    rec = {
+        "workload": "wmd_serve", "impl": args.impl,
+        "device": _device_name(engine.device),
+        "n_docs": args.n_docs, "requests": n, "rate_qps": args.rate,
+        "latency_ms_p50": round(float(np.percentile(lat, 50)), 2)
+        if lat.size else None,
+        "latency_ms_p99": round(float(np.percentile(lat, 99)), 2)
+        if lat.size else None,
+        "throughput_qps": round(n / span, 1) if span > 0 else None,
+        "stats": stats,
+    }
+    print(json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--wmd", action="store_true",
                     help="the WMD query server (the only server ported)")
     ap.add_argument("--impl", default="kernel", choices=["kernel", "sparse"],
                     help="the solve: the Hopper kernel K1, or the einsum "
-                         "solve (warm start and the K-column cache)")
+                         "solve (warm start and the K-column cache). "
+                         "--serve keeps the kernel default, which cannot "
+                         "host the K-column cache: a default server runs "
+                         "without it; --impl sparse serves with it")
     ap.add_argument("--batch-queries", type=int, default=8)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top-k", type=int, default=0,
@@ -202,7 +300,40 @@ def main(argv=None) -> None:
                     help="> 0: the cross-request K-column cache with this "
                          "many device-resident (V,) distance rows, enabled "
                          "at engine build (needs --impl sparse; results "
-                         "are bit-exact); -1 and 0: no cache")
+                         "are bit-exact); 0: no cache; -1 (default): no "
+                         "cache for --wmd, and for --serve the runtime's "
+                         "default (ServeConfig.kcache_slots), which only "
+                         "--impl sparse can host")
+    ap.add_argument("--serve", action="store_true",
+                    help="long-lived async serving runtime: "
+                         "deadline-or-full micro-batching, backpressure, "
+                         "tiered degradation, fault injection; prints a "
+                         "JSON line per request and a summary record")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="--serve: open-loop request count")
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="--serve: offered load (requests/s)")
+    ap.add_argument("--window-ms", type=float, default=10.0,
+                    help="--serve: coalescer deadline (a partial batch "
+                         "dispatches once its oldest member waited this)")
+    ap.add_argument("--max-queue", type=int, default=64,
+                    help="--serve: admission bound (queued + in flight); "
+                         "arrivals beyond it get structured rejections")
+    ap.add_argument("--deadline-ms", type=float, default=500.0,
+                    help="--serve: per-request deadline budget "
+                         "(0 = none); blown budgets degrade, not drop")
+    ap.add_argument("--inject-latency-rate", type=float, default=0.0,
+                    help="fault injection: per-attempt probability of "
+                         "added dispatch latency")
+    ap.add_argument("--inject-latency-ms", type=float, default=50.0)
+    ap.add_argument("--inject-transient-rate", type=float, default=0.0,
+                    help="fault injection: per-dispatch probability of a "
+                         "transient first-attempt failure (retried)")
+    ap.add_argument("--inject-poison-rate", type=float, default=0.0,
+                    help="fault injection: per-request probability of a "
+                         "poison request (isolated, structured error)")
+    ap.add_argument("--inject-seed", type=int, default=0,
+                    help="fault injection: deterministic replay seed")
     ap.add_argument("--n-docs", type=int, default=1024)
     ap.add_argument("--vocab", type=int, default=8192)
     ap.add_argument("--embed-dim", type=int, default=64)
@@ -214,9 +345,12 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions on the host)")
     args = ap.parse_args(argv)
-    if not args.wmd:
-        ap.error("only the WMD server is ported: pass --wmd")
-    serve_wmd(args)
+    if not (args.wmd or args.serve):
+        ap.error("only the WMD server is ported: pass --wmd or --serve")
+    if args.serve:
+        serve_async(args)
+    else:
+        serve_wmd(args)
 
 
 if __name__ == "__main__":

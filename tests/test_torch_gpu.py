@@ -690,3 +690,111 @@ def test_sinkhorn_fused_warp_refuses_wide_tiles(rng):
     g, val, r = _euclid_inputs(rng, dev, 1, 65, 8, 16, 1.0, False)
     with pytest.raises(ValueError, match="64 x 64"):
         ops.sinkhorn_fused_all_batched(g, val, r, 1.0, 5, tile="warp")
+
+
+# ----------------------------------------------------------------- serving
+def _serving_world(dev):
+    """A small corpus on the card, its queries, and a request stream of
+    16 draws over them (the paper's widths are chip_smoke.py's)."""
+    from repro_torch.core.index import build_index
+    from repro_torch.data.corpus import make_corpus
+    c = make_corpus(vocab_size=2048, embed_dim=64, n_docs=512, n_queries=6,
+                    seed=3)
+    index = build_index(c.docs, c.vecs, device=dev)
+    qids = np.random.default_rng(0).integers(0, len(c.queries), 16)
+    return c, index, [c.queries[i] for i in qids], qids
+
+
+def _open_loop(engine, stream, **kw):
+    from repro_torch.runtime.serving import (ServeConfig, ServingRuntime,
+                                             poisson_arrivals,
+                                             run_open_loop)
+    injector = kw.pop("injector", None)
+    cfg = ServeConfig(**{**dict(max_batch=4, window_s=0.02, max_queue=1024,
+                                deadline_s=None), **kw})
+    runtime = ServingRuntime(engine, cfg, injector=injector)
+    return run_open_loop(runtime, stream,
+                         poisson_arrivals(len(stream), 100.0, seed=1),
+                         k=10, deadline_s=None)
+
+
+@pytest.mark.gpu
+def test_serving_runtime_on_card_matches_search():
+    """The runtime over the kernel engine on the card: every response is
+    exact and equals ``engine.search`` of its own dispatch's batch
+    replayed (ids equal, distances at rtol 1e-5); K1 and K2s ran in the
+    dispatches. Against one search of all the queries (other chunk
+    shapes, so cuBLAS sums the K block in another order: P1, 5.7e-5
+    measured here) the distances hold at chip_smoke.py's P1_RTOL, 4e-4,
+    and the ids where neighbours lie further apart than that."""
+    from repro_torch.core.index import WmdEngine
+    dev = _card()
+    c, index, stream, qids = _serving_world(dev)
+    eng = WmdEngine(index, lam=1.0, n_iter=15)
+    want = eng.search(list(c.queries), 10, prune="ivf+wcd+rwmd")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    resps, stats = _open_loop(eng, stream)
+    launches = ops.launches()
+    assert launches["sinkhorn_fused_all_batched"] > 0
+    assert launches["rwmd_min_cdist_subset"] > 0
+    assert stats["tiers"]["exact"] == len(stream)
+    batches = {}
+    for r in resps:
+        assert r.ok and r.exact and r.tier == "exact"
+        batches.setdefault(r.dispatch_id, []).append(r.rid)
+    for rids in batches.values():
+        rids = sorted(rids)
+        res = eng.search([stream[i] for i in rids], 10,
+                         prune="ivf+wcd+rwmd")
+        for j, rid in enumerate(rids):
+            assert resps[rid].indices == res.indices[j].tolist()
+            np.testing.assert_allclose(resps[rid].distances,
+                                       res.distances[j], rtol=1e-5, atol=0)
+    for r, qi in zip(resps, qids):
+        d = want.distances[qi]
+        np.testing.assert_allclose(r.distances, d, rtol=4e-4, atol=0)
+        apart = np.diff(d) > 2 * 4e-4 * d[1:]
+        for j in range(10):
+            if (j == 0 or apart[j - 1]) and (j == 9 or apart[j]):
+                assert r.indices[j] == want.indices[qi, j]
+
+
+@pytest.mark.gpu
+def test_serving_faults_on_card():
+    """Injected transients, latency and poison on the card: exactly the
+    poisoned rids fail as ``poison``, every other response is answered,
+    and the guard retried."""
+    from repro_torch.core.index import WmdEngine
+    from repro_torch.runtime.serving import FaultInjector
+    dev = _card()
+    _, index, stream, _ = _serving_world(dev)
+    kw = dict(transient_rate=0.3, poison_rate=0.2, latency_rate=0.2,
+              latency_s=0.01, seed=7)
+    poisoned = {rid for rid in range(len(stream))
+                if FaultInjector(**kw).poison(rid)}
+    assert poisoned
+    resps, stats = _open_loop(WmdEngine(index, lam=1.0, n_iter=15), stream,
+                              injector=FaultInjector(**kw))
+    for r in resps:
+        if r.rid in poisoned:
+            assert not r.ok and r.error["code"] == "poison"
+        else:
+            assert r.ok, r.error
+    assert stats["retries"] > 0
+
+
+@pytest.mark.gpu
+def test_serving_lam_underflow_on_card():
+    """fp32 at lam=50 underflows K on the card: every response is a
+    structured ``lam_underflow`` with its diagnostics, from the card's
+    own LamUnderflowError through the guard."""
+    from repro_torch.core.index import WmdEngine
+    dev = _card()
+    _, index, stream, _ = _serving_world(dev)
+    resps, stats = _open_loop(WmdEngine(index, lam=50.0, n_iter=5),
+                              stream[:6])
+    for r in resps:
+        assert not r.ok and r.error["code"] == "lam_underflow"
+        assert r.error["diagnostics"]
+    assert stats["isolations"] >= 1
