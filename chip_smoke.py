@@ -60,7 +60,25 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
   profiled window at 0.25 C (the card's idle share, device time per
   request, the rank stage's host time). A serving phase without
   injected faults fails on any ``internal`` or ``retries_exhausted``
-  response.
+  response;
+- the sharded engine and the distributed solver, every shard on the
+  card(s) ``corpus_mesh`` deals it to (one card: every shard on it, no
+  shard ever on the CPU): ``ShardedWmdEngine`` over 1, 2 and 4 shards of
+  the paper corpus (``"ivf+wcd+rwmd"`` at ``nprobe=None`` and ``"rwmd"``,
+  log, lam=10; one shard bit for bit the single engine's result, more
+  shards equal to it under the near-tie rule; K1, K2 and K2s launches per
+  shard and summed; exactly one ``all_gather`` per merge; timings beside
+  the single engine's; the card's idle share), snapshots and recovery on
+  two shards (a raw shard exception and a hang give honest partial
+  results, ``restore_shard`` is bit-exact, a stale snapshot is refused),
+  the serving runtime over two shards (64 requests at 0.25 of its C1,
+  every response exact with full coverage and equal to the exhaustive
+  top-10; a crashed shard gives ``partial`` responses until restored),
+  and the distributed sparse solver (fixed and adaptive, vshard on and
+  off) over a (2, 4) mesh of positions at the widest paper query and all
+  5000 documents, and the dense one with N cut to 512, against the
+  single-device solvers at 1e-3. Outside the runs that inject faults,
+  every sharded search must cover every shard.
 
 Each path runs once with the launch counts set to 0 just before it and
 read just after. Prints one JSON object per phase; the line before the
@@ -90,13 +108,19 @@ from repro_torch.core.index import (WmdEngine, _compute_kq,  # noqa: E402
 from repro_torch.core import (append_docs, many_to_many,  # noqa: E402
                               one_to_many)
 from repro_torch.core.prune import CascadePruner  # noqa: E402
+from repro_torch.core.distributed import (  # noqa: E402
+    sharded_inputs, sinkhorn_wmd_dense_distributed,
+    sinkhorn_wmd_sparse_distributed)
+from repro_torch.core.shard_index import (  # noqa: E402
+    ShardedWmdEngine, append_docs_sharded, restore_shard, shard_corpus)
 from repro_torch.core.sinkhorn import (LamUnderflowError,  # noqa: E402
                                        select_support)
 from repro_torch.core.sinkhorn_sparse import (_iterate,  # noqa: E402
                                               gather_columns,
                                               precompute_sparse,
                                               sinkhorn_wmd_sparse)
-from repro_torch.core.sparse import PaddedDocs  # noqa: E402
+from repro_torch.core.sparse import (PaddedDocs,  # noqa: E402
+                                     padded_docs_to_dense)
 from repro_torch.data.corpus import (dedup_corpus, make_corpus,  # noqa: E402
                                      paper_corpus, zipf_queries)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -105,6 +129,8 @@ from repro_torch.runtime.serving import (FaultInjector,  # noqa: E402
                                          ServeConfig, ServingRuntime,
                                          default_tiers, poisson_arrivals,
                                          run_open_loop)
+from repro_torch.runtime.sharding import (corpus_mesh,  # noqa: E402
+                                          count_collectives, make_mesh)
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 FFMA
 # rate outside the tensor cores, both at the full 700 W power limit
@@ -226,6 +252,27 @@ SERVE_FAULTS = dict(transient_rate=0.2, poison_rate=0.05, latency_rate=0.1,
 # codes that mean a dispatch failed on the card: a serving phase without
 # injected faults raises on any of them
 SERVE_FAILED = ("internal", "retries_exhausted")
+# the sharded phases: shard counts on corpus_mesh(S) (round-robin over the
+# visible cards), the prune specs each S runs (the cascade at
+# nprobe=None, and the full RWMD sweep), the hang a shard_snapshot run
+# injects is longer than SHARD_TIMEOUT_S, and the serve_shards crash and
+# recovery runs take SHARD_SERVE_FAULT requests each
+SHARD_COUNTS = (1, 2, 4)
+SHARD_PRUNES = ("ivf+wcd+rwmd", "rwmd")
+SHARD_TIMEOUT_S = 0.5
+SHARD_SERVE_FAULT = 16
+SHARD_SNAPSHOT_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_shards"
+# the distributed phase: a (2, 4) ("data", "model") mesh of positions,
+# lam=1 (lam=10 underflows fp32 K at w=300), held against the
+# single-device sparse solver at the reference's own tolerance
+# (tests/test_distributed.py: abs 1e-3); the dense solver at N cut to
+# DIST_DENSE_DOCS: its (V, N) temporaries at all 5000 documents are
+# ~2 GB an iteration; the adaptive runs at PQ's tol and check_every
+DIST_MESH = ((2, 4), ("data", "model"))
+DIST_ATOL = 1e-3
+DIST_DENSE_DOCS = 512
+DIST_POISON_LAM = 500.0
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -319,9 +366,14 @@ def phase_device() -> dict:
     # repro_torch.core.index); TF32 would move bounds and distances
     assert torch.backends.cuda.matmul.allow_tf32 is False, \
         "torch.backends.cuda.matmul.allow_tf32 must stay False"
+    count = torch.cuda.device_count()
+    placement = {str(n): [str(d) for d in corpus_mesh(n).devices]
+                 for n in SHARD_COUNTS}
+    print(f"cuda devices: {count}; shard placement: {placement}",
+          flush=True)
     info = {"phase": "device", "nvidia_smi": smi,
             "name": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "count": count, "shard_placement": placement,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0],
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
@@ -2486,6 +2538,406 @@ def phase_wmd_defaults(dev) -> dict:
     return rec
 
 
+# ------------------------------------------------------------ the shards
+def full_coverage(engine, label: str) -> None:
+    """No fallback: outside the runs that inject faults, a sharded search
+    that left a shard out (a failed launch turns into a partial result in
+    the fan-out's error handling) fails the phase."""
+    cov = engine.last_coverage
+    if not cov.full:
+        raise AssertionError(f"{label}: partial coverage {cov}")
+
+
+def hold_sharded(res, base, label: str, bitwise: bool) -> None:
+    """A sharded result against the single engine's: bit for bit (ids,
+    distances and solved) or, with more shards, distances at P1_RTOL and
+    ids under the near-tie rule: each shard stages its own chunks, and
+    cuBLAS sums another chunk's K block in another order (P1)."""
+    if bitwise:
+        if not (np.array_equal(res.indices, base.indices)
+                and np.array_equal(res.distances, base.distances)
+                and np.array_equal(res.solved, base.solved)):
+            raise AssertionError(f"{label}: not bit for bit the single "
+                                 "engine's result")
+        return
+    np.testing.assert_allclose(res.distances, base.distances, rtol=P1_RTOL,
+                               atol=0, err_msg=label)
+    for qi in range(base.indices.shape[0]):
+        near_tie_ids(res.indices[qi].tolist(), base.indices[qi].tolist(),
+                     base.distances[qi], P1_RTOL, f"{label} query {qi}")
+
+
+def hold_exhaustive(res, ex, label: str) -> None:
+    """A pruned search of the single engine against its exhaustive top-k
+    (``prune=None``: no bound, so a stage that drops a true neighbour, or
+    a K2s that over-prunes, fails here): distances at E2E_RTOL, ids under
+    the near-tie rule."""
+    np.testing.assert_allclose(res.distances, ex.distances, rtol=E2E_RTOL,
+                               atol=0, err_msg=label)
+    for qi in range(ex.indices.shape[0]):
+        near_tie_ids(res.indices[qi].tolist(), ex.indices[qi].tolist(),
+                     ex.distances[qi], E2E_RTOL, f"{label} query {qi}")
+
+
+def shard_launches(engine, qs, prune: str) -> dict:
+    """K1, K2 and K2s launches of one search of each shard run alone, and
+    of one sharded search (whose fan-out runs them concurrently), which
+    must be their sum; and the collectives of that search."""
+    names = ("sinkhorn_fused_all_batched", "rwmd_min_cdist",
+             "rwmd_min_cdist_subset")
+    per_shard = []
+    for e in engine.engines:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        e.search(qs, TOP_K, prune=prune)
+        torch.cuda.synchronize()
+        per_shard.append({n: ops.launches()[n] for n in names})
+    ops.reset_launches()
+    colls = count_collectives(engine.search, qs, TOP_K, prune=prune)
+    torch.cuda.synchronize()
+    full_coverage(engine, f"shards launches {prune}")
+    total = {n: ops.launches()[n] for n in names}
+    summed = {n: sum(p[n] for p in per_shard) for n in names}
+    if total != summed:
+        raise AssertionError(f"shards {prune}: launches {total} are not "
+                             f"the shards' sum {summed}")
+    if colls != {"all_gather": 1}:
+        raise AssertionError(f"shards {prune}: the merge ran {colls}, not "
+                             "one all_gather")
+    return {"per_shard": per_shard, "summed": total, "collectives": colls}
+
+
+def phase_shards(corpus, index, card: str) -> dict:
+    """``ShardedWmdEngine`` over S in SHARD_COUNTS shards of the paper
+    corpus on ``corpus_mesh(S)`` (log, lam=10, k=10, the 10 paper
+    queries): for each S and prune spec the result against the single
+    engine's (one shard bit for bit), the launches per shard and summed,
+    the merge's one all_gather, and 15 warm searches beside the single
+    engine's 15 with the merge's share; then the card's idle share over
+    one profiled 2-shard cascade search. The single engine's results are
+    first held against its exhaustive top-10, and K2s against its plain
+    version at the inputs of the widest RWMD stage of the single engine's
+    and of every shard's cascade search of these queries."""
+    qs = list(corpus.queries)
+    kw = dict(lam=CONFIG.lam, n_iter=CONFIG.n_iter, precision="log")
+    single = WmdEngine(index, **kw)
+    rec = {"phase": "shards", "card": card, "queries": len(qs), "k": TOP_K,
+           "precision": "log", "lam": CONFIG.lam, "nprobe": None,
+           "prunes": list(SHARD_PRUNES), "single": {}, "shards": {}}
+    exhaustive = single.search(qs, TOP_K, prune=None)
+    base = {}
+    for prune in SHARD_PRUNES:
+        base[prune] = single.search(qs, TOP_K, prune=prune)
+        hold_exhaustive(base[prune], exhaustive, f"shards single {prune}")
+        rec["single"][prune] = {"search_ms": wall_ms(
+            lambda: single.search(qs, TOP_K, prune=prune))}
+    k2s = {"single": phase_k2s_from_search(index, [qs], "shards_single")}
+    engines = {}
+    for n in SHARD_COUNTS:
+        t0 = time.perf_counter()
+        mesh = corpus_mesh(n)
+        sindex = shard_corpus(corpus.docs, corpus.vecs, n, devices=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        eng = ShardedWmdEngine(sindex, **kw)
+        engines[n] = eng
+        srec = {"placement": [str(d) for d in mesh.devices],
+                "docs_per_shard": list(sindex.docs_per_shard),
+                "clusters_per_shard": list(sindex.cluster_counts),
+                "build_s": build_s, "prunes": {}}
+        for prune in SHARD_PRUNES:
+            label = f"shards S={n} {prune}"
+            res = eng.search(qs, TOP_K, prune=prune)
+            full_coverage(eng, label)
+            hold_sharded(res, base[prune], label, bitwise=n == 1)
+            launches = shard_launches(eng, qs, prune)
+
+            def timed():
+                eng.search(qs, TOP_K, prune=prune)
+                full_coverage(eng, label)
+
+            eng.reset_iter_stats()              # zeroes merge_seconds
+            t = wall_ms(timed)
+            srec["prunes"][prune] = {
+                "search_ms": t, "launches": launches,
+                "merge_ms_per_search": eng.merge_seconds * 1e3 / E2E_REPS,
+                "ratio_to_single": t["median"]
+                / rec["single"][prune]["search_ms"]["median"],
+                "solved": res.solved.tolist(),
+                "held": "bitwise" if n == 1 else "near_tie_P1"}
+        for si, ix in enumerate(sindex.shards):
+            k2s[f"S={n} shard {si}"] = phase_k2s_from_search(
+                ix, [qs], f"shards_S{n}_shard{si}")
+        rec["shards"][str(n)] = srec
+    rec["k2s_checked"] = {key: {"shape": r["shape"],
+                                "max_abs_err": r["max_abs_err"],
+                                "ms": r["ms"]} for key, r in k2s.items()}
+    two = engines[2]
+    out = profile_window(lambda: two.search(qs, TOP_K,
+                                            prune=SHARD_PRUNES[0]), 1)
+    full_coverage(two, "shards profile")
+    prof = profile_record("profile_shards", *out, 1, shards=2,
+                          prune=SHARD_PRUNES[0])
+    if out[1]:
+        prof["device_idle_share"] = 1.0 - out[3] / out[0]
+    rec["profile_2_shards"] = prof
+    emit(rec)
+    return {"record": rec, "engines": engines, "base": base,
+            "k2s": k2s["single"]}
+
+
+def phase_shard_snapshot(corpus, engine, card: str) -> dict:
+    """Snapshots and recovery on a 2-shard engine of the paper corpus:
+    ``snapshot()``; a raw exception on shard 1 gives a partial result from
+    shard 0 only, with honest ``last_coverage``; a hang longer than the
+    fan-out's deadline gives ``"timeout"``; ``restore_shard(1)`` brings
+    back full coverage bit for bit the baseline; a snapshot taken before
+    ``append_docs_sharded`` is refused as stale."""
+    import shutil
+    import threading
+    qs = list(corpus.queries)
+    prune = SHARD_PRUNES[0]
+    shutil.rmtree(SHARD_SNAPSHOT_DIR, ignore_errors=True)
+    engine.shard_retries = 0
+    baseline = engine.search(qs, TOP_K, prune=prune)
+    full_coverage(engine, "shard_snapshot baseline")
+    t0 = time.perf_counter()
+    paths = engine.snapshot(str(SHARD_SNAPSHOT_DIR))
+    snap_s = time.perf_counter() - t0
+    rec = {"phase": "shard_snapshot", "card": card, "shards": 2,
+           "docs_per_shard": list(engine.docs_per_shard),
+           "snapshot_s": snap_s, "snapshot_bytes": sum(
+               Path(p).stat().st_size for p in paths)}
+    orig = engine.engines[1].search
+
+    def boom(*a, **kw):
+        raise ValueError("injected shard death")
+
+    engine.engines[1].search = boom
+    res = engine.search(qs, TOP_K, prune=prune)
+    cov = engine.last_coverage
+    frac0 = engine.docs_per_shard[0] / engine.n_docs
+    if cov.missing_shards != (1,) or abs(cov.fraction - frac0) > 1e-9 \
+            or "ValueError" not in cov.reasons.get(1, ""):
+        raise AssertionError(f"shard_snapshot raw exception: {cov}")
+    shard0 = set(engine.sindex.global_ids[0].tolist())
+    if not set(res.indices[res.indices >= 0].tolist()) <= shard0:
+        raise AssertionError("shard_snapshot: the partial result holds ids "
+                             "of the dead shard")
+    rec["raw_exception"] = {"coverage": cov.fraction,
+                            "missing": list(cov.missing_shards),
+                            "reason": cov.reasons[1]}
+    release, finished = threading.Event(), threading.Event()
+
+    def hang(*a, **kw):
+        try:
+            release.wait(60.0)
+            return orig(*a, **kw)
+        finally:
+            finished.set()
+
+    engine.engines[1].search = hang
+    engine.shard_timeout_s = SHARD_TIMEOUT_S
+    t0 = time.perf_counter()
+    engine.search(qs, TOP_K, prune=prune)
+    hang_s = time.perf_counter() - t0
+    reason = engine.last_coverage.reasons.get(1)
+    release.set()
+    finished.wait(120.0)                # the hung shard's thread is done
+    engine.shard_timeout_s = 30.0
+    if reason != "timeout":
+        raise AssertionError(f"shard_snapshot hang: {engine.last_coverage}")
+    rec["hang"] = {"timeout_s": SHARD_TIMEOUT_S, "search_s": hang_s,
+                   "reason": reason}
+    t0 = time.perf_counter()
+    engine.restore_shard(1)             # the rebuilt engine drops the patch
+    torch.cuda.synchronize()
+    rec["restore_s"] = time.perf_counter() - t0
+    res = engine.search(qs, TOP_K, prune=prune)
+    full_coverage(engine, "shard_snapshot restored")
+    if not (np.array_equal(res.indices, baseline.indices)
+            and np.array_equal(res.distances, baseline.distances)):
+        raise AssertionError("shard_snapshot: the restored search is not "
+                             "bit for bit the baseline")
+    rec["restored_bitwise"] = True
+    grown = append_docs_sharded(engine.sindex, PaddedDocs(
+        idx=corpus.docs.idx[:16], val=corpus.docs.val[:16]))
+    stale = []
+    for si in range(grown.n_shards):
+        if grown.docs_per_shard[si] == engine.docs_per_shard[si]:
+            continue
+        try:
+            restore_shard(grown, si, str(SHARD_SNAPSHOT_DIR))
+        except ValueError as e:
+            if "STALE" not in str(e):
+                raise
+            stale.append(si)
+        else:
+            raise AssertionError(f"shard_snapshot: a stale snapshot of "
+                                 f"shard {si} was restored")
+    if not stale:
+        raise AssertionError("shard_snapshot: the append grew no shard")
+    rec["stale_refused"] = stale
+    engine.shard_retries = 1
+    emit(rec)
+    return rec
+
+
+def phase_serve_shards(corpus, index, engine, card: str) -> dict:
+    """The serving runtime over a 2-shard engine (log, lam=10): its own C1,
+    64 requests at 0.25 C1 (every response exact with full coverage,
+    equal to the replay of its batch and to the exhaustive top-10, K1 and
+    K2s launched), then SHARD_SERVE_FAULT requests with shard 1 crashed
+    (every response answered, tagged partial, never exact), then after
+    ``restore_shard(1)`` and ``revive_shard()`` as many again, clean."""
+    reqs, ids = serve_requests(corpus, SERVE_LIGHT)
+    c1 = serve_capacity(engine, reqs, "sharded_2_log", card,
+                        batch=1)["capacity_per_s"]
+    full_coverage(engine, "serve_shards capacity")
+    qs = list(corpus.queries)
+    exhaustive = WmdEngine(index, lam=CONFIG.lam, n_iter=CONFIG.n_iter,
+                           precision="log").search(qs, TOP_K, prune=None)
+    cfg = ServeConfig(max_batch=SERVE_BATCH)
+    engine.snapshot(str(SHARD_SNAPSHOT_DIR))
+    rec = {"phase": "serve_shards", "card": card, "shards": 2,
+           "capacity_1_per_s": c1, "runs": {}}
+    resps, stats, run = serve_run(engine, reqs, SERVE_LOW * c1, cfg,
+                                  "shards 0.25C1")
+    if stats["partial"] or any(r.partial for r in resps):
+        raise AssertionError(f"serve_shards: partial responses without "
+                             f"faults ({stats['partial']})")
+    run["exact_checked"] = hold_served(resps, reqs, engine, "shards 0.25C1",
+                                       ids, exhaustive)
+    launched(run, ("sinkhorn_fused_all_batched", "rwmd_min_cdist_subset"),
+             "shards 0.25C1")
+    rec["runs"]["0.25C1"] = run
+    injector = FaultInjector(crash_shard=1, crash_after=0, seed=1)
+    n = SHARD_SERVE_FAULT
+    resps, stats, run = serve_run(engine, reqs[:n], SERVE_LOW * c1, cfg,
+                                  "shards crash", injector=injector)
+    for r in resps:
+        if not (r.ok and r.partial and not r.exact
+                and r.missing_shards == [1]):
+            raise AssertionError(f"serve_shards crash: rid {r.rid} "
+                                 f"ok={r.ok} partial={r.partial} "
+                                 f"exact={r.exact} {r.error}")
+    run["partial"] = stats["partial"]
+    run["coverage"] = resps[0].coverage
+    rec["runs"]["crash_shard_1"] = run
+    injector.revive_shard()
+    engine.restore_shard(1)
+    resps, stats, run = serve_run(engine, reqs[:n], SERVE_LOW * c1, cfg,
+                                  "shards recovered", injector=injector)
+    if stats["partial"] or any(r.partial for r in resps):
+        raise AssertionError("serve_shards: partial responses after the "
+                             "shard was restored")
+    run["exact_checked"] = hold_served(resps, reqs, engine,
+                                       "shards recovered", ids, exhaustive)
+    rec["runs"]["recovered"] = run
+    emit(rec)
+    return rec
+
+
+def phase_distributed(corpus, card: str) -> dict:
+    """The distributed solvers over a (2, 4) ("data", "model") mesh of
+    positions on ``make_mesh`` (round-robin over the visible cards) at the
+    widest paper query, lam=1: the sparse solver, fixed and adaptive, with
+    vshard on and off, at all 5000 documents against
+    ``one_to_many(impl="sparse")`` at DIST_ATOL (the adaptive loop at the
+    count the single-device ``sinkhorn_wmd_sparse`` realizes under the same
+    ``tol``, which it must realize too), with its collectives counted (fixed: none but vshard's
+    one psum_scatter; adaptive: pmax); the dense solver with N cut to
+    DIST_DENSE_DOCS against the single-device dense one; and a poisoning
+    lam that must raise LamUnderflowError naming the owning shard."""
+    from repro_torch.core.sinkhorn import sinkhorn_wmd_dense
+    from repro_torch.core.sinkhorn_sparse import sinkhorn_wmd_sparse
+    mesh = make_mesh(*DIST_MESH)
+    dev = mesh.devices[0]
+    q = widest_query(corpus)
+    vecs = torch.as_tensor(corpus.vecs, device=dev)
+    r, sel, _ = select_support(q, vecs)
+    inp = sharded_inputs(mesh, r, sel, vecs, corpus.docs)
+    lam, n_iter = 1.0, CONFIG.n_iter
+    rec = {"phase": "distributed", "card": card,
+           "mesh": mesh.describe(),
+           "lam": lam, "n_iter": n_iter, "v_r": int(r.shape[0]),
+           "n_docs": int(corpus.docs.idx.shape[0]), "atol": DIST_ATOL,
+           "sparse": {}}
+    ref = one_to_many(q, inp["docs"], vecs, lam, n_iter, impl="sparse",
+                      device=dev)
+    ad = dict(tol=PQ["tol"], check_every=PQ["check_every"])
+    _, ref_iters = sinkhorn_wmd_sparse(r, sel, vecs, inp["docs"], lam,
+                                       PQ["n_iter"], return_iters=True, **ad)
+    ref_ad = one_to_many(q, inp["docs"], vecs, lam, int(ref_iters),
+                         impl="sparse", device=dev)
+    for adaptive in (False, True):
+        for vshard in (False, True):
+            key = f"{'adaptive' if adaptive else 'fixed'}_vshard_{vshard}"
+            extra = dict(ad, n_iter=PQ["n_iter"]) if adaptive \
+                else dict(n_iter=n_iter)
+            out = {}
+
+            def run():
+                out["d"], out["iters"] = sinkhorn_wmd_sparse_distributed(
+                    inp["r"], inp["vecs_sel"], inp["vecs"], inp["docs"],
+                    lam, mesh=mesh, vshard_precompute=vshard,
+                    return_iters=True, **extra)
+
+            colls = count_collectives(run)
+            want = ref_ad if adaptive else ref
+            err = float((out["d"] - want).abs().max())
+            if not err < DIST_ATOL:
+                raise AssertionError(f"distributed {key}: max abs err {err}")
+            if adaptive and out["iters"].tolist() != [int(ref_iters)]:
+                raise AssertionError(f"distributed {key}: {out['iters']} "
+                                     f"iterations, not {ref_iters}")
+            expect = {"psum_scatter"} if vshard else set()
+            if adaptive:
+                expect |= {"pmax"}
+            if set(colls) != expect or colls.get("psum_scatter", 1) != 1:
+                raise AssertionError(f"distributed {key}: collectives "
+                                     f"{colls}")
+            rec["sparse"][key] = {
+                "max_abs_err": err, "collectives": colls,
+                "iters": out["iters"].tolist(),
+                "ms": wall_ms(run, reps=3)["median"]}
+    rec["sparse_reference_iters"] = int(ref_iters)
+    nd = DIST_DENSE_DOCS
+    c = torch.as_tensor(padded_docs_to_dense(PaddedDocs(
+        idx=corpus.docs.idx[:nd], val=corpus.docs.val[:nd]),
+        vecs.shape[0]), device=dev)
+    want = sinkhorn_wmd_dense(r, sel, vecs, c, lam, n_iter)
+    out = {}
+
+    def dense():
+        out["d"] = sinkhorn_wmd_dense_distributed(r, sel, vecs, c, lam,
+                                                  n_iter, mesh)
+
+    colls = count_collectives(dense)
+    err = float((out["d"] - want).abs().max())
+    if not err < DIST_ATOL or set(colls) != {"psum"}:
+        raise AssertionError(f"distributed dense: err {err}, {colls}")
+    rec["dense"] = {"n_docs": nd, "cut": f"N cut to {nd} of 5000: the "
+                    "(V, N) temporaries at 5000 are ~2 GB an iteration",
+                    "max_abs_err": err, "collectives": colls,
+                    "ms": wall_ms(dense, reps=3)["median"]}
+    try:
+        sinkhorn_wmd_sparse_distributed(
+            inp["r"], inp["vecs_sel"], inp["vecs"], inp["docs"],
+            DIST_POISON_LAM, n_iter, mesh,
+            doc_ids=np.arange(corpus.docs.idx.shape[0]) + 70000)
+    except LamUnderflowError as e:
+        if "owning shard" not in str(e) or "external doc ids" not in str(e):
+            raise AssertionError(f"distributed underflow report: {e}")
+        rec["underflow"] = {"lam": DIST_POISON_LAM,
+                            "report": str(e)[:160]}
+    else:
+        raise AssertionError(f"distributed: lam={DIST_POISON_LAM} did not "
+                             "raise LamUnderflowError")
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2570,6 +3022,22 @@ def main() -> int:
     phase_serve_kcache(index, smi)
     phase_profile_serve(corpus, index, serve["capacity_per_s"], smi)
     emit({"phase": "serving", "seconds": time.perf_counter() - t_serve})
+    t_shards = time.perf_counter()
+    shards = phase_shards(corpus, index, smi)
+    two = shards["engines"][2]
+    k2s_shards = shards["k2s"]
+    shard_k2s_launches = {
+        n: srec["prunes"][SHARD_PRUNES[0]]["launches"]["summed"][
+            "rwmd_min_cdist_subset"]
+        for n, srec in shards["record"]["shards"].items()}
+    del shards
+    phase_shard_snapshot(corpus, two, smi)
+    phase_serve_shards(corpus, index, two, smi)
+    phase_distributed(corpus, smi)
+    import shutil
+    shutil.rmtree(SHARD_SNAPSHOT_DIR, ignore_errors=True)
+    del two
+    emit({"phase": "sharding", "seconds": time.perf_counter() - t_shards})
     del index
     torch.cuda.empty_cache()
     otm = phase_one_to_many(corpus, dev)
@@ -2647,6 +3115,13 @@ def main() -> int:
         "launches": light["launches"]["rwmd_min_cdist_subset"],
         "launches_per_dispatch":
             light["launches_per_dispatch"]["rwmd_min_cdist_subset"]}
+    # K2s at the widest RWMD stage of the single engine's cascade search of
+    # the 10 paper queries (the sharded searches' shapes, each shard's
+    # held in phase shards); its launches: per sharded search, by S
+    kernels[5]["shards_paper_queries"] = {
+        **{key: k2s_shards[key] for key in keys},
+        "shape": k2s_shards["shape"], "library_ms": None,
+        "launches_per_sharded_search": shard_k2s_launches}
     # K2's product alone on cuBLAS SGEMM as a yardstick
     kernels[0]["sgemm_ms"] = k2["sgemm_ms"]
     kernels[2]["full"] = {key: k3[0][key] for key in keys}

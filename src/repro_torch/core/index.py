@@ -11,6 +11,11 @@
     distance table. :func:`build_index` builds it with a torch k-means;
     :func:`index_from_arrays` takes the arrays the reference's
     ``save_index`` writes and rebuilds the same storage order and groups.
+    :func:`save_index` / :func:`load_index` (``CorpusIndex.save`` /
+    ``.load``) persist it to one checksummed ``.npz`` file with the
+    reference's keys and dtypes, so a file written by either package
+    loads in the other; :func:`index_to_device` moves it to another
+    device.
 
 ``WmdEngine``
     Shape-buckets queries to power-of-two ``v_r`` sizes (padded query rows
@@ -41,6 +46,7 @@ digits and would move both the prune bounds and the distances.
 from __future__ import annotations
 
 import collections
+import zlib
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -116,6 +122,18 @@ class CorpusIndex(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.vecs.device
+
+    def save(self, path) -> None:
+        """Persist this index to one checksummed ``.npz`` file (see
+        :func:`save_index`)."""
+        save_index(self, path)
+
+    @staticmethod
+    def load(path, device=None) -> "CorpusIndex":
+        """Rebuild an index from a :meth:`save` file (see
+        :func:`load_index`); raises ``ValueError`` if its checksum or
+        format version does not match."""
+        return load_index(path, device=device)
 
     def to_external(self, storage_ids) -> np.ndarray:
         """Storage ids -> the caller's original doc ids."""
@@ -467,12 +485,104 @@ def _assemble(idx_np, val_np, vecs, centroids, doc_groups, clusters,
         ext_ids=ext_ids, remap=remap, pivots=pivots, doc_pivot_d=doc_pivot_d)
 
 
-def index_from_arrays(arrays: dict, device=None) -> CorpusIndex:
-    """Rebuild a :class:`CorpusIndex` from the numpy arrays the reference's
-    ``save_index`` writes (``idx``, ``val``, ``vecs``, ``centroids``,
-    ``n_groups``, ``c_*``, ``ext_ids``, ``remap``, ``pivots``,
-    ``doc_pivot_d``; ``checksum`` and ``version`` are ignored): the same
-    storage order, groups and clustering, on ``device``."""
+INDEX_SNAPSHOT_VERSION = 1
+
+
+def snapshot_checksum(arrays: dict) -> int:
+    """CRC32 over every array's name, dtype, shape and bytes, key-sorted:
+    the integrity tag :func:`load_index` verifies (the reference's,
+    computed in the same order, so a file carries one checksum in both
+    packages). Not cryptographic: it catches truncated or garbled files."""
+    crc = 0
+    for name in sorted(arrays):
+        a = np.ascontiguousarray(arrays[name])
+        hdr = f"{name}:{a.dtype.str}:{a.shape}".encode()
+        crc = zlib.crc32(a.tobytes(), zlib.crc32(hdr, crc))
+    return crc
+
+
+def _verify_snapshot(arrays: dict, source) -> dict:
+    """Check a snapshot's ``checksum`` and ``version`` where present and
+    return the arrays without the checksum. Raises ``ValueError`` with the
+    reference's messages on a mismatch: a half-written snapshot must not
+    serve wrong results."""
+    arrays = dict(arrays)
+    if "checksum" in arrays:
+        stored = int(arrays.pop("checksum"))
+        actual = snapshot_checksum(arrays)
+        if actual != stored:
+            raise ValueError(
+                f"index snapshot {source!r} failed its integrity check "
+                f"(stored crc32 {stored:#010x}, recomputed {actual:#010x}) "
+                "— refusing to serve from a corrupt/truncated snapshot")
+    if "version" in arrays:
+        version = int(arrays["version"])
+        if version != INDEX_SNAPSHOT_VERSION:
+            raise ValueError(f"index snapshot {source!r} has version "
+                             f"{version}; this build reads "
+                             f"{INDEX_SNAPSHOT_VERSION}")
+    return arrays
+
+
+def save_index(index: CorpusIndex, path) -> None:
+    """Persist a :class:`CorpusIndex` to one ``.npz`` file: the host
+    arrays under the reference's keys and with its dtypes (idx int32,
+    val/vecs/centroids/centers/pivots fp32, c_assign/c_order/ext_ids/remap
+    int32, c_starts int64, c_radii fp64, n_groups and version int64),
+    tagged with :func:`snapshot_checksum`. Everything else (the device
+    uploads, norms, the nnz group split) is a pure function of these and
+    is recomputed on load. A file of an index carried over from the
+    reference (:func:`index_from_arrays`) equals the reference's, array
+    for array, checksum included."""
+    def f32(t):
+        return np.ascontiguousarray(_host(t), np.float32)
+
+    arrays = {
+        "idx": np.ascontiguousarray(index.docs_host.idx, np.int32),
+        "val": np.ascontiguousarray(index.docs_host.val, np.float32),
+        "vecs": f32(index.vecs),
+        "centroids": f32(index.centroids),
+        "n_groups": np.asarray(len(index.groups), np.int64),
+        "version": np.asarray(INDEX_SNAPSHOT_VERSION, np.int64),
+    }
+    cl = index.clusters
+    if cl is not None:
+        arrays["c_centers"] = f32(cl.centers)
+        arrays["c_assign"] = np.asarray(cl.assign, np.int32)
+        arrays["c_order"] = np.asarray(cl.order, np.int32)
+        arrays["c_starts"] = np.asarray(cl.starts, np.int64)
+        arrays["c_radii"] = np.asarray(cl.radii, np.float64)
+    if index.ext_ids is not None:
+        arrays["ext_ids"] = np.asarray(index.ext_ids, np.int32)
+        arrays["remap"] = np.asarray(index.remap, np.int32)
+    if index.pivots is not None:
+        arrays["pivots"] = f32(index.pivots)
+        arrays["doc_pivot_d"] = f32(index.doc_pivot_d)
+    # the checksum covers everything above
+    arrays["checksum"] = np.asarray(snapshot_checksum(arrays), np.uint32)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def load_index(path, device=None) -> CorpusIndex:
+    """Rebuild a :class:`CorpusIndex` on ``device`` (``None`` -> ``cuda``)
+    from a :func:`save_index` file, the reference's or the port's. Refuses
+    a bad checksum or version (``ValueError``) before trusting anything;
+    the rebuilt index is bit-compatible with the saved one."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    return index_from_arrays(arrays, device=device, source=path)
+
+
+def index_from_arrays(arrays: dict, device=None,
+                      source="<arrays>") -> CorpusIndex:
+    """Rebuild a :class:`CorpusIndex` from the numpy arrays a
+    ``save_index`` writes, the reference's or the port's (``idx``,
+    ``val``, ``vecs``, ``centroids``, ``n_groups``, ``c_*``, ``ext_ids``,
+    ``remap``, ``pivots``, ``doc_pivot_d``): the same storage order,
+    groups and clustering, on ``device``. ``checksum`` and ``version`` are
+    verified whenever present (``ValueError`` on a mismatch)."""
+    arrays = _verify_snapshot(arrays, source)
     dev = resolve_device(device)
 
     def t(name):
@@ -498,6 +608,29 @@ def index_from_arrays(arrays: dict, device=None) -> CorpusIndex:
     return _assemble(np.asarray(arrays["idx"]), np.asarray(arrays["val"]),
                      t("vecs"), t("centroids"), int(arrays["n_groups"]),
                      clusters, ext_ids, remap, pivots, doc_pivot_d)
+
+
+def index_to_device(index: CorpusIndex, device) -> CorpusIndex:
+    """The same index with every device tensor on ``device`` (the host
+    mirrors stay on the host). A tensor already there is kept as it is,
+    so on one device this copies nothing."""
+    dev = torch.device(device)
+
+    def put(t):
+        return None if t is None else t.to(dev)
+
+    groups = tuple(g._replace(docs=PaddedDocs(idx=put(g.docs.idx),
+                                              val=put(g.docs.val)))
+                   for g in index.groups)
+    clusters = index.clusters
+    if clusters is not None:
+        clusters = clusters._replace(centers=put(clusters.centers),
+                                     assign_dev=put(clusters.assign_dev))
+    return index._replace(
+        docs=PaddedDocs(idx=put(index.docs.idx), val=put(index.docs.val)),
+        groups=groups, vecs=put(index.vecs), vecs_sq=put(index.vecs_sq),
+        centroids=put(index.centroids), clusters=clusters,
+        pivots=put(index.pivots), doc_pivot_d=put(index.doc_pivot_d))
 
 
 def _pad_width(a, width: int):

@@ -211,7 +211,7 @@ def adaptive_loop(step, residual, x0, n_iter: int, tol: float,
 
 
 def adaptive_loop_scoped(step, residual, x0, n_iter: int, tol: float,
-                         check_every: int, live_q):
+                         check_every: int, live_q, all_reduce=None):
     """Per-query convergence-adaptive driver: a (Q,) residual vector and
     a per-query convergence state. ``step(x, active) -> (x, w)`` runs one
     iteration with the (Q,) bool ``active`` mask; ``residual(w, w_prev)``
@@ -220,8 +220,13 @@ def adaptive_loop_scoped(step, residual, x0, n_iter: int, tol: float,
     ends when every ``live_q`` query has converged or the count reaches
     ``n_iter``. Returns ``(x, iters_q)``, iters_q (Q,) int32: the
     iterations each query's x absorbed (fillers stay at the seed's 1).
-    One host sync per check."""
-    bshape = (-1,) + (1,) * (x0.ndim - 1)
+    One host sync per check.
+
+    ``all_reduce`` (optional) agrees on the residual across shards, as
+    the reference's ``lax.pmax``: ``x`` and ``w`` may then be lists of
+    per-position tensors (the distributed solver's), ``residual`` returns
+    their per-position vectors and ``all_reduce`` the one (Q,) vector on
+    ``live_q``'s device. Without it nothing changes for a tensor ``x``."""
     x, w_prev = step(x0, live_q)
     conv = torch.zeros_like(live_q)
     iters_q = torch.ones(live_q.shape, dtype=torch.int32,
@@ -229,16 +234,26 @@ def adaptive_loop_scoped(step, residual, x0, n_iter: int, tol: float,
     i = 1
     while i < n_iter and bool((live_q & ~conv).any()):
         active = live_q & ~conv
-        act_b = active.reshape(bshape)
         for _ in range(check_every):
             x_new, w = step(x, active)
-            x = torch.where(act_b, x_new, x)
+            x = _freeze(active, x_new, x)
         i += check_every
         res = residual(w, w_prev)
+        if all_reduce is not None:
+            res = all_reduce(res)
         iters_q = torch.where(active, i, iters_q)
         conv = conv | (active & (res <= tol))
         w_prev = w
     return x, iters_q
+
+
+def _freeze(active, x_new, x):
+    """``x_new`` for the ``active`` queries (axis 0), ``x`` for the
+    others; a list of per-position tensors maps position by position."""
+    if isinstance(x_new, torch.Tensor):
+        act_b = active.reshape((-1,) + (1,) * (x_new.ndim - 1))
+        return torch.where(act_b, x_new, x)
+    return [_freeze(active.to(n.device), n, o) for n, o in zip(x_new, x)]
 
 
 def _inv(x, guarded: bool):

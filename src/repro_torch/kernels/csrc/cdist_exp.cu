@@ -37,6 +37,7 @@
 #include <math.h>
 
 #include "cdist_ring.cuh"
+#include "device_attr.cuh"
 
 namespace {
 
@@ -142,9 +143,7 @@ cudaError_t launch(const float* a, const float* b, const float* r, float* m,
                    float* k, float* kr, int VR, int W, int V, float lam,
                    int log_k, cudaStream_t stream) {
   auto kernel = cdist_exp_kernel<BMAX, BF16>;
-  static bool smem_set = false;
-  const cudaError_t err =
-      cdist_ring::allow_smem(kernel, smem_bytes<BMAX>(), smem_set);
+  const cudaError_t err = device_attr::allow_smem(kernel, smem_bytes<BMAX>());
   if (err != cudaSuccess) return err;
   const int row_tiles = (VR + BMAX - 1) / BMAX;
   const long long blocks =

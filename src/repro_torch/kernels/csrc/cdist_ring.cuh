@@ -129,14 +129,4 @@ __device__ __forceinline__ void fma_chunk(const float* as, const float* bs,
   }
 }
 
-// Sets the largest dynamic shared memory `kernel` takes, once per kernel.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  done = err == cudaSuccess;
-  return err;
-}
-
 }  // namespace cdist_ring

@@ -46,6 +46,7 @@
 
 #include "async_copy.cuh"
 #include "cdist_ring.cuh"
+#include "device_attr.cuh"
 
 namespace {
 
@@ -400,9 +401,9 @@ template <int RB>
 cudaError_t launch_stacked(const Args& x, cudaStream_t stream) {
   auto kernel = rwmd_min_cdist_stacked_kernel<RB>;
   const size_t smem = stacked_smem_bytes<RB>(x.Q);
-  static bool attr = false;     // the largest size, set once
-  const cudaError_t err = cdist_ring::allow_smem(
-      kernel, stacked_smem_bytes<RB>(kStMaxQ), attr);
+  // the largest size, once per device
+  const cudaError_t err =
+      device_attr::allow_smem(kernel, stacked_smem_bytes<RB>(kStMaxQ));
   if (err != cudaSuccess) return err;
   const int vec4 = x.W % 4 == 0 &&
                    reinterpret_cast<unsigned long long>(x.a) % 16 == 0 &&
@@ -448,9 +449,8 @@ extern "C" int rwmd_min_cdist_subset_launch(const float* a,
                                             int Vb, int Vc, void* stream) {
   if (Q == 0 || Vc == 0) return 0;
   if (B < 1 || Q > 65535) return (int)cudaErrorInvalidValue;
-  static bool attr = false;
   cudaError_t err =
-      cdist_ring::allow_smem(rwmd_min_cdist_subset_kernel, kSubSmem, attr);
+      device_attr::allow_smem(rwmd_min_cdist_subset_kernel, kSubSmem);
   if (err != cudaSuccess) return (int)err;
   const int vec4 = W % 4 == 0 &&
                    reinterpret_cast<unsigned long long>(a) % 16 == 0 &&

@@ -45,6 +45,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_attr.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;          // warps per block, at most
@@ -169,32 +171,15 @@ cudaError_t launch(const float* g, const float* gor, const float* val,
   const int wpb = block_warps(L);
   if (wpb == 0) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * wpb * (size_t)L;
-  static bool smem_set = false;           // the largest block, once
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  // resident blocks on the card for this block shape, asked once a shape
-  static size_t room_smem = ~(size_t)0;
-  static int room_wpb = 0, room = 0;
-  if (smem != room_smem || wpb != room_wpb) {
-    int per_sm = 0, dev = 0, sms = 0;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, 32 * wpb, smem);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
-    room_smem = smem;
-    room_wpb = wpb;
-    room = per_sm * sms;
-  }
-  const int need = (N + wpb - 1) / wpb;
-  kernel<<<need < room ? need : room, 32 * wpb, smem, stream>>>(
+  // the largest block's shared memory, and the resident blocks on the
+  // card for this block shape, once per device
+  cudaError_t err = device_attr::allow_smem(kernel, kMaxSmem);
+  long long room = 0;
+  if (err == cudaSuccess)
+    err = device_attr::room(kernel, 32 * wpb, smem, &room);
+  if (err != cudaSuccess) return err;
+  const long long need = (N + wpb - 1) / wpb;
+  kernel<<<(int)(need < room ? need : room), 32 * wpb, smem, stream>>>(
       g, gor, val, x, xout, VR, N, L);
   return cudaGetLastError();
 }

@@ -87,6 +87,7 @@
 #include <math.h>
 
 #include "async_copy.cuh"
+#include "device_attr.cuh"
 
 namespace {
 
@@ -882,22 +883,11 @@ cudaError_t launch_warp(const Args& a, cudaStream_t stream) {
   auto kernel = sinkhorn_fused_warp_kernel<KC, LC, BF16, ROWS_SMEM>;
   constexpr int smem = (int)warp_smem_bytes<KC, LC, ROWS_SMEM>();
   constexpr int threads = 32 * kWarpsPerBlock;
-  static long long room = 0;     // resident blocks on the card, asked once
-  if (room == 0) {
-    int per_sm = 0, dev = 0, sms = 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          threads, smem);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
-    room = (long long)per_sm * sms;
-  }
+  // resident blocks on the card, asked once per device
+  cudaError_t err = device_attr::allow_smem(kernel, smem);
+  long long room = 0;
+  if (err == cudaSuccess) err = device_attr::room(kernel, threads, smem, &room);
+  if (err != cudaSuccess) return err;
   const long long pairs = (long long)a.Q * a.N;
   const long long need = (pairs + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const int blocks = (int)(need < room ? need : room);

@@ -2,17 +2,21 @@
 path :func:`sinkhorn_wmd_kernel` built from them.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with torch (the kernels allocate nothing), launches on the current
-CUDA stream, raises if the launch failed, and adds one to its
-``launches`` counter for each kernel launch (``rwmd_min_cdist`` once per
-64 queries, the others once per call; ``bsr_sddmm`` counts its launch
-under ``bsr_sddmm_blocks``). A tensor on the CPU goes to the plain
-version in :mod:`.ref` instead (and does not count); a CUDA tensor always launches
-the kernel — there is no fallback.
+outputs with torch (the kernels allocate nothing), launches on its
+tensors' device (made the calling thread's current device for the launch:
+the sharded engine launches from pool threads, possibly for shards on
+different cards) and that device's current stream, raises if the launch
+failed, and adds one to its ``launches`` counter for each kernel launch
+(``rwmd_min_cdist`` once per 64 queries, the others once per call;
+``bsr_sddmm`` counts its launch under ``bsr_sddmm_blocks``). The library
+load and the counters are safe under threads. A tensor on the CPU goes to
+the plain version in :mod:`.ref` instead (and does not count); a CUDA
+tensor always launches the kernel — there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -25,14 +29,25 @@ MAX_SMEM_BYTES = 232_448
 RWMD_STACKED_MAX_Q = 64
 
 _LIB = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _lib():
+    """The kernels' library, built and loaded once per process; threads
+    that ask while it is being built wait for it."""
     global _LIB
     if _LIB is None:
-        from .build import load
-        _LIB = load()
+        with _LIB_LOCK:
+            if _LIB is None:
+                from .build import load
+                _LIB = load()
     return _LIB
+
+
+def _count(fn, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        fn.launches += n
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -58,6 +73,15 @@ def _check(name: str, t: torch.Tensor, ndim: int, dtype, device) -> None:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _launch(dev: torch.device, name: str, entry, *args) -> None:
+    """Call the C entry point with ``dev`` as the calling thread's current
+    device (a ctypes launch goes to the current device, and its
+    per-device attribute caches are keyed by it) on ``dev``'s current
+    stream; raise if the launch failed."""
+    with torch.cuda.device(dev):
+        _raise_on(entry(*args, _stream(dev)), name)
 
 
 def _rwmd_checks(a, mask, b) -> None:
@@ -92,10 +116,9 @@ def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
         return ref.rwmd_min_cdist_ref(a, mask, b)
     v = b.shape[0]
     out = torch.empty((q, v), dtype=torch.float32, device=dev)
-    _raise_on(_lib().rwmd_min_cdist_launch(
-        _ptr(a), _ptr(mask), _ptr(b), _ptr(out), q, bq, w, v, _stream(dev)),
-        "rwmd_min_cdist")
-    rwmd_min_cdist.launches += -(-q // RWMD_STACKED_MAX_Q)
+    _launch(dev, "rwmd_min_cdist", _lib().rwmd_min_cdist_launch,
+            _ptr(a), _ptr(mask), _ptr(b), _ptr(out), q, bq, w, v)
+    _count(rwmd_min_cdist, -(-q // RWMD_STACKED_MAX_Q))
     return out
 
 
@@ -124,11 +147,11 @@ def rwmd_min_cdist_subset(a: torch.Tensor, mask: torch.Tensor,
     q, bq, w = a.shape
     vc = vocab_ids.shape[0]
     out = torch.empty((q, vc), dtype=torch.float32, device=dev)
-    _raise_on(_lib().rwmd_min_cdist_subset_launch(
-        _ptr(a), _ptr(mask), _ptr(b), _ptr(vocab_ids), _ptr(out), q, bq, w,
-        b.shape[0], vc, _stream(dev)), "rwmd_min_cdist_subset")
+    _launch(dev, "rwmd_min_cdist_subset",
+            _lib().rwmd_min_cdist_subset_launch, _ptr(a), _ptr(mask),
+            _ptr(b), _ptr(vocab_ids), _ptr(out), q, bq, w, b.shape[0], vc)
     if q and vc:
-        rwmd_min_cdist_subset.launches += 1
+        _count(rwmd_min_cdist_subset)
     return out
 
 
@@ -162,11 +185,11 @@ def cdist_exp(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
     if not k_only:
         m, kr = torch.empty_like(k), torch.empty_like(k)
     null = ctypes.c_void_p(None)
-    _raise_on(_lib().cdist_exp_launch(
-        _ptr(a), _ptr(b), _ptr(r), null if k_only else _ptr(m), _ptr(k),
-        null if k_only else _ptr(kr), v_r, w, v, ctypes.c_float(float(lam)),
-        int(log_k), int(bf16), _stream(dev)), "cdist_exp")
-    cdist_exp.launches += 1
+    _launch(dev, "cdist_exp", _lib().cdist_exp_launch,
+            _ptr(a), _ptr(b), _ptr(r), null if k_only else _ptr(m), _ptr(k),
+            null if k_only else _ptr(kr), v_r, w, v,
+            ctypes.c_float(float(lam)), int(log_k), int(bf16))
+    _count(cdist_exp)
     return k if k_only else (m, k, kr)
 
 
@@ -197,10 +220,10 @@ def sddmm_spmm_step(g: torch.Tensor, g_over_r: torch.Tensor,
                          f"in shared memory: L={length} needs "
                          f"{4 * length} B, the limit is {MAX_SMEM_BYTES}")
     out = torch.empty((v_r, n), dtype=torch.float32, device=dev)
-    _raise_on(lib.sddmm_spmm_step_launch(
-        _ptr(g), _ptr(g_over_r), _ptr(val), _ptr(x), _ptr(out), v_r, n,
-        length, _stream(dev)), "sddmm_spmm_step")
-    sddmm_spmm_step.launches += 1
+    _launch(dev, "sddmm_spmm_step", lib.sddmm_spmm_step_launch,
+            _ptr(g), _ptr(g_over_r), _ptr(val), _ptr(x), _ptr(out), v_r, n,
+            length)
+    _count(sddmm_spmm_step)
     return out
 
 
@@ -252,15 +275,15 @@ def _solve_launch(fn, g, val, r, rm, lam, n_iter, block_n, tol,
         iters = torch.zeros((q, -(-n // block_n)), dtype=torch.int32,
                             device=dev)
     null = ctypes.c_void_p(None)
-    _raise_on(lib.sinkhorn_fused_batched_launch(
-        _ptr(g), _ptr(val), _ptr(r), null if rm is None else _ptr(rm),
-        _ptr(wmd), null if iters is None else _ptr(iters), q, v_r, n,
-        length, int(n_iter), ctypes.c_float(float(lam)), int(log_domain),
-        int(block_n),
-        ctypes.c_float(0.0 if tol is None else float(tol)),
-        0 if tol is None else int(check_every), int(gemm == "bf16"),
-        _TILES[tile], _stream(dev)), fn.__name__)
-    fn.launches += 1
+    _launch(dev, fn.__name__, lib.sinkhorn_fused_batched_launch,
+            _ptr(g), _ptr(val), _ptr(r), null if rm is None else _ptr(rm),
+            _ptr(wmd), null if iters is None else _ptr(iters), q, v_r, n,
+            length, int(n_iter), ctypes.c_float(float(lam)), int(log_domain),
+            int(block_n),
+            ctypes.c_float(0.0 if tol is None else float(tol)),
+            0 if tol is None else int(check_every), int(gemm == "bf16"),
+            _TILES[tile])
+    _count(fn)
     return wmd, iters
 
 
@@ -415,10 +438,9 @@ def bsr_sddmm_blocks(ktb: torch.Tensor, ub: torch.Tensor,
     if dev.type == "cpu":
         return ref.bsr_sddmm_blocks_ref(ktb, ub, cblk)
     w = torch.empty_like(cblk)
-    _raise_on(_lib().bsr_sddmm_blocks_launch(
-        _ptr(ktb), _ptr(ub), _ptr(cblk), _ptr(w), nb, bv, bn, v_r,
-        _stream(dev)), "bsr_sddmm_blocks")
-    bsr_sddmm_blocks.launches += 1
+    _launch(dev, "bsr_sddmm_blocks", _lib().bsr_sddmm_blocks_launch,
+            _ptr(ktb), _ptr(ub), _ptr(cblk), _ptr(w), nb, bv, bn, v_r)
+    _count(bsr_sddmm_blocks)
     return w
 
 
@@ -455,10 +477,10 @@ def bsr_sddmm(kt: torch.Tensor, u: torch.Tensor, c_bsr) -> torch.Tensor:
         return ref.bsr_sddmm_blocks_ref(
             *ref.bsr_panels(kt, u, brow, bcol, bv, bn), blocks)
     w = torch.empty_like(blocks)
-    _raise_on(_lib().bsr_sddmm_launch(
-        _ptr(kt), _ptr(u), _ptr(blocks), _ptr(brow), _ptr(bcol), _ptr(w), nb,
-        bv, bn, v_r, v, n, _stream(dev)), "bsr_sddmm")
-    bsr_sddmm_blocks.launches += 1
+    _launch(dev, "bsr_sddmm", _lib().bsr_sddmm_launch,
+            _ptr(kt), _ptr(u), _ptr(blocks), _ptr(brow), _ptr(bcol), _ptr(w),
+            nb, bv, bn, v_r, v, n)
+    _count(bsr_sddmm_blocks)
     return w
 
 
@@ -469,9 +491,11 @@ _COUNTED = (rwmd_min_cdist, sinkhorn_fused_all_batched, cdist_exp,
 
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
-    for fn in _COUNTED:
-        fn.launches = 0
+    with _COUNT_LOCK:
+        for fn in _COUNTED:
+            fn.launches = 0
 
 
 def launches() -> dict:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    with _COUNT_LOCK:
+        return {fn.__name__: fn.launches for fn in _COUNTED}

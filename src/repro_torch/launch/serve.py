@@ -44,6 +44,25 @@ without it; ``--impl sparse`` serves the einsum engine with the cache::
     PYTHONPATH=src python -m repro_torch.launch.serve --wmd --serve \\
         --device cpu --n-docs 48 --vocab 256 --embed-dim 8 --requests 8 \\
         --top-k 4 --rate 50                                  # host run
+
+``--shards N`` (N > 1) partitions the corpus into N cluster-aligned doc
+shards over ``corpus_mesh(N)`` (round-robin over the visible cards; with
+one card every shard on it, with ``--device`` every shard on that device)
+and serves through a :class:`ShardedWmdEngine`: each shard runs the whole
+cascade (K1, K2 and K2s) and one ``all_gather`` merges the shards' top-k.
+Under ``--serve`` the fan-out is deadline-bounded (``--shard-timeout-ms``),
+shard faults can be injected (``--inject-shard-*``), responses that miss a
+shard are tagged ``partial`` with their coverage, and ``--snapshot-dir``
+writes per-shard snapshots after the warm-up. The record gains ``shards``
+and ``docs_per_shard``::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --serve \\
+        --shards 2 --top-k 10 --prune ivf+wcd+rwmd --n-docs 5000 \\
+        --vocab 100000 --embed-dim 300 --precision log --lam 10 \\
+        --requests 64 --rate 8 --snapshot-dir build/wmd-snap
+    PYTHONPATH=src python -m repro_torch.launch.serve --wmd --serve \\
+        --shards 2 --device cpu --n-docs 48 --vocab 256 --embed-dim 8 \\
+        --requests 8 --top-k 4 --inject-shard-crash 1        # host run
 """
 from __future__ import annotations
 
@@ -69,20 +88,43 @@ def _sync(device: torch.device) -> None:
 
 def _build_engine(args):
     """(corpus, engine) for the flags: the synthetic corpus (seed 0) and
-    its index on ``--device``."""
+    its index on ``--device``, or with ``--shards N > 1`` its N shards
+    over ``corpus_mesh(N)`` under a :class:`ShardedWmdEngine`."""
     device = resolve_device(args.device)
     corpus = make_corpus(vocab_size=args.vocab, embed_dim=args.embed_dim,
                          n_docs=args.n_docs, n_queries=8, seed=0)
+    kw = dict(lam=args.lam, n_iter=args.n_iter, impl=args.impl,
+              precision=args.precision,
+              tol=args.tol if args.tol > 0 else None,
+              check_every=args.check_every, scope=args.scope,
+              warm_start=args.warm_start,
+              kcache_slots=(args.kcache_slots
+                            if args.kcache_slots > 0 else None))
+    if args.shards > 1:
+        from repro_torch.core.shard_index import (ShardedWmdEngine,
+                                                  shard_corpus)
+        from repro_torch.runtime.sharding import corpus_mesh
+        mesh = corpus_mesh(args.shards, None if args.device is None
+                           else [device])
+        sindex = shard_corpus(corpus.docs, corpus.vecs, args.shards,
+                              n_clusters=args.n_clusters, devices=mesh)
+        timeout = args.shard_timeout_ms
+        return corpus, ShardedWmdEngine(
+            sindex, shard_timeout_s=timeout / 1e3 if timeout > 0 else None,
+            snapshot_dir=args.snapshot_dir, **kw)
     index = build_index(corpus.docs, corpus.vecs, device=device,
                         n_clusters=args.n_clusters)
-    engine = WmdEngine(index, lam=args.lam, n_iter=args.n_iter,
-                       impl=args.impl, precision=args.precision,
-                       tol=args.tol if args.tol > 0 else None,
-                       check_every=args.check_every, scope=args.scope,
-                       warm_start=args.warm_start,
-                       kcache_slots=(args.kcache_slots
-                                     if args.kcache_slots > 0 else None))
-    return corpus, engine
+    return corpus, WmdEngine(index, **kw)
+
+
+def _shard_fields(engine) -> dict:
+    """The record's ``shards`` and ``docs_per_shard`` for a sharded engine
+    (and where its shards sit), nothing for a single one."""
+    if getattr(engine, "n_shards", 1) <= 1:
+        return {}
+    return {"shards": engine.n_shards,
+            "docs_per_shard": [int(n) for n in engine.docs_per_shard],
+            "placement": [str(d) for d in engine.sindex.devices]}
 
 
 def _device_name(device: torch.device) -> str:
@@ -92,7 +134,7 @@ def _device_name(device: torch.device) -> str:
 
 def serve_wmd(args) -> dict:
     corpus, engine = _build_engine(args)
-    index, device = engine.index, engine.device
+    device = engine.device
     reqs = wmd_request_stream(corpus)
     bq = max(1, args.batch_queries)
     prune = None if args.prune == "none" else args.prune
@@ -170,8 +212,13 @@ def serve_wmd(args) -> dict:
         if solved:
             rec["solved_frac"] = float(np.mean(solved)) / args.n_docs
         if args.prune.startswith("ivf"):
-            rec["n_clusters"] = index.clusters.n_clusters
-            rec["nprobe"] = nprobe if nprobe else index.clusters.n_clusters
+            counts = getattr(engine, "cluster_counts", None) \
+                or (engine.index.clusters.n_clusters,)
+            rec["n_clusters"] = (list(counts) if len(counts) > 1
+                                 else counts[0])
+            rec["nprobe"] = nprobe if nprobe else \
+                ("all" if len(counts) > 1 else counts[0])
+    rec.update(_shard_fields(engine))
     print(json.dumps(rec))
     return rec
 
@@ -186,12 +233,19 @@ def serve_async(args) -> dict:
     corpus, engine = _build_engine(args)
     injector = None
     if args.inject_latency_rate or args.inject_transient_rate \
-            or args.inject_poison_rate:
+            or args.inject_poison_rate or args.inject_shard_latency_rate \
+            or args.inject_shard_transient_rate \
+            or args.inject_shard_crash >= 0:
         injector = FaultInjector(
             latency_rate=args.inject_latency_rate,
             latency_s=args.inject_latency_ms / 1e3,
             transient_rate=args.inject_transient_rate,
             poison_rate=args.inject_poison_rate,
+            shard_latency_rate=args.inject_shard_latency_rate,
+            shard_latency_s=args.inject_shard_latency_ms / 1e3,
+            shard_transient_rate=args.inject_shard_transient_rate,
+            crash_shard=args.inject_shard_crash,
+            crash_after=args.inject_shard_crash_after,
             seed=args.inject_seed)
     cfg = ServeConfig(
         max_batch=max(1, args.batch_queries),
@@ -216,6 +270,10 @@ def serve_async(args) -> dict:
         else:
             rwmd_topk(engine, warm, k)
     engine.reset_iter_stats()
+    if args.snapshot_dir and hasattr(engine, "snapshot"):
+        # the recovery snapshot is taken after the warm-up, so a restored
+        # shard rejoins with the kernels already built
+        engine.snapshot()
     n = max(1, args.requests)
     queries = [next(reqs) for _ in range(n)]
     arrivals = poisson_arrivals(n, rate_per_s=args.rate, seed=1)
@@ -239,6 +297,7 @@ def serve_async(args) -> dict:
         if lat.size else None,
         "throughput_qps": round(n / span, 1) if span > 0 else None,
         "stats": stats,
+        **_shard_fields(engine),
     }
     print(json.dumps(rec))
     return rec
@@ -334,6 +393,36 @@ def main(argv=None) -> None:
                          "poison request (isolated, structured error)")
     ap.add_argument("--inject-seed", type=int, default=0,
                     help="fault injection: deterministic replay seed")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="> 1: partition the corpus into this many "
+                         "cluster-aligned doc shards over corpus_mesh(N) "
+                         "(round-robin over the visible cards; every shard "
+                         "on --device when it is given); per-shard "
+                         "cascades merge through one all_gather")
+    ap.add_argument("--shard-timeout-ms", type=float, default=30000.0,
+                    help="sharded fan-out: per-dispatch deadline; shards "
+                         "that miss it are left out of the merge and the "
+                         "response is tagged partial (0 = wait forever)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="sharded engine: write per-shard snapshots here "
+                         "after the warm-up; restore_shard() rebuilds a "
+                         "dead shard from them (bit-compatible)")
+    ap.add_argument("--inject-shard-latency-rate", type=float, default=0.0,
+                    help="fault injection: per-shard-attempt probability "
+                         "of added latency inside the fan-out")
+    ap.add_argument("--inject-shard-latency-ms", type=float, default=50.0)
+    ap.add_argument("--inject-shard-transient-rate", type=float,
+                    default=0.0,
+                    help="fault injection: per-shard-attempt probability "
+                         "of a transient failure (burns a shard retry)")
+    ap.add_argument("--inject-shard-crash", type=int, default=-1,
+                    help="fault injection: crash this shard id on every "
+                         "attempt from --inject-shard-crash-after on "
+                         "(-1 = off); responses go partial with honest "
+                         "coverage")
+    ap.add_argument("--inject-shard-crash-after", type=int, default=0,
+                    help="fan-out sequence number the crash window opens "
+                         "at")
     ap.add_argument("--n-docs", type=int, default=1024)
     ap.add_argument("--vocab", type=int, default=8192)
     ap.add_argument("--embed-dim", type=int, default=64)

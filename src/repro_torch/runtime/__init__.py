@@ -1,1 +1,1 @@
-"""Serving runtime and host-side fault tolerance of the port."""
+"""Serving runtime, host-side fault tolerance and corpus meshes of the port."""

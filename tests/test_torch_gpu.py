@@ -798,3 +798,144 @@ def test_serving_lam_underflow_on_card():
         assert not r.ok and r.error["code"] == "lam_underflow"
         assert r.error["diagnostics"]
     assert stats["isolations"] >= 1
+
+
+# ------------------------------------------------------------- the shards
+@pytest.mark.gpu
+def test_sharded_search_on_card():
+    """Two shards on ``corpus_mesh(2)`` (every shard on the card when the
+    host has one): full coverage, K1 and K2s launched by each shard
+    (the sharded search's launches are the shards' sum), one all_gather
+    per merge, and the top-10 of the single engine on the card (distances
+    at chip_smoke.py's P1_RTOL, 4e-4: each shard stages its own chunks,
+    so cuBLAS sums their K blocks in another order; ids where neighbours
+    lie further apart). Then the same shards carried to the host search
+    like the card (R2: the host GEMM sums in another order again)."""
+    from repro_torch.core.index import WmdEngine, build_index, index_to_device
+    from repro_torch.core.shard_index import ShardedWmdEngine, shard_corpus
+    from repro_torch.data.corpus import make_corpus
+    from repro_torch.runtime.sharding import corpus_mesh, count_collectives
+    dev = _card()
+    c = make_corpus(vocab_size=4096, embed_dim=64, n_docs=600, n_queries=6,
+                    seed=3)
+    qs = list(c.queries)
+    mesh = corpus_mesh(2)
+    assert all(d.type == "cuda" for d in mesh.devices)
+    sindex = shard_corpus(c.docs, c.vecs, 2, devices=mesh)
+    eng = ShardedWmdEngine(sindex, lam=1.0, n_iter=15)
+    names = ("sinkhorn_fused_all_batched", "rwmd_min_cdist_subset")
+    per = []
+    for e in eng.engines:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        e.search(qs, 10, prune="ivf+wcd+rwmd")
+        torch.cuda.synchronize()
+        per.append(ops.launches())
+    ops.reset_launches()
+    out = {}
+    colls = count_collectives(lambda: out.setdefault(
+        "res", eng.search(qs, 10, prune="ivf+wcd+rwmd")))
+    torch.cuda.synchronize()
+    total = ops.launches()
+    assert colls == {"all_gather": 1}
+    assert eng.last_coverage.full
+    for n in names:
+        assert all(p[n] > 0 for p in per)
+        assert total[n] == sum(p[n] for p in per)
+    res = out["res"]
+    want = WmdEngine(build_index(c.docs, c.vecs, device=dev), lam=1.0,
+                     n_iter=15).search(qs, 10, prune="ivf+wcd+rwmd")
+    np.testing.assert_allclose(res.distances, want.distances, rtol=4e-4,
+                               atol=0)
+    for qi in range(len(qs)):
+        d = want.distances[qi]
+        apart = np.diff(d) > 2 * 4e-4 * d[1:]
+        for j in range(10):
+            if (j == 0 or apart[j - 1]) and (j == 9 or apart[j]):
+                assert res.indices[qi, j] == want.indices[qi, j]
+    host = ShardedWmdEngine(sindex._replace(
+        shards=tuple(index_to_device(ix, "cpu") for ix in sindex.shards),
+        centers=sindex.centers.cpu(),
+        mesh=corpus_mesh(2, ["cpu"])), lam=1.0, n_iter=15)
+    got = host.search(qs, 10, prune="ivf+wcd+rwmd")
+    np.testing.assert_allclose(got.distances, res.distances, rtol=1e-3,
+                               atol=5e-3)
+
+
+@pytest.mark.gpu
+def test_merge_on_card_equals_host(rng):
+    """The one-collective merge with its shard lanes on the card: the
+    all_gather to the card and the stable top-k there give the host's
+    result exactly (ties to the lowest shard-major index, +inf pads
+    last)."""
+    from repro_torch.core.shard_index import merge_topk
+    dev = _card()
+    s, q, k = 4, 8, 10
+    lanes = []
+    for _ in range(s):
+        d = np.round(rng.random((q, k)) * 4) / 4     # many exact ties
+        d[:, -2:] = np.inf
+        d.sort(axis=1)
+        ids = rng.integers(0, 10_000, (q, k)).astype(np.float32)
+        ids[:, -2:] = -1.0
+        lanes.append(np.concatenate([d, ids], axis=1).astype(np.float32))
+    got = merge_topk([torch.as_tensor(x, device=dev) for x in lanes], k,
+                     dev)
+    want = merge_topk([torch.as_tensor(x) for x in lanes], k, "cpu")
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_kernels_launched_from_threads_on_card(rng):
+    """K2s and K1 launched from four host threads at once (the sharded
+    fan-out's pool): each result equals its plain version and no launch
+    is lost from the counters."""
+    import threading
+    dev = _card()
+    n_threads, reps = 4, 5
+    q, b, w, v, vc = 2, 16, 300, 4096, 512
+    inputs = []
+    for _ in range(n_threads):
+        a = torch.tensor(rng.standard_normal((q, b, w)), dtype=torch.float32,
+                         device=dev)
+        mask = torch.ones((q, b), device=dev)
+        vocab = torch.tensor(rng.standard_normal((v, w)),
+                             dtype=torch.float32, device=dev)
+        ids = torch.tensor(rng.choice(v, vc, replace=False), device=dev)
+        g = torch.tensor(np.exp(-rng.uniform(0.1, 1.5, (q, 24, 300, 28))),
+                         dtype=torch.float32, device=dev)
+        val = torch.tensor(rng.random((300, 28)), dtype=torch.float32,
+                           device=dev)
+        val /= val.sum(1, keepdim=True)
+        r = torch.full((q, 24), 1.0 / 24, device=dev)
+        inputs.append((a, mask, vocab, ids, g, val, r))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = [None] * n_threads
+    start = threading.Barrier(n_threads)
+
+    def work(i):
+        a, mask, vocab, ids, g, val, r = inputs[i]
+        start.wait()
+        for _ in range(reps):
+            k2s = ops.rwmd_min_cdist_subset(a, mask, vocab, ids)
+            k1 = ops.sinkhorn_fused_all_batched(g, val, r, 2.0, 15)
+        torch.cuda.synchronize()
+        out[i] = (k2s, k1)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    counts = ops.launches()
+    assert counts["rwmd_min_cdist_subset"] == n_threads * reps
+    assert counts["sinkhorn_fused_all_batched"] == n_threads * reps
+    for (a, mask, vocab, ids, g, val, r), (k2s, k1) in zip(inputs, out):
+        want = ref.rwmd_min_cdist_subset_ref(a, mask, vocab, ids)
+        torch.testing.assert_close(k2s, want, rtol=1e-5, atol=1e-4)
+        want1, _ = ref.sinkhorn_fused_all_batched_ref(g, val, r, 2.0, 15)
+        torch.testing.assert_close(k1, want1, rtol=1e-4, atol=1e-4)
