@@ -131,6 +131,11 @@ from repro_torch.runtime.serving import (FaultInjector,  # noqa: E402
                                          run_open_loop)
 from repro_torch.runtime.sharding import (corpus_mesh,  # noqa: E402
                                           count_collectives, make_mesh)
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.models.model import (make_prefill,  # noqa: E402
+                                      make_serve_step)
+from repro_torch.models.moe import moe_dropped_fraction  # noqa: E402
+from repro_torch.models.transformer import Transformer  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 FFMA
 # rate outside the tensor cores, both at the full 700 W power limit
@@ -273,6 +278,20 @@ DIST_MESH = ((2, 4), ("data", "model"))
 DIST_ATOL = 1e-3
 DIST_DENSE_DOCS = 512
 DIST_POISON_LAM = 500.0
+# LM decode (no hand-written kernel: the reference's LM path reaches no
+# Pallas kernel). The reduced configs on the card against the host (both
+# routers of the MoE), then qwen2_moe_a2_7b and granite_3_2b at full width
+# and depth in fp32, the reference serve_lm's dtype: LM_BATCH sequences,
+# LM_STEPS greedy steps, p50/p99 over all but the first two (as serve_lm),
+# a profiled window of LM_PROFILE_STEPS. Prefill against token-by-token
+# decode at the reference's 2e-3 (tests/test_arch_smoke.py)
+LM_SMALL = (("granite_3_2b", None), ("qwen2_moe_a2_7b", "sinkhorn"),
+            ("qwen2_moe_a2_7b", "topk"), ("musicgen_large", None))
+LM_SMALL_STEPS = 8
+LM_RTOL, LM_ATOL = 1e-4, 1e-4
+LM_BATCH, LM_STEPS, LM_PROFILE_STEPS = 4, 32, 8
+LM_PREFILL_BATCH, LM_PREFILL_LEN, LM_PREFILL_TOL = 2, 8, 2e-3
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -2938,6 +2957,219 @@ def phase_distributed(corpus, card: str) -> dict:
     return rec
 
 
+def lm_decode(model, batch: int, steps: int, cache=None):
+    """``steps`` greedy serve steps from token 1: (tokens (B, steps),
+    logits (B, steps, V), cache)."""
+    step = make_serve_step(model)
+    if cache is None:
+        cache = model.init_cache(batch, steps)
+    tok = torch.ones((batch, 1), dtype=torch.long,
+                     device=model.embed.device)
+    toks, logits = [], []
+    for _ in range(steps):
+        tok, lg, cache = step(cache, tok)
+        toks.append(tok)
+        logits.append(lg)
+    return torch.cat(toks, 1), torch.stack(logits, 1), cache
+
+
+def phase_lm_small_parity(dev) -> None:
+    """The reduced LMs on the card against the same weights on the host:
+    equal tokens and logits within fp32 rounding, LM_SMALL_STEPS steps."""
+    import copy
+    import dataclasses
+    rows = []
+    for arch, router in LM_SMALL:
+        cfg = get_config(arch).reduced()
+        if router:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, router=router))
+        host = Transformer(cfg, 0, device="cpu")
+        card = copy.deepcopy(host).to(dev)
+        with torch.inference_mode():
+            th, lh, _ = lm_decode(host, LM_BATCH, LM_SMALL_STEPS)
+            tc, lc, _ = lm_decode(card, LM_BATCH, LM_SMALL_STEPS)
+            if not torch.equal(tc.cpu(), th):
+                raise AssertionError(f"lm_small_parity {arch} {router}: "
+                                     "card and host tokens differ")
+            err = compare(lc.cpu(), lh, LM_RTOL, LM_ATOL,
+                          f"lm_small_parity {arch} {router}")
+            rows.append({"arch": arch, "router": router,
+                         "max_abs_err": err[0]})
+    emit({"phase": "lm_small_parity", "steps": LM_SMALL_STEPS,
+          "batch": LM_BATCH, "rtol": LM_RTOL, "atol": LM_ATOL,
+          "archs": rows})
+
+
+def lm_step_bytes(model, batch: int, pos: float) -> float:
+    """Bytes one decode step must move: every weight once (the capacity
+    dispatch runs every expert on its buffer), but of an untied embedding
+    only the ``batch`` rows it gathers, and the cache's live entries at
+    position ``pos`` (read, and one written)."""
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    if model.lm_head is not None:
+        n -= model.embed.numel() - batch * cfg.d_model
+    kv = 2 * cfg.num_layers * batch * model.n_kv * cfg.head_dim * (pos + 2)
+    return 4.0 * (n + kv)
+
+
+def lm_step_flops(model, batch: int, pos: float) -> float:
+    """fp32 operations of one decode step: the products at ``batch``
+    tokens (the MoE's at E x cap rows of its buffers) and attention over
+    ``pos + 1`` positions."""
+    cfg = model.cfg
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = 2 * batch * d * (2 * model.n_q + 2 * model.n_kv) * hd \
+        + 4 * batch * model.n_q * hd * (pos + 1)
+    if cfg.moe:
+        sp = cfg.moe
+        cap = int(sp.capacity_factor * sp.top_k * batch / sp.n_experts + 1)
+        ffn = 6 * sp.n_experts * cap * d * sp.d_ff \
+            + 6 * batch * d * sp.n_shared * sp.d_ff \
+            + 2 * batch * d * sp.n_experts
+    else:
+        ffn = (6 if cfg.mlp == "swiglu" else 4) * batch * d * cfg.d_ff
+    head = 2 * batch * d * model.lm_head_matrix().shape[0]
+    return float(cfg.num_layers * (attn + ffn) + head)
+
+
+def hold_prefill_decode(model, gen) -> dict:
+    """Logits of LM_PREFILL_LEN positions from one prefill forward against
+    token-by-token decode, for LM_PREFILL_BATCH random sequences."""
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (LM_PREFILL_BATCH, LM_PREFILL_LEN),
+                           generator=gen, device=gen.device)
+    hidden, _ = model(tokens)
+    full = torch.nn.functional.linear(
+        hidden, model.lm_head_matrix()).float()[..., :cfg.vocab_size]
+    cache = model.init_cache(LM_PREFILL_BATCH, LM_PREFILL_LEN)
+    dec = torch.stack([model.decode_step(cache, tokens[:, t:t + 1])[0]
+                       for t in range(LM_PREFILL_LEN)], 1)
+    last = make_prefill(model)(tokens)[:, :cfg.vocab_size]
+    torch.testing.assert_close(last, full[:, -1], rtol=1e-5, atol=1e-5)
+    err = (dec - full).abs()
+    return {"max_abs_err": float(err.max()),
+            "within": bool(torch.allclose(dec, full, rtol=LM_PREFILL_TOL,
+                                          atol=LM_PREFILL_TOL))}
+
+
+def set_moe(model, **spec) -> dict:
+    """Replace fields of every MoE layer's spec; returns the old specs by
+    layer, for :func:`restore_moe`."""
+    import dataclasses
+    old = {}
+    for i, blk in enumerate(model.layers):
+        if blk.moe is not None:
+            old[i] = blk.moe.spec
+            blk.moe.spec = dataclasses.replace(blk.moe.spec, **spec)
+    return old
+
+
+def restore_moe(model, old: dict) -> None:
+    for i, spec in old.items():
+        model.layers[i].moe.spec = spec
+
+
+def phase_lm_full(dev, arch: str, phase: str, card: str) -> dict:
+    """``arch`` at full width and depth in fp32 with random weights (seed
+    0, made on the card): LM_STEPS serve steps at LM_BATCH, their p50/p99
+    and tokens per second, peak memory, the step's bound, a profiled
+    window's busy share, and prefill against decode."""
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"phase": phase, "arch": arch, "nvidia_smi": card,
+           "dtype": "float32", "batch": LM_BATCH, "steps": LM_STEPS}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        gen = torch.Generator(dev).manual_seed(0)
+        model = Transformer(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params"] = sum(p.numel() for p in model.parameters())
+        rec["param_bytes"] = 4 * rec["params"]
+        rec["n_params_config"] = cfg.n_params()
+        rec["n_active_params_config"] = cfg.n_active_params()
+        max_len = LM_STEPS + LM_PROFILE_STEPS + 1
+        cache = model.init_cache(LM_BATCH, max_len)
+        step = make_serve_step(model)
+        tok = torch.ones((LM_BATCH, 1), dtype=torch.long, device=dev)
+        times = []
+        for _ in range(LM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, logits, cache = step(cache, tok)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{phase}: non-finite logits")
+        if logits.shape != (LM_BATCH, cfg.vocab_size):
+            raise AssertionError(f"{phase}: logits {tuple(logits.shape)}")
+        ms = np.asarray(times[2:])
+        rec.update(ms_per_token_p50=float(np.percentile(ms, 50)),
+                   ms_per_token_p99=float(np.percentile(ms, 99)),
+                   ms_per_token_mean=float(ms.mean()),
+                   tokens_per_s=LM_BATCH / (ms.mean() / 1e3),
+                   first_steps_ms=times[:2], last_tokens=tok[:, 0].tolist())
+        pos = (LM_STEPS - 1) / 2
+        b, kind = bound_ms(lm_step_bytes(model, LM_BATCH, pos),
+                           lm_step_flops(model, LM_BATCH, pos))
+        rec.update(step_bytes=lm_step_bytes(model, LM_BATCH, pos),
+                   step_flops=lm_step_flops(model, LM_BATCH, pos),
+                   bound_ms=b, bound_by=kind,
+                   bound_share=b / rec["ms_per_token_p50"])
+        state = {"cache": cache, "tok": tok}
+
+        def one_step():
+            state["tok"], _, state["cache"] = step(state["cache"],
+                                                   state["tok"])
+        prof = profile_record(f"{phase}_profile",
+                              *profile_window(one_step, LM_PROFILE_STEPS),
+                              LM_PROFILE_STEPS)
+        rec["profile"] = prof
+        rec["device_busy_share"] = prof.get("device_busy_share")
+        if cfg.moe:
+            # the MoE inputs of every layer at one decode step of the batch
+            inputs = []
+            hooks = [blk.moe.register_forward_pre_hook(
+                lambda _m, args: inputs.append(args[0]))
+                for blk in model.layers]
+            c1 = model.init_cache(LM_BATCH, 2)
+            model.decode_step(c1, tok)
+            for h in hooks:
+                h.remove()
+            rec["moe_dropped_fraction"] = {
+                kind: float(np.mean([float(moe_dropped_fraction(
+                    blk.moe, x, kind)) for blk, x in zip(model.layers,
+                                                          inputs)]))
+                for kind in ("sinkhorn", "topk")}
+            # the config's router balances over the tokens routed together
+            # and its capacity depends on their count, so prefill and
+            # decode route differently (ROADMAP R9): measured, not held
+            rec["prefill_vs_decode_config_router"] = hold_prefill_decode(
+                model, gen)
+            # held: per-token routing with a slot for every token, where
+            # the two passes compute one function
+            old = set_moe(model, router="topk", capacity_factor=(
+                cfg.moe.n_experts / cfg.moe.top_k))
+            held = hold_prefill_decode(model, gen)
+            restore_moe(model, old)
+            held["moe"] = "topk, capacity_factor n_experts/top_k"
+        else:
+            held = hold_prefill_decode(model, gen)
+        rec["prefill_vs_decode"] = held
+        if not held["within"]:
+            raise AssertionError(f"{phase}: prefill and decode logits "
+                                 f"differ by {held['max_abs_err']}")
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del model, cache, state
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3068,6 +3300,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_append(dedup, dev)
     phase_wmd_defaults(dev)
+    del dedup
+    torch.cuda.empty_cache()
+
+    # the LM decode server: reduced models on the card against the host,
+    # then qwen2_moe_a2_7b (57 GB) and granite_3_2b at full width
+    t_lm = time.perf_counter()
+    phase_lm_small_parity(dev)
+    smi = info["nvidia_smi"]
+    phase_lm_full(dev, "qwen2_moe_a2_7b", "lm_full", smi)
+    phase_lm_full(dev, "granite_3_2b", "lm_full_dense", smi)
+    emit({"phase": "lm", "seconds": time.perf_counter() - t_lm})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     path_launches = {**otm["launches_per_kernel_call"],

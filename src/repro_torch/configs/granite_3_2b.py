@@ -1,0 +1,9 @@
+"""granite-3-2b [dense] — GQA. [hf:ibm-granite/granite-3.0-2b-base; hf]"""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="granite_3_2b", family="dense",
+    num_layers=40, d_model=2048, num_heads=32, num_kv_heads=8, head_dim=64,
+    d_ff=8192, vocab_size=49155, mlp="swiglu", norm="rmsnorm",
+    tie_embeddings=True,
+))

@@ -1,5 +1,18 @@
-"""WMD query server (port of ``repro.launch.serve --wmd`` and ``--serve``;
-the LM decode server is not ported yet).
+"""Serving launchers (port of ``repro.launch.serve``): the LM decode server
+and the WMD query server.
+
+``--arch <id>`` serves an LM built from its config with random weights
+(seed 0; ``--reduced`` for the CPU-smoke-test variant): ``--batch``
+sequences decode greedily for ``--steps`` tokens, one serve step per
+token. MoE archs route every layer with the config's router (the paper's
+Sinkhorn-Knopp solver for qwen2-moe and qwen3-moe). Prints one JSON
+record: ms per step (p50, p99) and tokens per second over the steps after
+the first two, and the card it ran on::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_moe_a2_7b \
+        --batch 4 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \
+        --reduced --device cpu --steps 4                       # host run
 
 ``--wmd`` scores ``--batch-queries`` stream requests per step through the
 persistent engine: exhaustive ``query_batch`` by default, or the staged
@@ -115,6 +128,39 @@ def _build_engine(args):
     index = build_index(corpus.docs, corpus.vecs, device=device,
                         n_clusters=args.n_clusters)
     return corpus, WmdEngine(index, **kw)
+
+
+def serve_lm(args) -> dict:
+    """Greedy decode of ``--batch`` sequences for ``--steps`` tokens; the
+    reference's record plus the device."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import make_serve_step
+    from repro_torch.models.transformer import Transformer
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    device = resolve_device(args.device)
+    times = []
+    with torch.inference_mode():
+        model = Transformer(cfg, torch.Generator(device).manual_seed(0),
+                            device=device)
+        cache = model.init_cache(args.batch, max_len=args.steps + 8)
+        step = make_serve_step(model)
+        tok = torch.ones((args.batch, 1), dtype=torch.long, device=device)
+        for _ in range(args.steps):
+            _sync(device)
+            t0 = time.perf_counter()
+            tok, _, cache = step(cache, tok)
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+    times = np.asarray(times[2:] if len(times) > 2 else times) * 1e3
+    rec = {"arch": cfg.name, "batch": args.batch, "steps": args.steps,
+           "ms_per_token_p50": float(np.percentile(times, 50)),
+           "ms_per_token_p99": float(np.percentile(times, 99)),
+           "tokens_per_s": args.batch / (times.mean() / 1e3),
+           "device": _device_name(device)}
+    print(json.dumps(rec))
+    return rec
 
 
 def _shard_fields(engine) -> dict:
@@ -304,9 +350,17 @@ def serve_async(args) -> dict:
 
 
 def main(argv=None) -> None:
+    from repro_torch.configs.base import ARCH_IDS
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS,
+                    help="the LM decode server for this architecture "
+                         "(families dense, moe, vlm, audio)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="--arch: the config's reduced variant")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="--arch: sequences decoded together")
     ap.add_argument("--wmd", action="store_true",
-                    help="the WMD query server (the only server ported)")
+                    help="the WMD query server")
     ap.add_argument("--impl", default="kernel", choices=["kernel", "sparse"],
                     help="the solve: the Hopper kernel K1, or the einsum "
                          "solve (warm start and the K-column cache). "
@@ -314,7 +368,9 @@ def main(argv=None) -> None:
                          "host the K-column cache: a default server runs "
                          "without it; --impl sparse serves with it")
     ap.add_argument("--batch-queries", type=int, default=8)
-    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="decode steps (--arch; default 32) or query "
+                         "batches (--wmd; default 8)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="> 0: staged top-k retrieval (prune->solve->rank) "
                          "instead of exhaustive scoring")
@@ -434,12 +490,17 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions on the host)")
     args = ap.parse_args(argv)
-    if not (args.wmd or args.serve):
-        ap.error("only the WMD server is ported: pass --wmd or --serve")
+    if args.steps is None:
+        args.steps = 8 if (args.wmd or args.serve) else 32
     if args.serve:
         serve_async(args)
-    else:
+    elif args.wmd:
         serve_wmd(args)
+    else:
+        if not args.arch:
+            ap.error("--arch is required for LM serving (or pass --wmd or "
+                     "--serve)")
+        serve_lm(args)
 
 
 if __name__ == "__main__":

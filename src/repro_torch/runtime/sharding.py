@@ -121,7 +121,12 @@ def count_collectives(fn, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` and return ``{name: calls}`` of the
     collectives made meanwhile (names with no call left out). Counts are
     process-wide: collectives that other threads make in that time are
-    counted too."""
+    counted too.
+
+    ``repro_torch.core`` re-exports it under the reference's name, with
+    the port's signature: the reference's ``count_collectives`` walks a
+    jaxpr without running it; this one runs ``fn`` and counts the
+    host-driven collectives it makes."""
     before = collective_counts()
     fn(*args, **kwargs)
     after = collective_counts()

@@ -939,3 +939,82 @@ def test_kernels_launched_from_threads_on_card(rng):
         torch.testing.assert_close(k2s, want, rtol=1e-5, atol=1e-4)
         want1, _ = ref.sinkhorn_fused_all_batched_ref(g, val, r, 2.0, 15)
         torch.testing.assert_close(k1, want1, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------- LM decode
+def _lm_pair(arch: str, router=None):
+    """A reduced LM on the host and a copy of it on the card."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Transformer
+    dev = _card()
+    cfg = get_config(arch).reduced()
+    if router:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, router=router))
+    host = Transformer(cfg, 0, device="cpu")
+    return host, copy.deepcopy(host).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,router", [
+    ("granite_3_2b", None), ("qwen2_moe_a2_7b", "sinkhorn"),
+    ("qwen2_moe_a2_7b", "topk"), ("musicgen_large", None)])
+def test_lm_decode_on_card_matches_host(arch, router):
+    """8 greedy serve steps at B=4: equal tokens, logits within 1e-4."""
+    from repro_torch.models.model import make_serve_step
+    host, card = _lm_pair(arch, router)
+    out = []
+    with torch.inference_mode():
+        for model in (host, card):
+            step = make_serve_step(model)
+            cache = model.init_cache(4, 8)
+            tok = torch.ones((4, 1), dtype=torch.long,
+                             device=model.embed.device)
+            toks, logits = [], []
+            for _ in range(8):
+                tok, lg, cache = step(cache, tok)
+                toks.append(tok.cpu())
+                logits.append(lg.cpu())
+            out.append((torch.cat(toks, 1), torch.stack(logits, 1)))
+    assert torch.equal(out[0][0], out[1][0])
+    torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_lm_prefill_matches_decode_on_card():
+    """The serve-path invariant on the card at the reference's 2e-3."""
+    _, card = _lm_pair("granite_3_2b")
+    cfg = card.cfg
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 8)), device=card.embed.device)
+    with torch.inference_mode():
+        hidden, _ = card(tokens)
+        full = torch.nn.functional.linear(hidden, card.lm_head_matrix())
+        cache = card.init_cache(2, 8)
+        dec = torch.stack([card.decode_step(cache, tokens[:, t:t + 1])[0]
+                           for t in range(8)], 1)
+    torch.testing.assert_close(dec, full[..., :cfg.vocab_size], rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_serve_arch_cli_on_card():
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    _card()
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2_moe_a2_7b", "--reduced", "--steps", "6"],
+        env=env, cwd=root, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert rec["steps"] == 6 and rec["tokens_per_s"] > 0

@@ -37,9 +37,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     for m in ("repro_torch.kernels.ops", "repro_torch.core.wmd",
               "repro_torch.core.exact_ot", "repro_torch.core.sinkhorn",
               "repro_torch.core.sinkhorn_sparse", "repro_torch.core.kcache",
-              "repro_torch.core.sparse"):
+              "repro_torch.core.sparse", "repro_torch.core.router",
+              "repro_torch.configs.base", "repro_torch.models.layers",
+              "repro_torch.models.moe", "repro_torch.models.transformer",
+              "repro_torch.models.model", "repro_torch.models.convert"):
         assert m in mods
-    assert len(mods) >= 18
+    assert len(mods) >= 35
     from repro_torch.kernels import ops
     for fn in ("bsr_sddmm", "bsr_sddmm_blocks"):
         assert callable(getattr(ops, fn))
@@ -57,6 +60,19 @@ def test_port_imports_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_core_reexports_every_reference_name():
+    """Every public name of ``repro.core`` resolves on ``repro_torch.core``
+    (``count_collectives`` with the port's run-time signature)."""
+    import repro.core
+    import repro_torch.core
+    names = list(repro.core.__all__)
+    assert len(names) == 56
+    missing = [n for n in names if not hasattr(repro_torch.core, n)]
+    assert not missing, missing
+    assert sorted(repro_torch.core.__all__) == sorted(names)
+    from repro_torch.core import WmdEngine, build_index, route  # noqa: F401
 
 
 def test_no_source_line_imports_jax_or_reference():
