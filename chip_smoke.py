@@ -280,17 +280,22 @@ DIST_DENSE_DOCS = 512
 DIST_POISON_LAM = 500.0
 # LM decode (no hand-written kernel: the reference's LM path reaches no
 # Pallas kernel). The reduced configs on the card against the host (both
-# routers of the MoE), then qwen2_moe_a2_7b and granite_3_2b at full width
-# and depth in fp32, the reference serve_lm's dtype: LM_BATCH sequences,
-# LM_STEPS greedy steps, p50/p99 over all but the first two (as serve_lm),
-# a profiled window of LM_PROFILE_STEPS. Prefill against token-by-token
-# decode at the reference's 2e-3 (tests/test_arch_smoke.py)
+# routers of the MoE, the SSM and the hybrid), then qwen2_moe_a2_7b,
+# granite_3_2b, rwkv6_3b and zamba2_7b at full width and depth in fp32, the
+# reference serve_lm's dtype: LM_BATCH sequences, LM_STEPS greedy steps,
+# p50/p99 over all but the first two (as serve_lm), a profiled window of
+# LM_PROFILE_STEPS. Prefill against token-by-token decode at the
+# reference's 2e-3 (tests/test_arch_smoke.py), over LM_PREFILL_LEN
+# positions, or LM_SSM_PREFILL_LEN for the ssm and hybrid families: two of
+# their 128-token chunks, so the state carries between chunks at full width
 LM_SMALL = (("granite_3_2b", None), ("qwen2_moe_a2_7b", "sinkhorn"),
-            ("qwen2_moe_a2_7b", "topk"), ("musicgen_large", None))
+            ("qwen2_moe_a2_7b", "topk"), ("musicgen_large", None),
+            ("rwkv6_3b", None), ("zamba2_7b", None))
 LM_SMALL_STEPS = 8
 LM_RTOL, LM_ATOL = 1e-4, 1e-4
 LM_BATCH, LM_STEPS, LM_PROFILE_STEPS = 4, 32, 8
 LM_PREFILL_BATCH, LM_PREFILL_LEN, LM_PREFILL_TOL = 2, 8, 2e-3
+LM_SSM_PREFILL_LEN = 256
 
 
 def emit(obj) -> None:
@@ -3004,22 +3009,45 @@ def phase_lm_small_parity(dev) -> None:
 def lm_step_bytes(model, batch: int, pos: float) -> float:
     """Bytes one decode step must move: every weight once (the capacity
     dispatch runs every expert on its buffer), but of an untied embedding
-    only the ``batch`` rows it gathers, and the cache's live entries at
-    position ``pos`` (read, and one written)."""
+    only the ``batch`` rows it gathers and the hybrid's shared block once
+    per application (each depends on the layers before it); the KV
+    cache's live entries at position ``pos`` (read, and one written) of
+    every attention layer or application; the ssm family's wkv state (read
+    and written) and token shift (slot 0 read, both slots written); the
+    hybrid's conv and SSM states (read and written)."""
     cfg = model.cfg
+    d = cfg.d_model
     n = sum(p.numel() for p in model.parameters())
     if model.lm_head is not None:
-        n -= model.embed.numel() - batch * cfg.d_model
-    kv = 2 * cfg.num_layers * batch * model.n_kv * cfg.head_dim * (pos + 2)
-    return 4.0 * (n + kv)
+        n -= model.embed.numel() - batch * d
+    n_attn, state = cfg.num_layers, 0
+    if cfg.family == "ssm":
+        n_attn = 0
+        tmix = model.layers[0].tmix
+        state = cfg.num_layers * batch * (
+            2 * tmix.wo.shape[1] * tmix.head_dim + 3 * d)
+    elif cfg.family == "hybrid":
+        s = cfg.ssm
+        n_attn = model.n_groups
+        n += (n_attn - 1) * sum(p.numel()
+                                for p in model.shared_block.parameters())
+        d_in = s.expand * d
+        state = 2 * cfg.num_layers * batch * (
+            (s.conv_width - 1) * (d_in + 2 * s.d_state) + d_in * s.d_state)
+    kv = 2 * n_attn * batch * model.n_kv * cfg.head_dim * (pos + 2)
+    return 4.0 * (n + kv + state)
 
 
 def lm_step_flops(model, batch: int, pos: float) -> float:
     """fp32 operations of one decode step: the products at ``batch``
-    tokens (the MoE's at E x cap rows of its buffers) and attention over
-    ``pos + 1`` positions."""
+    tokens (the MoE's at E x cap rows of its buffers), attention over
+    ``pos + 1`` positions, rwkv6's WKV update and readout (7 operations an
+    element of each head's D x D state), Mamba2's conv, state update and
+    readout (6 an element of its state), the hybrid's shared block at each
+    application."""
     cfg = model.cfg
     d, hd = cfg.d_model, cfg.head_dim
+    head = 2 * batch * d * model.lm_head_matrix().shape[0]
     attn = 2 * batch * d * (2 * model.n_q + 2 * model.n_kv) * hd \
         + 4 * batch * model.n_q * hd * (pos + 1)
     if cfg.moe:
@@ -3030,27 +3058,42 @@ def lm_step_flops(model, batch: int, pos: float) -> float:
             + 2 * batch * d * sp.n_experts
     else:
         ffn = (6 if cfg.mlp == "swiglu" else 4) * batch * d * cfg.d_ff
-    head = 2 * batch * d * model.lm_head_matrix().shape[0]
+    s = cfg.ssm
+    if cfg.family == "ssm":
+        tmix = model.layers[0].tmix
+        da = tmix.wo.shape[1]
+        mix = 2 * batch * (5 * d * da + s.decay_lora * (d + da)) \
+            + 7 * batch * da * tmix.head_dim
+        return float(cfg.num_layers * (mix + ffn) + head)
+    if cfg.family == "hybrid":
+        d_in = s.expand * d
+        # w_z, w_x, w_bc, w_dt and out_proj; the conv; the state
+        mamba = 2 * batch * d * (3 * d_in + 2 * s.d_state
+                                 + d_in // s.head_dim) \
+            + 2 * batch * s.conv_width * (d_in + 2 * s.d_state) \
+            + 6 * batch * d_in * s.d_state
+        return float(cfg.num_layers * mamba + model.n_groups * (attn + ffn)
+                     + head)
     return float(cfg.num_layers * (attn + ffn) + head)
 
 
-def hold_prefill_decode(model, gen) -> dict:
-    """Logits of LM_PREFILL_LEN positions from one prefill forward against
+def hold_prefill_decode(model, gen, length: int = LM_PREFILL_LEN) -> dict:
+    """Logits of ``length`` positions from one prefill forward against
     token-by-token decode, for LM_PREFILL_BATCH random sequences."""
     cfg = model.cfg
-    tokens = torch.randint(0, cfg.vocab_size,
-                           (LM_PREFILL_BATCH, LM_PREFILL_LEN),
+    tokens = torch.randint(0, cfg.vocab_size, (LM_PREFILL_BATCH, length),
                            generator=gen, device=gen.device)
     hidden, _ = model(tokens)
     full = torch.nn.functional.linear(
         hidden, model.lm_head_matrix()).float()[..., :cfg.vocab_size]
-    cache = model.init_cache(LM_PREFILL_BATCH, LM_PREFILL_LEN)
+    cache = model.init_cache(LM_PREFILL_BATCH, length)
     dec = torch.stack([model.decode_step(cache, tokens[:, t:t + 1])[0]
-                       for t in range(LM_PREFILL_LEN)], 1)
+                       for t in range(length)], 1)
     last = make_prefill(model)(tokens)[:, :cfg.vocab_size]
     torch.testing.assert_close(last, full[:, -1], rtol=1e-5, atol=1e-5)
     err = (dec - full).abs()
-    return {"max_abs_err": float(err.max()),
+    return {"batch": LM_PREFILL_BATCH, "len": length,
+            "max_abs_err": float(err.max()),
             "within": bool(torch.allclose(dec, full, rtol=LM_PREFILL_TOL,
                                           atol=LM_PREFILL_TOL))}
 
@@ -3158,7 +3201,8 @@ def phase_lm_full(dev, arch: str, phase: str, card: str) -> dict:
             restore_moe(model, old)
             held["moe"] = "topk, capacity_factor n_experts/top_k"
         else:
-            held = hold_prefill_decode(model, gen)
+            held = hold_prefill_decode(model, gen, LM_SSM_PREFILL_LEN
+                                       if cfg.ssm else LM_PREFILL_LEN)
         rec["prefill_vs_decode"] = held
         if not held["within"]:
             raise AssertionError(f"{phase}: prefill and decode logits "
@@ -3304,12 +3348,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the LM decode server: reduced models on the card against the host,
-    # then qwen2_moe_a2_7b (57 GB) and granite_3_2b at full width
+    # then qwen2_moe_a2_7b (57 GB), granite_3_2b, rwkv6_3b (11 GB) and
+    # zamba2_7b (27 GB) at full width, one after the other
     t_lm = time.perf_counter()
     phase_lm_small_parity(dev)
     smi = info["nvidia_smi"]
     phase_lm_full(dev, "qwen2_moe_a2_7b", "lm_full", smi)
     phase_lm_full(dev, "granite_3_2b", "lm_full_dense", smi)
+    phase_lm_full(dev, "rwkv6_3b", "lm_full_ssm", smi)
+    phase_lm_full(dev, "zamba2_7b", "lm_full_hybrid", smi)
     emit({"phase": "lm", "seconds": time.perf_counter() - t_lm})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 

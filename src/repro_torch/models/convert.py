@@ -1,14 +1,19 @@
 """Carry the reference's LM weights into the port.
 
 The reference keeps its parameters as a pytree of arrays with every
-per-layer leaf stacked on a leading layer dimension and dense matrices in
-(in, out) layout (``x @ W``). Given that pytree as nested dicts of numpy
-arrays (``jax.tree.map(np.asarray, params)``), :func:`from_reference`
-builds the port's :class:`Transformer` computing the same function: it
-unstacks ``params["layers"]`` into the blocks and transposes every dense
-matrix into the ``nn.Linear`` layout (out, in). The stacked expert weights
-(E, d, f) keep their layout; they run through ``torch.bmm`` as the
-reference's batched einsum does.
+per-layer leaf stacked on a leading layer dimension (the hybrid's on two,
+groups x layers in a group, its remainder in ``layers_rem`` and its one
+shared block unstacked) and dense matrices in (in, out) layout (``x @
+W``). Given that pytree as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, params)``), :func:`from_reference` builds the
+port's :class:`Transformer` computing the same function: it unstacks the
+layers into the blocks (the hybrid's layer i = g * attn_every + e, the
+remainder after the groups) and transposes into the ``nn.Linear`` layout
+(out, in) exactly the matrices that run through ``F.linear``
+(:data:`LINEAR`). Every other leaf keeps its layout: the stacked expert
+weights (E, d, f) run through ``torch.bmm`` as the reference's batched
+einsum does, and rwkv6's ``mu`` and ``u`` and mamba2's conv windows are
+read as the reference reads them.
 """
 from __future__ import annotations
 
@@ -20,6 +25,31 @@ from repro_torch.core.device import resolve_device
 from .transformer import Transformer
 
 
+# the leaves applied with F.linear, by their path inside a block (or at
+# the top of the tree)
+LINEAR = frozenset({
+    "lm_head",
+    "attn.wq", "attn.wk", "attn.wv", "attn.wo",
+    "mlp.w_gate", "mlp.w_up", "mlp.w_down", "mlp.w_in", "mlp.w_out",
+    "moe.router", "moe.shared.w_gate", "moe.shared.w_up",
+    "moe.shared.w_down",
+    "tmix.wr", "tmix.wk", "tmix.wv", "tmix.wg", "tmix.wo", "tmix.w1",
+    "tmix.w2", "cmix.w_in", "cmix.w_out",
+    "mamba.w_z", "mamba.w_x", "mamba.w_bc", "mamba.w_dt", "mamba.out_proj",
+})
+
+
+def _layout(path: str, arr: np.ndarray) -> np.ndarray:
+    """One layer's (or the top's) leaf at ``path`` in the port's layout:
+    transposed where :data:`LINEAR` names it."""
+    if path not in LINEAR:
+        return arr
+    if arr.ndim != 2:
+        raise ValueError(f"{path}: a linear weight must be 2-D, got shape "
+                         f"{arr.shape}")
+    return arr.T
+
+
 def _leaves(tree: dict, prefix: str = ""):
     for key, val in tree.items():
         name = f"{prefix}{key}"
@@ -29,21 +59,39 @@ def _leaves(tree: dict, prefix: str = ""):
             yield name, np.asarray(val)
 
 
+def _unstack(sd: dict, tree: dict, lead: tuple, first: int) -> None:
+    """Layers ``first``, ``first + 1``, ... of ``sd`` from leaves stacked
+    on the leading dims ``lead`` (layer-major)."""
+    n = int(np.prod(lead))
+    for name, arr in _leaves(tree):
+        if arr.shape[:len(lead)] != lead:
+            raise ValueError(f"layers.{name}: leading dims "
+                             f"{arr.shape[:len(lead)]} != {lead}")
+        arr = arr.reshape((n,) + arr.shape[len(lead):])
+        for i in range(n):
+            sd[f"layers.{first + i}.{name}"] = _layout(name, arr[i])
+
+
 def to_state_dict(cfg: ArchConfig, params: dict) -> dict:
     """The port's ``state_dict`` (numpy arrays) for the reference's
-    parameter pytree: per-layer leaves unstacked, dense matrices (2-D per
-    layer, and the LM head) transposed."""
+    parameter pytree: per-layer leaves unstacked, the :data:`LINEAR`
+    matrices transposed."""
     sd = {"embed": np.asarray(params["embed"])}
     for name, arr in _leaves(params["final_norm"], "final_norm."):
         sd[name] = arr
     if "lm_head" in params:
-        sd["lm_head"] = np.asarray(params["lm_head"]).T
-    for name, arr in _leaves(params["layers"]):
-        if arr.shape[0] != cfg.num_layers:
-            raise ValueError(f"layers.{name}: leading dim {arr.shape[0]} "
-                             f"!= num_layers {cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            sd[f"layers.{i}.{name}"] = arr[i].T if arr.ndim == 3 else arr[i]
+        sd["lm_head"] = _layout("lm_head", np.asarray(params["lm_head"]))
+    if cfg.family != "hybrid":
+        _unstack(sd, params["layers"], (cfg.num_layers,), 0)
+        return sd
+    k = cfg.attn_every
+    n_groups = cfg.num_layers // k
+    _unstack(sd, params["layers"], (n_groups, k), 0)
+    if n_groups * k < cfg.num_layers:
+        _unstack(sd, params["layers_rem"], (cfg.num_layers - n_groups * k,),
+                 n_groups * k)
+    for name, arr in _leaves(params["shared_block"]):
+        sd[f"shared_block.{name}"] = _layout(name, arr)
     return sd
 
 

@@ -1,17 +1,21 @@
 """Decoder-only LM of the port: config -> model -> forward / decode (port of
-``repro.models.transformer`` for the attention families).
+``repro.models.transformer``).
 
     dense / vlm / audio  [attn + mlp] x L
     moe                  [attn + moe] x L (Sinkhorn or top-k router)
+    ssm (rwkv6)          [time-mix + channel-mix] x L
+    hybrid (zamba2)      groups of ``attn_every`` Mamba2 layers, each group
+                         followed by ONE weight-shared [attn + mlp] block,
+                         then the layers that fill no group
 
 The layers are a plain ``nn.ModuleList`` walked in order; the reference
-stacks them on a leading dim for one ``lax.scan`` (with remat), which
-computes the same function. The reference's functions map onto
-:class:`Transformer`: ``init_params`` is its constructor, ``forward`` its
-``forward``, ``lm_head_matrix`` / ``init_cache`` / ``decode_step`` its
-methods of those names. Families ``ssm`` (rwkv6) and ``hybrid`` (zamba2)
-need ``mamba2.py`` and ``rwkv6.py``, which the port does not carry yet:
-they raise ``NotImplementedError``.
+stacks them on a leading dim for one ``lax.scan`` (with remat; the hybrid
+on two, groups x layers in a group), which computes the same function. The
+hybrid's ``layers`` hold all of its Mamba2 layers, layer i = g *
+attn_every + e of group g, the remainder last. The reference's functions
+map onto :class:`Transformer`: ``init_params`` is its constructor,
+``forward`` its ``forward``, ``lm_head_matrix`` / ``init_cache`` /
+``decode_step`` its methods of those names.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from .layers import MLP, Attention, Norm, normal_param
+from .mamba2 import Mamba2, mamba2_decode
 from .moe import MoE
+from .rwkv6 import RWKV6TimeMix, rwkv6_decode
 
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
@@ -31,17 +37,6 @@ def padded_vocab(cfg: ArchConfig, tp: int) -> int:
     """Megatron-style vocab padding: embeddings and logits shard over the
     model axis."""
     return -(-cfg.vocab_size // tp) * tp
-
-
-def check_family(cfg: ArchConfig) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        mod = "rwkv6" if cfg.family == "ssm" else "mamba2"
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} needs the {mod} layers "
-            f"(repro.models.{mod}), which the port does not carry yet; it "
-            "runs families " + ", ".join(ATTN_FAMILIES))
-    if cfg.family not in ATTN_FAMILIES:
-        raise ValueError(cfg.family)
 
 
 class Block(nn.Module):
@@ -82,24 +77,83 @@ class Block(nn.Module):
         return self._ffn(h)[0]
 
 
+class RWKVBlock(nn.Module):
+    """Pre-norm [RWKV-6 time-mix + channel-mix] block; the channel-mix is a
+    plain MLP of ``cfg.mlp`` (squared ReLU), with no token shift."""
+
+    def __init__(self, cfg: ArchConfig, n_heads: int, generator, device,
+                 dtype):
+        super().__init__()
+        d, s = cfg.d_model, cfg.ssm
+        self.norm1 = Norm(cfg.norm, d, device, dtype)
+        self.norm2 = Norm(cfg.norm, d, device, dtype)
+        self.tmix = RWKV6TimeMix(d, s.head_dim, s.decay_lora, n_heads,
+                                 generator, device, dtype)
+        self.cmix = MLP(d, cfg.d_ff, cfg.mlp, generator, device, dtype)
+
+    def forward(self, h: torch.Tensor, chunk: int) -> torch.Tensor:
+        h = h + self.tmix(self.norm1(h), chunk)
+        return h + self.cmix(self.norm2(h))
+
+    def decode(self, h: torch.Tensor, shift: torch.Tensor,
+               wkv: torch.Tensor) -> torch.Tensor:
+        """shift (2, B, 1, d) and wkv (B, H, D, D) are written in place.
+        Slot 0 of shift is the time-mix's previous input. Slot 1 takes the
+        channel-mix's input, which nothing reads: the reference's layout
+        (ROADMAP R11)."""
+        hn = self.norm1(h)
+        o, sh, s_new = rwkv6_decode(self.tmix, hn, shift[0], wkv,
+                                    self.tmix.head_dim)
+        h = h + o
+        hn2 = self.norm2(h)
+        shift[0].copy_(sh)
+        shift[1].copy_(hn2)
+        wkv.copy_(s_new)
+        return h + self.cmix(hn2)
+
+
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 block (residual, no MLP)."""
+
+    def __init__(self, cfg: ArchConfig, generator, device, dtype):
+        super().__init__()
+        s = cfg.ssm
+        self.norm = Norm(cfg.norm, cfg.d_model, device, dtype)
+        self.mamba = Mamba2(cfg.d_model, s.d_state, s.head_dim, s.expand,
+                            s.conv_width, generator, device, dtype)
+
+    def forward(self, h: torch.Tensor, chunk: int) -> torch.Tensor:
+        return h + self.mamba(self.norm(h), chunk)
+
+    def decode(self, h: torch.Tensor, conv: torch.Tensor,
+               ssm: torch.Tensor) -> torch.Tensor:
+        """conv (B, W-1, C) and ssm (B, H, N, P) are written in place."""
+        m = self.mamba
+        o, c, s_new = mamba2_decode(m, self.norm(h), conv, ssm, m.d_state,
+                                    m.head_dim)
+        conv.copy_(c)
+        ssm.copy_(s_new)
+        return h + o
+
+
 class Transformer(nn.Module):
-    """The LM for ``cfg`` (families dense, moe, vlm, audio), its parameters
-    created on ``device`` (``cuda`` by default; raises without one) from
-    ``generator`` (a ``torch.Generator`` on that device, or an int seed).
-    ``tp`` keeps the reference's shape rules: ``tp_heads`` head padding,
-    expert and vocab padding."""
+    """The LM for ``cfg`` (any family), its parameters created on
+    ``device`` (``cuda`` by default; raises without one) from ``generator``
+    (a ``torch.Generator`` on that device, or an int seed). ``tp`` keeps
+    the reference's shape rules: ``tp_heads`` head padding, rwkv6 head,
+    expert and vocab padding. The hybrid holds its shared block once
+    (``shared_block``), applied after each of its ``n_groups`` groups."""
 
     def __init__(self, cfg: ArchConfig, generator=0, tp: int = 1,
                  device=None, dtype=torch.float32):
         super().__init__()
-        check_family(cfg)
         device = (torch.device("meta") if str(device) == "meta"
                   else resolve_device(device))
         if isinstance(generator, int):
             generator = (torch.Generator(device=device).manual_seed(generator)
                          if device.type != "meta" else None)
         self.cfg, self.tp = cfg, tp
-        d = cfg.d_model
+        d, n = cfg.d_model, cfg.num_layers
         self.n_q, self.n_kv = cfg.tp_heads(tp)
         vp = padded_vocab(cfg, tp)
         kw = dict(generator=generator, device=device, dtype=dtype)
@@ -107,9 +161,24 @@ class Transformer(nn.Module):
         self.final_norm = Norm(cfg.norm, d, device, dtype)
         self.lm_head = (None if cfg.tie_embeddings
                         else normal_param((vp, d), d ** -0.5, **kw))
-        self.layers = nn.ModuleList(
-            Block(cfg, self.n_q, self.n_kv, generator, tp, device, dtype)
-            for _ in range(cfg.num_layers))
+        if cfg.family in ATTN_FAMILIES:
+            layers = (Block(cfg, self.n_q, self.n_kv, generator, tp, device,
+                            dtype) for _ in range(n))
+        elif cfg.family == "ssm":
+            n_heads = -(-(d // cfg.ssm.head_dim) // tp) * tp   # pad to tp
+            layers = (RWKVBlock(cfg, n_heads, generator, device, dtype)
+                      for _ in range(n))
+        elif cfg.family == "hybrid":
+            layers = (MambaBlock(cfg, generator, device, dtype)
+                      for _ in range(n))
+        else:
+            raise ValueError(cfg.family)
+        self.layers = nn.ModuleList(layers)
+        self.n_groups = (n // cfg.attn_every if cfg.family == "hybrid"
+                         else 0)
+        self.shared_block = (Block(cfg, self.n_q, self.n_kv, generator, tp,
+                                   device, dtype)
+                             if cfg.family == "hybrid" else None)
 
     def lm_head_matrix(self) -> torch.Tensor:
         """(Vp, d), the ``nn.Linear`` layout (logits = ``F.linear(h, W)``):
@@ -118,32 +187,87 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, block_k: int = 512):
         """tokens (B, T) -> (hidden (B, T, d) after the final norm, aux
-        load-balance loss summed over the layers)."""
+        load-balance loss summed over the layers; zero but for the MoE)."""
         h = F.embedding(tokens, self.embed)
         bk = min(block_k, tokens.shape[1])
         aux = h.new_zeros(())
-        for blk in self.layers:
-            h, a = blk(h, bk)
-            aux = aux + a
+        if self.cfg.family in ATTN_FAMILIES:
+            for blk in self.layers:
+                h, a = blk(h, bk)
+                aux = aux + a
+            return self.final_norm(h), aux
+        # the hybrid's shared block follows the last layer of each group
+        k = self.cfg.attn_every
+        for i, blk in enumerate(self.layers):
+            h = blk(h, self.cfg.ssm.chunk)
+            if i < self.n_groups * k and i % k == k - 1:
+                h, _ = self.shared_block(h, bk)
         return self.final_norm(h), aux
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zero-filled serve cache on the model's device: k and v (L, B,
-        n_kv, max_len, hd) and ``pos`` (the next position, a host int)."""
-        w = self.embed
-        shp = (self.cfg.num_layers, batch, self.n_kv, max_len,
-               self.cfg.head_dim)
-        return {"pos": 0,
-                "k": torch.zeros(shp, dtype=w.dtype, device=w.device),
-                "v": torch.zeros(shp, dtype=w.dtype, device=w.device)}
+        """Zero-filled serve cache on the model's device with the
+        reference's keys and shapes, and ``pos`` (the next position, a host
+        int). Attention families: k and v (L, B, n_kv, max_len, hd). ssm:
+        shift (L, 2, B, 1, d) and wkv (L, B, H, D, D). hybrid: conv (G, k,
+        B, W-1, C) and ssm (G, k, B, H, N, P) for the G groups of k layers,
+        conv_rem and ssm_rem for the rest, and k and v (G, B, n_kv,
+        max_len, hd), one per application of the shared block."""
+        cfg, w = self.cfg, self.embed
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=w.dtype, device=w.device)
+
+        cache = {"pos": 0}
+        kv = (batch, self.n_kv, max_len, cfg.head_dim)
+        if cfg.family in ATTN_FAMILIES:
+            cache["k"] = zeros(cfg.num_layers, *kv)
+            cache["v"] = zeros(cfg.num_layers, *kv)
+        elif cfg.family == "ssm":
+            hd = cfg.ssm.head_dim
+            n_heads = self.layers[0].tmix.u.shape[0]
+            cache["shift"] = zeros(cfg.num_layers, 2, batch, 1, cfg.d_model)
+            cache["wkv"] = zeros(cfg.num_layers, batch, n_heads, hd, hd)
+        else:
+            s = cfg.ssm
+            g, k = self.n_groups, cfg.attn_every
+            n_rem = cfg.num_layers - g * k
+            d_in = s.expand * cfg.d_model
+            conv = (batch, s.conv_width - 1, d_in + 2 * s.d_state)
+            ssm = (batch, d_in // s.head_dim, s.d_state, s.head_dim)
+            cache["conv"] = zeros(g, k, *conv)
+            cache["ssm"] = zeros(g, k, *ssm)
+            if n_rem:
+                cache["conv_rem"] = zeros(n_rem, *conv)
+                cache["ssm_rem"] = zeros(n_rem, *ssm)
+            cache["k"] = zeros(g, *kv)
+            cache["v"] = zeros(g, *kv)
+        return cache
 
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """One-token decode. tokens (B, 1) -> (logits (B, V) fp32, cache).
-        The cache's k and v are written in place and ``pos`` advances."""
+        The cache's states are written in place and ``pos`` advances."""
         pos = cache["pos"]
         h = F.embedding(tokens, self.embed)
-        for i, blk in enumerate(self.layers):
-            h = blk.decode(h, cache["k"][i], cache["v"][i], pos)
+        family = self.cfg.family
+        if family in ATTN_FAMILIES:
+            for i, blk in enumerate(self.layers):
+                h = blk.decode(h, cache["k"][i], cache["v"][i], pos)
+        elif family == "ssm":
+            for i, blk in enumerate(self.layers):
+                h = blk.decode(h, cache["shift"][i], cache["wkv"][i])
+        else:
+            k = self.cfg.attn_every
+            n_full = self.n_groups * k
+            for i, blk in enumerate(self.layers):
+                if i >= n_full:
+                    h = blk.decode(h, cache["conv_rem"][i - n_full],
+                                   cache["ssm_rem"][i - n_full])
+                    continue
+                g, e = divmod(i, k)
+                h = blk.decode(h, cache["conv"][g, e], cache["ssm"][g, e])
+                if e == k - 1:
+                    h = self.shared_block.decode(h, cache["k"][g],
+                                                 cache["v"][g], pos)
         h = self.final_norm(h)
         logits = F.linear(h[:, 0], self.lm_head_matrix()).float()
         cache["pos"] = pos + 1

@@ -960,7 +960,8 @@ def _lm_pair(arch: str, router=None):
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,router", [
     ("granite_3_2b", None), ("qwen2_moe_a2_7b", "sinkhorn"),
-    ("qwen2_moe_a2_7b", "topk"), ("musicgen_large", None)])
+    ("qwen2_moe_a2_7b", "topk"), ("musicgen_large", None),
+    ("rwkv6_3b", None), ("zamba2_7b", None)])
 def test_lm_decode_on_card_matches_host(arch, router):
     """8 greedy serve steps at B=4: equal tokens, logits within 1e-4."""
     from repro_torch.models.model import make_serve_step

@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_reference_package():
               "repro_torch.core.sparse", "repro_torch.core.router",
               "repro_torch.configs.base", "repro_torch.models.layers",
               "repro_torch.models.moe", "repro_torch.models.transformer",
-              "repro_torch.models.model", "repro_torch.models.convert"):
+              "repro_torch.models.model", "repro_torch.models.convert",
+              "repro_torch.models.rwkv6", "repro_torch.models.mamba2"):
         assert m in mods
     assert len(mods) >= 35
     from repro_torch.kernels import ops

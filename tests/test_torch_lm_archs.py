@@ -1,9 +1,12 @@
 """The port's LM against the reference for the reduced config of every
-non-SSM architecture, with the reference's weights carried over by
-``repro_torch.models.convert``: ``forward`` (hidden states and the MoE aux
-loss) and 8 greedy ``decode_step``s (equal tokens, logits) at rtol = atol
-= 1e-4. The reference initializes qkv biases to zero, so the biases get
-random values on both sides (qwen2_5_14b has ``qkv_bias``)."""
+architecture (the ten of ``ARCH_IDS``, all six families), with the
+reference's weights carried over by ``repro_torch.models.convert``:
+``forward`` (hidden states and the MoE aux loss) and 8 greedy
+``decode_step``s (equal tokens, logits) at rtol = atol = 1e-4. The
+reference initializes qkv biases to zero, so the biases get random values
+on both sides (qwen2_5_14b has ``qkv_bias``)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +19,6 @@ from repro_torch.configs.base import get_config as port_config
 from repro_torch.models.convert import from_reference
 from repro_torch.models.model import make_prefill, make_serve_step
 
-ATTN_ARCHS = [a for a in ARCH_IDS
-              if get_config(a).family not in ("ssm", "hybrid")]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, STEPS = 2, 8
 
@@ -49,11 +50,13 @@ def carried(arch: str, tp: int = 1, seed: int = 0):
     return cfg, jax.tree.map(jnp.asarray, params), model
 
 
-def test_eight_attention_archs():
-    assert len(ATTN_ARCHS) == 8
+def test_ten_archs():
+    assert len(ARCH_IDS) == 10
+    assert {get_config(a).family for a in ARCH_IDS} == {
+        "dense", "moe", "ssm", "hybrid", "vlm", "audio"}
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_and_decode_match_reference(arch):
     cfg, params, model = carried(arch)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, 16))
@@ -68,8 +71,9 @@ def test_forward_and_decode_match_reference(arch):
     step = make_serve_step(model)
     tok = jnp.ones((B, 1), jnp.int32)
     ttok = torch.ones((B, 1), dtype=torch.long)
+    ref_step = jax.jit(functools.partial(T.decode_step, cfg))
     for _ in range(STEPS):
-        logits, cache = T.decode_step(cfg, params, cache, tok)
+        logits, cache = ref_step(params, cache, tok)
         tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
         with torch.inference_mode():
             ttok, tlogits, tc = step(tc, ttok)
