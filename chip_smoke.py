@@ -78,7 +78,17 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
   off) over a (2, 4) mesh of positions at the widest paper query and all
   5000 documents, and the dense one with N cut to 512, against the
   single-device solvers at 1e-3. Outside the runs that inject faults,
-  every sharded search must cover every shard.
+  every sharded search must cover every shard;
+- the LM decode server: the reduced models on the card against the host,
+  then qwen2_moe_a2_7b, granite_3_2b, rwkv6_3b and zamba2_7b at full
+  width (serve steps, prefill against decode);
+- training: the reduced granite and qwen2_moe (Sinkhorn router) train
+  step on the card against the host and checkpoint save / restore /
+  resume against the uninterrupted run; granite_3_2b at full width
+  through ``launch/train.py``'s ``run`` (6 steps at B=8, T=1024, remat,
+  one profiled step, the model-FLOP bound); the MoE training example
+  (``examples/torch_train_moe_sinkhorn.py``) for 100 steps, its ce
+  falling, both routers' drop fractions.
 
 Each path runs once with the launch counts set to 0 just before it and
 read just after. Prints one JSON object per phase; the line before the
@@ -136,6 +146,12 @@ from repro_torch.models.model import (make_prefill,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models.moe import moe_dropped_fraction  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.models.model import (TrainHParams,  # noqa: E402
+                                      make_train_step)
+from repro_torch.checkpoint import checkpointer as ckpt  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_at_step  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 FFMA
 # rate outside the tensor cores, both at the full 700 W power limit
@@ -296,6 +312,31 @@ LM_RTOL, LM_ATOL = 1e-4, 1e-4
 LM_BATCH, LM_STEPS, LM_PROFILE_STEPS = 4, 32, 8
 LM_PREFILL_BATCH, LM_PREFILL_LEN, LM_PREFILL_TOL = 2, 8, 2e-3
 LM_SSM_PREFILL_LEN = 256
+# training (no hand-written kernel: the reference's train path reaches no
+# Pallas kernel). The reduced granite and qwen2_moe (Sinkhorn router) on
+# the card against the host: one train step (metrics within
+# TRAIN_METRIC_RTOL, each gradient leaf within TRAIN_GRAD_ATOL_SHARE of its
+# largest entry), and checkpoint save -> restore -> TRAIN_RESUME_STEPS
+# steps against the uninterrupted run (granite bit for bit; the MoE within
+# TRAIN_MOE_RESUME_TOL). granite_3_2b at full width through
+# launch/train.py's run (TRAIN_FULL_ARGV; remat on, fp32, seed 0): p50
+# over the steps after TRAIN_WARMUP, one profiled step, the model-FLOP
+# bound. The MoE example's config for TRAIN_MOE_STEPS steps.
+TRAIN_SMALL = (("granite_3_2b", None), ("qwen2_moe_a2_7b", "sinkhorn"))
+TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ = 4, 32
+TRAIN_METRIC_RTOL = 1e-5
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL_SHARE = 1e-4, 1e-4
+TRAIN_RESUME_STEPS = 2
+TRAIN_MOE_RESUME_TOL = dict(rtol=1e-5, atol=1e-6)
+TRAIN_FULL_ARGV = ("--arch", "granite_3_2b", "--steps", "6",
+                   "--global-batch", "8", "--seq-len", "1024",
+                   "--log-every", "1", "--seed", "0")
+TRAIN_WARMUP = 2
+TRAIN_PROFILE_STEP = 5      # the last; traced from the one before it
+TRAIN_MOE_ARGV = ("--steps", "100", "--batch", "8", "--seq-len", "256",
+                  "--router", "sinkhorn")
+TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_train"
 
 
 def emit(obj) -> None:
@@ -1160,13 +1201,19 @@ def profile_window(fn, reps: int) -> tuple[float, list, list, float]:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    ev = prof.key_averages()
+    dev_ev, host, busy = split_events(prof.key_averages())
+    return wall_us, dev_ev, host, busy / reps
+
+
+def split_events(ev) -> tuple[list, list, float]:
+    """(device events, host events, device busy us) of ``key_averages``;
+    a scheduled profiler's ``ProfilerStep*`` range is neither."""
+    ev = [e for e in ev if not e.key.startswith("ProfilerStep")]
     dev_ev = [e for e in ev
               if str(getattr(e, "device_type", "")).endswith("CUDA")]
     host = [e for e in ev
             if not str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in dev_ev) / reps
-    return wall_us, dev_ev, host, busy
+    return dev_ev, host, sum(e.self_device_time_total for e in dev_ev)
 
 
 def profile_record(phase: str, wall_us, dev_ev, host, busy_us, reps,
@@ -1178,7 +1225,7 @@ def profile_record(phase: str, wall_us, dev_ev, host, busy_us, reps,
     top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]
     api = {e.key: e.count / reps for e in host
            if e.key in ("cudaStreamSynchronize", "cudaMemcpyAsync",
-                        "cudaLaunchKernel")}
+                        "cudaLaunchKernel", "cudaLaunchKernelExC")}
     return {"phase": phase, **extra, "calls": reps,
             "runtime_calls_per_call": api,
             "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
@@ -2978,18 +3025,23 @@ def lm_decode(model, batch: int, steps: int, cache=None):
     return torch.cat(toks, 1), torch.stack(logits, 1), cache
 
 
+def small_cfg(arch: str, router=None):
+    """The reduced config of ``arch``, with ``router`` for the MoE."""
+    import dataclasses
+    cfg = get_config(arch).reduced()
+    if router:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, router=router))
+    return cfg
+
+
 def phase_lm_small_parity(dev) -> None:
     """The reduced LMs on the card against the same weights on the host:
     equal tokens and logits within fp32 rounding, LM_SMALL_STEPS steps."""
     import copy
-    import dataclasses
     rows = []
     for arch, router in LM_SMALL:
-        cfg = get_config(arch).reduced()
-        if router:
-            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                cfg.moe, router=router))
-        host = Transformer(cfg, 0, device="cpu")
+        host = Transformer(small_cfg(arch, router), 0, device="cpu")
         card = copy.deepcopy(host).to(dev)
         with torch.inference_mode():
             th, lh, _ = lm_decode(host, LM_BATCH, LM_SMALL_STEPS)
@@ -3214,6 +3266,213 @@ def phase_lm_full(dev, arch: str, phase: str, card: str) -> dict:
     return rec
 
 
+def train_steps(model, steps, hp):
+    """``steps`` train steps of ``model`` from a fresh AdamW state on
+    ``batch_at_step`` 0, 1, ...: (the AdamW state, the last metrics)."""
+    dc = DataConfig(model.cfg.vocab_size, TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = make_train_step(model, hp)
+    for i in steps:
+        m = step(opt, batch_at_step(dc, i))
+    return opt, m
+
+
+def hold_resume(cfg, dev, exact: bool, label: str) -> dict:
+    """Checkpoint save after TRAIN_RESUME_STEPS steps, restore into a model
+    built from another seed, TRAIN_RESUME_STEPS more steps: against the
+    uninterrupted run on the card."""
+    import shutil
+    hp = TrainHParams(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    n = TRAIN_RESUME_STEPS
+    whole = Transformer(cfg, 0, device=dev)
+    opt_w, _ = train_steps(whole, range(2 * n), hp)
+    first = Transformer(cfg, 0, device=dev)
+    opt_f, _ = train_steps(first, range(n), hp)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ckpt.save(str(TRAIN_CKPT_DIR), n, ckpt.train_state(first, opt_f))
+    resumed = Transformer(cfg, 1, device=dev)
+    opt_r = adamw.init(dict(resumed.named_parameters()))
+    ckpt.load_train_state(resumed, opt_r, ckpt.restore(
+        str(TRAIN_CKPT_DIR), ckpt.latest_step(str(TRAIN_CKPT_DIR)),
+        ckpt.train_state(resumed, opt_r)))
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    step = make_train_step(resumed, hp)
+    dc = DataConfig(cfg.vocab_size, TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ)
+    for i in range(n, 2 * n):
+        step(opt_r, batch_at_step(dc, i))
+    pairs = list(zip(whole.parameters(), resumed.parameters()))
+    bitwise = all(torch.equal(a, b) for a, b in pairs) and all(
+        torch.equal(opt_w.m[k], opt_r.m[k]) for k in opt_w.m)
+    err = max(float((a - b).detach().abs().max()) for a, b in pairs)
+    if exact and not bitwise:
+        raise AssertionError(f"{label}: resumed run differs from the "
+                             f"uninterrupted one by {err}")
+    if not exact:
+        for a, b in pairs:
+            torch.testing.assert_close(b, a, **TRAIN_MOE_RESUME_TOL)
+    return {"bitwise": bitwise, "max_abs_err": err,
+            "steps": [n, n], "step": int(opt_r.step)}
+
+
+def phase_train_small_parity(dev) -> None:
+    """The reduced granite and qwen2_moe (Sinkhorn router) made on the
+    host from seed 0 and copied to the card: one make_train_step on each
+    side (loss, ce, aux, grad_norm, lr; the clipped gradients left in
+    ``.grad``), then the resume check on the card."""
+    import copy
+    rows = []
+    hp = TrainHParams(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    for arch, router in TRAIN_SMALL:
+        cfg = small_cfg(arch, router)
+        host = Transformer(cfg, 0, device="cpu")
+        card = copy.deepcopy(host).to(dev)
+        _, mh = train_steps(host, range(1), hp)
+        _, mc = train_steps(card, range(1), hp)
+        row = {"arch": arch, "router": router, "metrics": {}}
+        for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+            h, c = float(mh[k]), float(mc[k])
+            if not abs(c - h) <= TRAIN_METRIC_RTOL * abs(h) + 1e-7:
+                raise AssertionError(f"train_small_parity {arch} {router}: "
+                                     f"{k} card {c} host {h}")
+            row["metrics"][k] = {"card": c, "host": h}
+        worst = 0.0
+        for (name, ph), pc in zip(host.named_parameters(), card.parameters()):
+            want, got = ph.grad, pc.grad.cpu()
+            scale = float(want.abs().max())
+            torch.testing.assert_close(
+                got, want, rtol=TRAIN_GRAD_RTOL,
+                atol=TRAIN_GRAD_ATOL_SHARE * scale,
+                msg=lambda m: f"train_small_parity {arch} {name}: {m}")
+            worst = max(worst, float((got - want).abs().max())
+                        / max(scale, 1e-30))
+        row["grad_max_err_share"] = worst
+        row["resume"] = hold_resume(cfg, dev, exact=router is None,
+                                    label=f"train_small_parity {arch} "
+                                          f"{router}")
+        rows.append(row)
+    emit({"phase": "train_small_parity", "batch": TRAIN_SMALL_BATCH,
+          "seq_len": TRAIN_SMALL_SEQ, "metric_rtol": TRAIN_METRIC_RTOL,
+          "grad_rtol": TRAIN_GRAD_RTOL,
+          "grad_atol_share": TRAIN_GRAD_ATOL_SHARE,
+          "moe_resume_tol": TRAIN_MOE_RESUME_TOL, "archs": rows})
+
+
+def train_step_flops(model, batch: int, seq: int) -> dict:
+    """fp32 operations of one train step: the model FLOPs 6 N tokens
+    (every parameter in one product a token, the tied embedding as the LM
+    head) plus attention's 12 L B T^2 d_attn (every key block computed, as
+    the reference's flash attention does: no causal skip); the recompute
+    beside them: two more forwards under two-level remat and the flash
+    backward's scores."""
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    d_attn = model.n_q * cfg.head_dim
+    tokens = batch * seq
+    attn_fwd = 4 * cfg.num_layers * batch * seq * seq * d_attn
+    model_flops = 6 * n * tokens + 3 * attn_fwd
+    recompute = 2 * (2 * n * tokens + attn_fwd) + attn_fwd // 2
+    return {"params": n, "tokens": tokens, "model_flops": model_flops,
+            "recompute_flops": recompute,
+            "executed_flops": model_flops + recompute}
+
+
+def phase_train_full_dense(card: str, argv=TRAIN_FULL_ARGV) -> dict:
+    """granite_3_2b at full width and depth through launch/train.py's
+    ``run``: per-step wall times between the hook's calls (each after the
+    step's loss is read, so after its last kernel), one profiled step
+    (TRAIN_PROFILE_STEP), peak memory, the model-FLOP bound."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    args = train_cli.build_parser().parse_args(list(argv))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, metrics, probe = [], [], {}
+
+    def hook(step, m, model):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append({k: float(m[k]) for k in m})
+        names = ("embed", "layers.0.attn.wq", "layers.39.mlp.w_down")
+        params = dict(model.named_parameters())
+        if step == 0:
+            probe.update(model=model, before={
+                k: params[k].detach().clone() for k in names if k in params})
+        prof.step()
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=TRAIN_PROFILE_STEP - 1, warmup=1,
+                                   active=1, repeat=1)) as prof:
+        records = train_cli.run(args, hook=hook)
+    total_s = time.perf_counter() - t0
+    model = probe.pop("model")
+    params = dict(model.named_parameters())
+    moved = {k: not torch.equal(params[k], v)
+             for k, v in probe["before"].items()}
+    for m in metrics:
+        if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"train_full_dense: non-finite {m}")
+    if not moved or not all(moved.values()):
+        raise AssertionError(f"train_full_dense: parameters moved {moved}")
+    step_s = np.diff(stamps)                      # steps 1 .. n-1
+    # the steps after the warm-up ones and before the profiler's warm-up
+    timed = step_s[TRAIN_WARMUP - 1:TRAIN_PROFILE_STEP - 2]
+    p50 = float(np.percentile(timed, 50))
+    fl = train_step_flops(model, args.global_batch, args.seq_len)
+    bound_s = fl["model_flops"] / PEAK_FP32_FLOP_PER_S
+    dev_ev, host, busy_us = split_events(prof.key_averages())
+    wall_us = step_s[TRAIN_PROFILE_STEP - 1] * 1e6
+    prof_rec = profile_record("train_full_dense_profile", wall_us, dev_ev,
+                              host, busy_us, 1)
+    rec = {"phase": "train_full_dense", "arch": args.arch, "nvidia_smi": card,
+           "dtype": "float32", "remat": True, "batch": args.global_batch,
+           "seq_len": args.seq_len, "steps": args.steps,
+           "warmup_steps_excluded": TRAIN_WARMUP,
+           "params": fl["params"], "step_s": step_s.tolist(),
+           "timed_steps": list(range(TRAIN_WARMUP, TRAIN_PROFILE_STEP - 1)),
+           "s_per_step_p50": p50, "profiled_step": TRAIN_PROFILE_STEP,
+           "tokens_per_s": fl["tokens"] / p50,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **fl, "bound_s": bound_s, "bound_share": bound_s / p50,
+           "executed_share": fl["executed_flops"] / PEAK_FP32_FLOP_PER_S
+           / p50, "achieved_tflops": fl["executed_flops"] / p50 / 1e12,
+           "device_busy_share": prof_rec.get("device_busy_share"),
+           "launches_per_step": prof_rec.get("runtime_calls_per_call"),
+           "profile": prof_rec, "metrics": metrics, "records": records,
+           "params_moved": moved, "total_s": total_s}
+    del model, params, probe
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def phase_train_moe_sinkhorn(card: str, argv=TRAIN_MOE_ARGV) -> dict:
+    """The MoE training example (examples/torch_train_moe_sinkhorn.py,
+    its config and loop) on the card: the last logged ce below the first,
+    both routers' drop fractions on fresh data."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / \
+        "torch_train_moe_sinkhorn.py"
+    spec = importlib.util.spec_from_file_location("torch_train_moe", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    args = example.build_parser().parse_args(list(argv))
+    t0 = time.perf_counter()
+    out = example.run(args)
+    secs = time.perf_counter() - t0
+    first, last = out["log"][0]["ce"], out["log"][-1]["ce"]
+    if not last < first:
+        raise AssertionError(f"train_moe_sinkhorn: ce {first} -> {last}")
+    rec = {"phase": "train_moe_sinkhorn", "nvidia_smi": card,
+           "steps": args.steps, "batch": args.batch, "seq_len": args.seq_len,
+           "router": args.router, "params": out["n_params"],
+           "seconds": secs, "s_per_step": secs / args.steps,
+           "ce_first": first, "ce_last": last, "log": out["log"],
+           "dropped_fraction": out["dropped"]}
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3358,6 +3617,15 @@ def main() -> int:
     phase_lm_full(dev, "rwkv6_3b", "lm_full_ssm", smi)
     phase_lm_full(dev, "zamba2_7b", "lm_full_hybrid", smi)
     emit({"phase": "lm", "seconds": time.perf_counter() - t_lm})
+
+    # training: the reduced models on the card against the host (and
+    # resume from a checkpoint), granite_3_2b at full width through
+    # launch/train.py, the MoE example's 100 steps
+    t_train = time.perf_counter()
+    phase_train_small_parity(dev)
+    phase_train_full_dense(smi)
+    phase_train_moe_sinkhorn(smi)
+    emit({"phase": "train", "seconds": time.perf_counter() - t_train})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     path_launches = {**otm["launches_per_kernel_call"],

@@ -13,7 +13,10 @@ remainder after the groups) and transposes into the ``nn.Linear`` layout
 (:data:`LINEAR`). Every other leaf keeps its layout: the stacked expert
 weights (E, d, f) run through ``torch.bmm`` as the reference's batched
 einsum does, and rwkv6's ``mu`` and ``u`` and mamba2's conv windows are
-read as the reference reads them.
+read as the reference reads them. :func:`to_reference` is the inverse:
+the port's parameters (or any tensors keyed by parameter name, such as
+AdamW's moments) back into the reference's stacked pytree, which the
+checkpoints store.
 """
 from __future__ import annotations
 
@@ -106,3 +109,60 @@ def from_reference(cfg: ArchConfig, params: dict, tp: int = 1, device=None,
           for k, v in to_state_dict(cfg, params).items()}
     model.load_state_dict(sd, strict=True, assign=True)
     return model
+
+
+def _set(tree: dict, path: str, val) -> None:
+    *heads, last = path.split(".")
+    for h in heads:
+        tree = tree.setdefault(h, {})
+    tree[last] = val
+
+
+def _stack(rows: list, lead: tuple) -> dict:
+    """Layer leaves (one dict of leaf path -> array per layer) stacked on
+    the leading dims ``lead`` (layer-major), in the reference's layout."""
+    tree: dict = {}
+    for name in rows[0]:
+        arr = np.stack([_layout(name, r[name]) for r in rows])
+        _set(tree, name, arr.reshape(lead + arr.shape[1:]))
+    return tree
+
+
+def reference_tree(cfg: ArchConfig, sd: dict) -> dict:
+    """The reference's parameter pytree (nested dicts of numpy arrays) for
+    a port state dict ``sd`` (parameter name -> array): the inverse of
+    :func:`to_state_dict`, layers restacked (the hybrid's as groups x
+    layers, plus ``layers_rem``) and the :data:`LINEAR` matrices
+    transposed back."""
+    tree: dict = {}
+    layers: dict = {}
+    for name, arr in sd.items():
+        arr = np.asarray(arr)
+        if name.startswith("layers."):
+            _, i, leaf = name.split(".", 2)
+            layers.setdefault(int(i), {})[leaf] = arr
+        elif name.startswith("shared_block."):
+            leaf = name.split(".", 1)[1]
+            _set(tree, name, _layout(leaf, arr))
+        else:
+            _set(tree, name, _layout(name, arr))
+    rows = [layers[i] for i in range(cfg.num_layers)]
+    if cfg.family != "hybrid":
+        tree["layers"] = _stack(rows, (cfg.num_layers,))
+        return tree
+    k = cfg.attn_every
+    n_full = cfg.num_layers // k * k
+    tree["layers"] = _stack(rows[:n_full], (n_full // k, k))
+    if n_full < cfg.num_layers:
+        tree["layers_rem"] = _stack(rows[n_full:],
+                                    (cfg.num_layers - n_full,))
+    return tree
+
+
+def to_reference(model: Transformer, tensors: dict | None = None) -> dict:
+    """The reference's pytree of numpy arrays for ``model``'s parameters,
+    or for ``tensors`` keyed by its parameter names (AdamW's m and v)."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    return reference_tree(model.cfg, {k: t.detach().cpu().numpy()
+                                      for k, t in tensors.items()})

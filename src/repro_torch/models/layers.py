@@ -1,6 +1,6 @@
 """Transformer layers of the port: norms, RoPE, GQA attention (an
-online-softmax forward over key blocks, with its materialized twin), MLP
-variants (port of ``repro.models.layers``).
+online-softmax flash attention over key blocks with its own backward,
+and its materialized twin), MLP variants (port of ``repro.models.layers``).
 
 Dense projections are stored as ``nn.Linear`` weights, (out, in), and
 applied with ``F.linear``; ``repro_torch.models.convert`` transposes the
@@ -84,32 +84,43 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 # ------------------------------------------------- flash attention (GQA)
-def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0,
-                    block_k: int = 512) -> torch.Tensor:
-    """Online-softmax attention over key blocks of ``block_k``: live
-    memory O(Tq * block_k), not O(Tq * Tk). Forward only.
+def _causal_mask(causal: bool, q_offset: int, start: int, tq: int, bk: int,
+                 device):
+    """True where key ``start + j`` lies after query ``q_offset + i``."""
+    if not causal:
+        return None
+    q_pos = q_offset + torch.arange(tq, device=device)
+    k_pos = start + torch.arange(bk, device=device)
+    return k_pos[None, :] > q_pos[:, None]
 
-    q: (B, G, Hkv, Tq, D), Hq = G * Hkv query heads grouped by kv head;
-    k, v: (B, Hkv, Tk, D). Returns (B, G, Hkv, Tq, D). Tk must divide by
-    ``block_k``; ``q_offset`` is the absolute position of q[..., 0, :].
-    """
+
+def _acc_dtype(q: torch.Tensor) -> torch.dtype:
+    """fp32 accumulation (fp64 for fp64 inputs)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _block_scores(q, kb, scale, causal, q_offset, start):
+    s = torch.einsum("bghqd,bhkd->bghqk", q, kb).to(_acc_dtype(q)) * scale
+    hide = _causal_mask(causal, q_offset, start, q.shape[3], kb.shape[2],
+                        q.device)
+    return s if hide is None else s.masked_fill(hide, NEG_INF)
+
+
+def _flash_fwd(q, k, v, causal, q_offset, block_k):
+    """(out, lse): the online softmax over key blocks."""
     b, g, hkv, tq, d = q.shape
     tk = k.shape[2]
     if tk % block_k:
         raise ValueError(f"Tk={tk} does not divide by block_k={block_k}")
     scale = 1.0 / math.sqrt(d)
-    acc = torch.float32
+    acc = _acc_dtype(q)
     o = torch.zeros((b, g, hkv, tq, d), dtype=acc, device=q.device)
     m = torch.full((b, g, hkv, tq), NEG_INF, dtype=acc, device=q.device)
     denom = torch.zeros((b, g, hkv, tq), dtype=acc, device=q.device)
-    q_pos = q_offset + torch.arange(tq, device=q.device)
     for start in range(0, tk, block_k):
         kb = k[:, :, start:start + block_k]
         vb = v[:, :, start:start + block_k]
-        s = torch.einsum("bghqd,bhkd->bghqk", q, kb).to(acc) * scale
-        if causal:
-            k_pos = start + torch.arange(block_k, device=q.device)
-            s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+        s = _block_scores(q, kb, scale, causal, q_offset, start)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -117,7 +128,58 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0,
         o = o * corr[..., None] + torch.einsum(
             "bghqk,bhkd->bghqd", p.to(v.dtype), vb).to(acc)
         m = m_new
-    return (o / denom[..., None]).to(q.dtype)
+    return (o / denom[..., None]).to(q.dtype), m + torch.log(denom)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward saves (q, k, v, out,
+    lse) and the backward recomputes each key block's probabilities from
+    lse, so neither pass keeps more than one block of scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, block_k):
+        out, lse = _flash_fwd(q, k, v, causal, q_offset, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, block_k = ctx.args
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        acc = _acc_dtype(q)
+        delta = (dout.to(acc) * out.to(acc)).sum(-1)        # (b, g, h, q)
+        dq = torch.zeros(q.shape, dtype=acc, device=q.device)
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        for start in range(0, k.shape[2], block_k):
+            kb = k[:, :, start:start + block_k]
+            vb = v[:, :, start:start + block_k]
+            s = _block_scores(q, kb, scale, causal, q_offset, start)
+            p = torch.exp(s - lse[..., None])                # recompute
+            dp = torch.einsum("bghqd,bhkd->bghqk", dout.to(acc), vb.to(acc))
+            ds = p * (dp - delta[..., None]) * scale
+            dq += torch.einsum("bghqk,bhkd->bghqd", ds.to(q.dtype),
+                               kb).to(acc)
+            dk[:, :, start:start + block_k] = torch.einsum(
+                "bghqk,bghqd->bhkd", ds.to(q.dtype), q)
+            dv[:, :, start:start + block_k] = torch.einsum(
+                "bghqk,bghqd->bhkd", p.to(dout.dtype), dout)
+        return dq.to(q.dtype), dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0,
+                    block_k: int = 512) -> torch.Tensor:
+    """Online-softmax attention over key blocks of ``block_k``: live
+    memory O(Tq * block_k), not O(Tq * Tk), in the forward and (through
+    :class:`FlashAttention`) the backward.
+
+    q: (B, G, Hkv, Tq, D), Hq = G * Hkv query heads grouped by kv head;
+    k, v: (B, Hkv, Tk, D). Returns (B, G, Hkv, Tq, D). Tk must divide by
+    ``block_k``; ``q_offset`` is the absolute position of q[..., 0, :].
+    """
+    return FlashAttention.apply(q, k, v, causal, q_offset, block_k)
 
 
 def attention_ref(q, k, v, causal: bool = True,

@@ -9,19 +9,25 @@
                          then the layers that fill no group
 
 The layers are a plain ``nn.ModuleList`` walked in order; the reference
-stacks them on a leading dim for one ``lax.scan`` (with remat; the hybrid
-on two, groups x layers in a group), which computes the same function. The
+stacks them on a leading dim for one ``lax.scan`` (the hybrid on two,
+groups x layers in a group), which computes the same function. The
 hybrid's ``layers`` hold all of its Mamba2 layers, layer i = g *
-attn_every + e of group g, the remainder last. The reference's functions
-map onto :class:`Transformer`: ``init_params`` is its constructor,
-``forward`` its ``forward``, ``lm_head_matrix`` / ``init_cache`` /
-``decode_step`` its methods of those names.
+attn_every + e of group g, the remainder last. ``forward(remat=True)``
+keeps the reference's activation checkpointing (``jax.checkpoint``) with
+``torch.utils.checkpoint``: the two-level sqrt(L) schedule of
+``two_level_scan`` (each layer and each group of layers checkpointed),
+and for the hybrid each Mamba2 layer and each group with its shared
+block. The reference's functions map onto :class:`Transformer`:
+``init_params`` is its constructor, ``forward`` its ``forward``,
+``lm_head_matrix`` / ``lm_loss`` / ``init_cache`` / ``decode_step`` its
+methods of those names.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
@@ -31,6 +37,34 @@ from .moe import MoE
 from .rwkv6 import RWKV6TimeMix, rwkv6_decode
 
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
+
+
+def _largest_pow2_divisor_leq(t: int, cap: int) -> int:
+    c = 1
+    while c * 2 <= cap and t % (c * 2) == 0:
+        c *= 2
+    return c
+
+
+def loss_chunk_len(seq_len: int, vocab: int, budget: int = 1 << 25) -> int:
+    """Tokens per loss chunk so the logits slab stays ~budget elements."""
+    return _largest_pow2_divisor_leq(seq_len, max(1, budget // vocab))
+
+
+def _sqrt_factor(n: int) -> tuple[int, int, int]:
+    """n = g * k + rem with g ~ sqrt(n): the two-level remat grouping."""
+    g = max(1, int(n ** 0.5))
+    while n // g == 0:
+        g -= 1
+    k = n // g
+    return g, k, n - g * k
+
+
+def _maybe_checkpoint(fn, remat: bool, *args):
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def padded_vocab(cfg: ArchConfig, tp: int) -> int:
@@ -185,24 +219,90 @@ class Transformer(nn.Module):
         the embedding when tied, else the LM head."""
         return self.embed if self.lm_head is None else self.lm_head
 
-    def forward(self, tokens: torch.Tensor, block_k: int = 512):
+    def forward(self, tokens: torch.Tensor, block_k: int = 512,
+                remat: bool = False):
         """tokens (B, T) -> (hidden (B, T, d) after the final norm, aux
-        load-balance loss summed over the layers; zero but for the MoE)."""
+        load-balance loss summed over the layers; zero but for the MoE).
+        ``remat`` checkpoints as the reference's ``forward(remat=True)``
+        does; the result is the same either way."""
         h = F.embedding(tokens, self.embed)
         bk = min(block_k, tokens.shape[1])
-        aux = h.new_zeros(())
-        if self.cfg.family in ATTN_FAMILIES:
-            for blk in self.layers:
-                h, a = blk(h, bk)
-                aux = aux + a
-            return self.final_norm(h), aux
-        # the hybrid's shared block follows the last layer of each group
-        k = self.cfg.attn_every
-        for i, blk in enumerate(self.layers):
-            h = blk(h, self.cfg.ssm.chunk)
-            if i < self.n_groups * k and i % k == k - 1:
-                h, _ = self.shared_block(h, bk)
+        if self.cfg.family == "hybrid":
+            return self._hybrid(h, bk, remat)
+        chunk = self.cfg.ssm.chunk if self.cfg.family == "ssm" else None
+
+        def layer(blk):
+            if chunk is not None:               # rwkv6: no aux
+                return lambda h: (blk(h, chunk), h.new_zeros(()))
+            return lambda h: blk(h, bk)
+
+        def run(blks, h):
+            """h through ``blks``, each checkpointed under remat: (h, the
+            sum of their aux losses)."""
+            auxs = []
+            for blk in blks:
+                h, a = _maybe_checkpoint(layer(blk), remat, h)
+                auxs.append(a)
+            return h, torch.stack(auxs).sum()
+
+        # two_level_scan: g groups of k layers (each group checkpointed
+        # too), then the rem layers that fill no group
+        g, k, rem = _sqrt_factor(len(self.layers))
+        auxs = []
+        for i in range(g):
+            blks = self.layers[i * k:(i + 1) * k]
+            h, a = _maybe_checkpoint(lambda h, blks=blks: run(blks, h),
+                                     remat, h)
+            auxs.append(a)
+        aux = torch.stack(auxs).sum()
+        if rem:
+            h, a = run(self.layers[g * k:], h)
+            aux = aux + a
         return self.final_norm(h), aux
+
+    def _hybrid(self, h: torch.Tensor, bk: int, remat: bool):
+        """Each group's Mamba2 layers (each checkpointed under remat), then
+        the shared block, the group checkpointed as a whole; then the
+        layers that fill no group."""
+        chunk, k = self.cfg.ssm.chunk, self.cfg.attn_every
+
+        def mamba(blks, h):
+            for blk in blks:
+                h = _maybe_checkpoint(lambda h, blk=blk: blk(h, chunk),
+                                      remat, h)
+            return h
+
+        def group(blks, h):
+            return self.shared_block(mamba(blks, h), bk)[0]
+
+        for i in range(self.n_groups):
+            blks = self.layers[i * k:(i + 1) * k]
+            h = _maybe_checkpoint(lambda h, blks=blks: group(blks, h),
+                                  remat, h)
+        h = mamba(self.layers[self.n_groups * k:], h)
+        return self.final_norm(h), h.new_zeros(())
+
+    def lm_loss(self, hidden: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        """Mean softmax cross-entropy of ``labels`` (B, T) under the
+        logits of ``hidden`` (B, T, d), chunked over T as the reference's
+        (``loss_chunk_len`` positions a chunk: a bounded logits slab);
+        padded vocabulary rows are masked out. fp32 scalar."""
+        b, t, _ = hidden.shape
+        head = self.lm_head_matrix()
+        vp, v = head.shape[0], self.cfg.vocab_size
+        ct = loss_chunk_len(t, v)
+        pad = None
+        if vp != v:
+            pad = (torch.arange(vp, device=hidden.device) >= v) * -1e30
+        tot = hidden.new_zeros((), dtype=torch.float32)
+        for c in range(0, t, ct):
+            z = F.linear(hidden[:, c:c + ct], head).float()   # (B, ct, Vp)
+            if pad is not None:
+                z = z + pad
+            gold = z.gather(-1, labels[:, c:c + ct, None].long())[..., 0]
+            tot = tot + (torch.logsumexp(z, -1) - gold).sum()
+        return tot / (b * t)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zero-filled serve cache on the model's device with the

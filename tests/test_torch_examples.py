@@ -40,3 +40,16 @@ def test_wmd_search_on_cpu(extra):
     assert "batch latency" in out
     if "--shards" in extra:
         assert "sharded: 2 cluster-aligned shards" in out
+
+
+def test_train_moe_sinkhorn_on_cpu():
+    out = _run("examples/torch_train_moe_sinkhorn.py", "--device", "cpu",
+               "--steps", "3", "--batch", "2", "--seq-len", "32")
+    assert "router=sinkhorn" in out.splitlines()[0]
+    steps = [ln for ln in out.splitlines() if ln.startswith("step ")]
+    assert [int(ln.split()[1]) for ln in steps] == [0, 2]
+    assert "trained 3 steps in" in out
+    drops = {ln.split()[0]: float(ln.split()[-1]) for ln in out.splitlines()
+             if "token-drop fraction at capacity" in ln}
+    assert set(drops) == {"router=topk", "router=sinkhorn"}
+    assert all(0.0 <= d <= 1.0 for d in drops.values())
