@@ -88,7 +88,17 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
   through ``launch/train.py``'s ``run`` (6 steps at B=8, T=1024, remat,
   one profiled step, the model-FLOP bound); the MoE training example
   (``examples/torch_train_moe_sinkhorn.py``) for 100 steps, its ce
-  falling, both routers' drop fractions.
+  falling, both routers' drop fractions;
+- expert parallelism and the dry-run: qwen2_moe_a2_7b at full width with
+  its experts over a (data=2, model=4) mesh of positions on the card
+  (``Transformer`` / ``make_serve_step`` with ``mesh=``): 32 serve steps
+  against the same model without a mesh (top-k, no drops; one ``psum``
+  per MoE layer a step) and the Sinkhorn router's per-shard semantics;
+  the reduced qwen2_moe train step with a mesh on the card against the
+  host and against the non-EP gradients; the dry-run's whole meta sweep
+  (``repro_torch.launch.dryrun``: 10 archs x 4 shapes x 2 meshes, the
+  long_500k cells of the attention archs skipped) and its FLOP counter
+  against the measured granite_3_2b train step.
 
 Each path runs once with the launch counts set to 0 just before it and
 read just after. Prints one JSON object per phase; the line before the
@@ -139,12 +149,13 @@ from repro_torch.runtime.serving import (FaultInjector,  # noqa: E402
                                          ServeConfig, ServingRuntime,
                                          default_tiers, poisson_arrivals,
                                          run_open_loop)
-from repro_torch.runtime.sharding import (corpus_mesh,  # noqa: E402
-                                          count_collectives, make_mesh)
+from repro_torch.runtime.sharding import (  # noqa: E402
+    collective_counts, corpus_mesh, count_collectives, make_mesh)
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models.model import (make_prefill,  # noqa: E402
                                       make_serve_step)
-from repro_torch.models.moe import moe_dropped_fraction  # noqa: E402
+from repro_torch.models.moe import (moe_apply_ep,  # noqa: E402
+                                    moe_dropped_fraction)
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.model import (TrainHParams,  # noqa: E402
                                       make_train_step)
@@ -152,6 +163,8 @@ from repro_torch.checkpoint import checkpointer as ckpt  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_at_step  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_cli  # noqa: E402
+from repro_torch.runtime.analysis import stacked_cost  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate and fp32 FFMA
 # rate outside the tensor cores, both at the full 700 W power limit
@@ -337,6 +350,24 @@ TRAIN_MOE_ARGV = ("--steps", "100", "--batch", "8", "--seq-len", "256",
                   "--router", "sinkhorn")
 TRAIN_CKPT_DIR = Path(__file__).resolve().parent / "build" / \
     "chip_smoke_train"
+# expert parallelism (no hand-written kernel: the reference's EP path
+# reaches no Pallas kernel): qwen2_moe_a2_7b at full width over a
+# LM_EP_MESH of positions, every one on the card. LM_STEPS serve steps at
+# LM_BATCH with the top-k router and a capacity factor of n_experts /
+# top_k (no assignment dropped, globally or per data shard): logits within
+# the serve path's LM_EP_TOL of the same model's non-EP logits on the same
+# input tokens, one psum per MoE layer a step. The Sinkhorn router (the
+# config's) balances per data shard: each layer's data shard i held
+# against the non-EP layer on shard i's tokens alone at LM_EP_SHARD_TOL
+# (the same products, partial sums added in another order)
+LM_EP_MESH = ((2, 4), ("data", "model"))
+LM_EP_TOL = 2e-3
+LM_EP_SHARD_TOL = 1e-4
+# the dry-run: the whole meta sweep (the long_500k cells of the eight
+# attention archs skipped, as the reference skips them) into DRYRUN_DIR
+# (removed at the end); DRYRUN_CELLS cells walked
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
+DRYRUN_CELLS, DRYRUN_SKIPPED = 64, 16
 
 
 def emit(obj) -> None:
@@ -3473,6 +3504,246 @@ def phase_train_moe_sinkhorn(card: str, argv=TRAIN_MOE_ARGV) -> dict:
     return rec
 
 
+def ep_model(cfg_moe: dict, dev, seed: int = 0):
+    """qwen2_moe_a2_7b at full width in fp32 from ``seed``, on ``dev``,
+    its MoE spec fields replaced by ``cfg_moe``."""
+    import dataclasses
+    cfg = get_config("qwen2_moe_a2_7b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           **cfg_moe))
+    gen = torch.Generator(dev).manual_seed(seed)
+    return Transformer(cfg, gen, device=dev)
+
+
+def timed_decode(step, cache, inputs):
+    """One serve step per column of ``inputs`` (B, S), each timed to a
+    sync: (logits (B, S, V), step ms, psums per step)."""
+    logits, ms, psums = [], [], []
+    for t in range(inputs.shape[1]):
+        torch.cuda.synchronize()
+        c0 = collective_counts()["psum"]
+        t0 = time.perf_counter()
+        _, lg, cache = step(cache, inputs[:, t:t + 1])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        psums.append(collective_counts()["psum"] - c0)
+        logits.append(lg)
+    return torch.stack(logits, 1), ms, psums
+
+
+def phase_lm_ep(dev, card: str, lm_full: dict) -> dict:
+    """qwen2_moe_a2_7b (57 GB, seed 0) with its experts over LM_EP_MESH
+    (every position on the card: expert slices are views): LM_STEPS serve
+    steps at LM_BATCH against the same model without a mesh (top-k, no
+    drops) on the same input tokens, the psums a step, the step times
+    beside lm_full's; then the Sinkhorn router's per-shard semantics at
+    every MoE layer."""
+    cfg = get_config("qwen2_moe_a2_7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(*LM_EP_MESH, devices=[dev])
+    rec = {"phase": "lm_ep", "arch": cfg.name, "nvidia_smi": card,
+           "dtype": "float32", "batch": LM_BATCH, "steps": LM_STEPS,
+           "mesh": mesh.describe()["shape"],
+           "axis_names": list(mesh.axis_names), "mesh_devices": str(dev)}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        model = ep_model({"router": "topk", "capacity_factor":
+                          cfg.moe.n_experts / cfg.moe.top_k}, dev)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        plain = make_serve_step(model)
+        cache = model.init_cache(LM_BATCH, LM_STEPS)
+        tok = torch.ones((LM_BATCH, 1), dtype=torch.long, device=dev)
+        toks, want, plain_ms = [tok], [], []
+        for _ in range(LM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, lg, cache = plain(cache, tok)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+            want.append(lg)
+        want = torch.stack(want, 1)
+        inputs = torch.cat(toks[:-1], 1)                 # (B, LM_STEPS)
+        ep = make_serve_step(model, mesh)
+        got, ep_ms, psums = timed_decode(ep, model.init_cache(
+            LM_BATCH, LM_STEPS), inputs)
+        if set(psums) != {cfg.num_layers}:
+            raise AssertionError(f"lm_ep: psums a step {psums}, want "
+                                 f"{cfg.num_layers}")
+        if not torch.isfinite(got).all():
+            raise AssertionError("lm_ep: non-finite logits")
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=LM_EP_TOL, atol=LM_EP_TOL):
+            raise AssertionError(f"lm_ep: EP logits differ by {err}")
+        a, b = np.asarray(ep_ms[2:]), np.asarray(plain_ms[2:])
+        rec.update(max_abs_err=err, tol=LM_EP_TOL, psums_per_step=psums[0],
+                   ms_per_token_p50=float(np.percentile(a, 50)),
+                   ms_per_token_p99=float(np.percentile(a, 99)),
+                   first_steps_ms=ep_ms[:2],
+                   plain_topk_ms_p50=float(np.percentile(b, 50)),
+                   plain_topk_ms_p99=float(np.percentile(b, 99)),
+                   lm_full_ms_p50=lm_full["ms_per_token_p50"],
+                   lm_full_ms_p99=lm_full["ms_per_token_p99"],
+                   tokens_per_s=LM_BATCH / (a.mean() / 1e3))
+        # the config's Sinkhorn router and capacity: every layer's MoE
+        # input at one decode step, through the EP layer and the non-EP
+        # layer per data shard
+        set_moe(model, router=cfg.moe.router,
+                capacity_factor=cfg.moe.capacity_factor)
+        inputs_moe = []
+        hooks = [blk.moe.register_forward_pre_hook(
+            lambda _m, args: inputs_moe.append(args[0]))
+            for blk in model.layers]
+        model.decode_step(model.init_cache(LM_BATCH, 2), inputs[:, :1])
+        for h in hooks:
+            h.remove()
+        n_data = LM_EP_MESH[0][0]
+        per = LM_BATCH // n_data
+        worst = 0.0
+        for i, (blk, x) in enumerate(zip(model.layers, inputs_moe)):
+            out, _ = moe_apply_ep(blk.moe, x, mesh)
+            for s in range(n_data):
+                ref_out, _ = blk.moe(x[s * per:(s + 1) * per])
+                torch.testing.assert_close(
+                    out[s * per:(s + 1) * per], ref_out,
+                    rtol=LM_EP_SHARD_TOL, atol=LM_EP_SHARD_TOL,
+                    msg=lambda m: f"lm_ep sinkhorn layer {i} shard {s}: {m}")
+                worst = max(worst, float((out[s * per:(s + 1) * per]
+                                          - ref_out).abs().max()))
+        rec["sinkhorn_per_shard"] = {"layers": len(inputs_moe),
+                                     "max_abs_err": worst,
+                                     "tol": LM_EP_SHARD_TOL}
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del model, cache
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def phase_train_ep_small_parity(dev) -> None:
+    """The reduced qwen2_moe train step with its experts over a (2, 4)
+    mesh: on the card (positions on the card) against the host (positions
+    on the host) with the config's Sinkhorn router (metrics, gradients);
+    and on the card, EP gradients against the non-EP ones with the top-k
+    router at a capacity that drops nothing. Two data shards average
+    per-shard switch losses (the reference's EP aux), so that comparison
+    takes the cross-entropy alone (aux weight 0). train_small_parity's
+    tolerances."""
+    import copy
+    import dataclasses
+    hp = TrainHParams(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    dc = DataConfig(small_cfg("qwen2_moe_a2_7b").vocab_size,
+                    TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ)
+    batch = batch_at_step(dc, 0)
+    rows = []
+
+    def grads(model, mesh, hp):
+        opt = adamw.init(dict(model.named_parameters()))
+        m = make_train_step(model, hp, mesh)(opt, batch)
+        return {k: float(v) for k, v in m.items()}, {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    def hold(got, want, label):
+        worst = 0.0
+        for name, w in want.items():
+            scale = float(w.abs().max())
+            torch.testing.assert_close(
+                got[name], w, rtol=TRAIN_GRAD_RTOL,
+                atol=TRAIN_GRAD_ATOL_SHARE * scale,
+                msg=lambda m: f"train_ep_small_parity {label} {name}: {m}")
+            worst = max(worst, float((got[name] - w).abs().max())
+                        / max(scale, 1e-30))
+        return worst
+
+    cfg = small_cfg("qwen2_moe_a2_7b", "sinkhorn")
+    host = Transformer(cfg, 0, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    mh, gh = grads(host, make_mesh(*DIST_MESH, devices=["cpu"]), hp)
+    mc, gc = grads(card, make_mesh(*DIST_MESH, devices=[dev]), hp)
+    for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+        if not abs(mc[k] - mh[k]) <= TRAIN_METRIC_RTOL * abs(mh[k]) + 1e-7:
+            raise AssertionError(f"train_ep_small_parity: {k} card "
+                                 f"{mc[k]} host {mh[k]}")
+    rows.append({"check": "card_vs_host", "router": "sinkhorn",
+                 "metrics": {k: {"card": mc[k], "host": mh[k]} for k in mc},
+                 "grad_max_err_share": hold(gc, gh, "card_vs_host")})
+    base = small_cfg("qwen2_moe_a2_7b", "topk")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=base.moe.n_experts / base.moe.top_k))
+    hp0 = dataclasses.replace(hp, aux_loss_weight=0.0)
+    plain = Transformer(cfg, 0, device="cpu").to(dev)
+    ep = copy.deepcopy(plain)
+    mp, gp = grads(plain, None, hp0)
+    me, ge = grads(ep, make_mesh(*DIST_MESH, devices=[dev]), hp0)
+    for k in ("loss", "ce", "grad_norm"):
+        if not abs(me[k] - mp[k]) <= TRAIN_METRIC_RTOL * abs(mp[k]) + 1e-7:
+            raise AssertionError(f"train_ep_small_parity: {k} EP {me[k]} "
+                                 f"non-EP {mp[k]}")
+    rows.append({"check": "ep_vs_plain", "router": "topk",
+                 "capacity_factor": cfg.moe.capacity_factor,
+                 "aux_loss_weight": 0.0,
+                 "metrics": {k: {"ep": me[k], "plain": mp[k]} for k in me},
+                 "grad_max_err_share": hold(ge, gp, "ep_vs_plain")})
+    emit({"phase": "train_ep_small_parity", "mesh": list(DIST_MESH[0]),
+          "batch": TRAIN_SMALL_BATCH, "seq_len": TRAIN_SMALL_SEQ,
+          "metric_rtol": TRAIN_METRIC_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+          "grad_atol_share": TRAIN_GRAD_ATOL_SHARE, "checks": rows})
+
+
+def phase_dryrun(card: str, train: dict) -> dict:
+    """The dry-run's whole meta sweep (cells and seconds), then the FLOP
+    counter against a measured step: torch_cost of the granite_3_2b
+    train step at train_full_dense's shape (fp32, tp 1, remat) over that
+    phase's measured p50 must stay under the card's fp32 peak."""
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    res = dryrun_cli.sweep(str(DRYRUN_DIR), force=True, log=lambda _: None)
+    if res["failures"] or res["cells"] != DRYRUN_CELLS \
+            or res["skipped"] != DRYRUN_SKIPPED:
+        raise AssertionError(f"dryrun: sweep {res}")
+    cells = [json.loads(p.read_text()) for p in sorted(
+        DRYRUN_DIR.glob("*.json"))]
+    walked = [c for c in cells if "skipped" not in c]
+    if not all(c["fits_80gb"] and c["torch_cost"]["flops"] > 0
+               for c in walked):
+        raise AssertionError("dryrun: a cell does not fit or counts no "
+                             "FLOPs")
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    args = train_cli.build_parser().parse_args(list(TRAIN_FULL_ARGV))
+    cfg = get_config(args.arch)
+    t0 = time.perf_counter()
+    walk = dryrun_cli.train_walk(args.global_batch, args.seq_len, 1, None,
+                                 TrainHParams(), tp=1, dtype=torch.float32)
+    cost = stacked_cost(cfg, walk, remat=True)
+    walk_s = time.perf_counter() - t0
+    p50 = train["s_per_step_p50"]
+    rate = cost.flops / p50
+    if not rate < PEAK_FP32_FLOP_PER_S:
+        raise AssertionError(f"dryrun: {cost.flops} FLOP in {p50} s is "
+                             f"{rate} FLOP/s, above the fp32 peak")
+    rec = {"phase": "dryrun", "nvidia_smi": card,
+           "cells": res["cells"], "skipped": res["skipped"],
+           "sweep_s": res["seconds"],
+           "walk_s_max": max(c["walk_s"] for c in walked),
+           "fits_80gb": sum(c["fits_80gb"] for c in walked),
+           "granite_train_step": {
+               "batch": args.global_batch, "seq_len": args.seq_len,
+               "remat": True, "dtype": "float32",
+               "torch_cost_flops": cost.flops,
+               "matmul_flops": sum(v for k, v in cost.by_op.items()
+                                   if k in ("mm", "bmm", "addmm",
+                                            "baddbmm")),
+               "estimate_executed_flops": train["executed_flops"],
+               "model_flops": train["model_flops"],
+               "measured_s_per_step_p50": p50,
+               "flop_per_s": rate, "share_of_fp32_peak":
+                   rate / PEAK_FP32_FLOP_PER_S, "walk_s": walk_s}}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3612,7 +3883,7 @@ def main() -> int:
     t_lm = time.perf_counter()
     phase_lm_small_parity(dev)
     smi = info["nvidia_smi"]
-    phase_lm_full(dev, "qwen2_moe_a2_7b", "lm_full", smi)
+    lm_full = phase_lm_full(dev, "qwen2_moe_a2_7b", "lm_full", smi)
     phase_lm_full(dev, "granite_3_2b", "lm_full_dense", smi)
     phase_lm_full(dev, "rwkv6_3b", "lm_full_ssm", smi)
     phase_lm_full(dev, "zamba2_7b", "lm_full_hybrid", smi)
@@ -3623,9 +3894,18 @@ def main() -> int:
     # launch/train.py, the MoE example's 100 steps
     t_train = time.perf_counter()
     phase_train_small_parity(dev)
-    phase_train_full_dense(smi)
+    train_full = phase_train_full_dense(smi)
     phase_train_moe_sinkhorn(smi)
     emit({"phase": "train", "seconds": time.perf_counter() - t_train})
+
+    # expert parallelism over a (2, 4) mesh of positions on the card, then
+    # the dry-run's meta sweep and the FLOP counter against the measured
+    # granite step
+    t_ep = time.perf_counter()
+    phase_lm_ep(dev, smi, lm_full)
+    phase_train_ep_small_parity(dev)
+    phase_dryrun(smi, train_full)
+    emit({"phase": "ep_dryrun", "seconds": time.perf_counter() - t_ep})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     path_launches = {**otm["launches_per_kernel_call"],

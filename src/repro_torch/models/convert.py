@@ -166,3 +166,36 @@ def to_reference(model: Transformer, tensors: dict | None = None) -> dict:
         tensors = dict(model.named_parameters())
     return reference_tree(model.cfg, {k: t.detach().cpu().numpy()
                                       for k, t in tensors.items()})
+
+
+def reference_leaf(cfg: ArchConfig, name: str) -> tuple:
+    """Where the port parameter ``name`` lives in the reference's pytree:
+    (its path 'a/b/c', the leading stack dims it shares with the other
+    layers there, whether its matrix is transposed (:data:`LINEAR`))."""
+    if name.startswith("layers."):
+        _, i, leaf = name.split(".", 2)
+        top, lead = "layers", (cfg.num_layers,)
+        if cfg.family == "hybrid":
+            k = cfg.attn_every
+            n_full = cfg.num_layers // k * k
+            top, lead = (("layers", (n_full // k, k)) if int(i) < n_full
+                         else ("layers_rem", (cfg.num_layers - n_full,)))
+        path = f"{top}/{leaf}"
+    elif name.startswith("shared_block."):
+        leaf = name.split(".", 1)[1]
+        path, lead = f"shared_block/{leaf}", ()
+    else:
+        leaf, path, lead = name, name, ()
+    return path.replace(".", "/"), lead, leaf in LINEAR
+
+
+def reference_shapes(model: Transformer) -> dict:
+    """``{reference path: shape}`` of ``model``'s parameters in the
+    reference's stacked layout (a meta model will do: only shapes are
+    read)."""
+    out = {}
+    for name, p in model.named_parameters():
+        path, lead, transposed = reference_leaf(model.cfg, name)
+        shape = tuple(p.shape)
+        out[path] = lead + (shape[::-1] if transposed else shape)
+    return out

@@ -3,7 +3,9 @@ step, the serve step and the prefill of a :class:`Transformer`.
 
 ``make_train_step`` updates the model's parameters and the AdamW state in
 place; ``make_serve_step`` and ``make_prefill`` are the LM decode server's
-callables, to be called under ``torch.inference_mode()``.
+callables, to be called under ``torch.inference_mode()``. Each takes a
+``mesh`` (default: the model's own): with one, the MoE layers run expert
+parallel over it (``models.moe.moe_apply_ep``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ class TrainHParams:
     microbatch: int | None = None    # grad-accumulation microbatch size
 
 
-def grads_of(model: Transformer, batch: dict, hp: TrainHParams):
+def grads_of(model: Transformer, batch: dict, hp: TrainHParams,
+             mesh=None):
     """Loss, ce and aux of ``batch`` {tokens, labels} (B, T), with their
     gradients left in each parameter's ``.grad`` (fp32). The loss is ``ce
     + aux_loss_weight * aux``. With ``hp.microbatch`` below B the batch
@@ -48,7 +51,7 @@ def grads_of(model: Transformer, batch: dict, hp: TrainHParams):
         p.grad = None
     loss = ce = aux = 0.0
     for s in range(0, gb, mb):
-        hidden, a = model(tokens[s:s + mb], remat=hp.remat)
+        hidden, a = model(tokens[s:s + mb], remat=hp.remat, mesh=mesh)
         c = model.lm_loss(hidden, labels[s:s + mb])
         a = a.float()
         lo = c + hp.aux_loss_weight * a
@@ -64,8 +67,8 @@ def grads_of(model: Transformer, batch: dict, hp: TrainHParams):
     return loss, ce, aux
 
 
-def make_train_step(model: Transformer,
-                    hp: TrainHParams = TrainHParams()) -> Callable:
+def make_train_step(model: Transformer, hp: TrainHParams = TrainHParams(),
+                    mesh=None) -> Callable:
     """(opt_state, batch{tokens, labels}) -> metrics {loss, ce, aux,
     grad_norm, lr} (scalar tensors on the model's device, not synced).
     One step of the reference's ``train_step``: :func:`grads_of`, lr from
@@ -75,11 +78,12 @@ def make_train_step(model: Transformer,
     The reference's ``tp`` and ``batch_axes`` have no counterpart here:
     ``tp`` is fixed when the model is built (its shape rules), and
     ``batch_axes`` is a sharding hint for SPMD that a single-device step
-    does not need."""
+    does not need. ``mesh`` runs the MoE layers expert parallel, as the
+    reference's step does under its ``layers.MESH``."""
     params = dict(model.named_parameters())
 
     def train_step(opt_state: adamw.AdamWState, batch: dict) -> dict:
-        loss, ce, aux = grads_of(model, batch, hp)
+        loss, ce, aux = grads_of(model, batch, hp, mesh)
         lr = cosine_with_warmup(opt_state.step + 1, peak_lr=hp.peak_lr,
                                 warmup_steps=hp.warmup_steps,
                                 total_steps=hp.total_steps)
@@ -94,24 +98,25 @@ def make_train_step(model: Transformer,
     return train_step
 
 
-def make_serve_step(model: Transformer) -> Callable:
+def make_serve_step(model: Transformer, mesh=None) -> Callable:
     """(cache, tokens (B, 1)) -> (next_tokens (B, 1), logits (B, V), cache):
     one greedy decode step; the cache advances in place."""
 
     def serve_step(cache: dict, tokens: torch.Tensor):
-        logits, cache = model.decode_step(cache, tokens)
+        logits, cache = model.decode_step(cache, tokens, mesh)
         nxt = logits.argmax(-1).to(tokens.dtype)[:, None]
         return nxt, logits, cache
 
     return serve_step
 
 
-def make_prefill(model: Transformer, block_k: int = 512) -> Callable:
+def make_prefill(model: Transformer, block_k: int = 512,
+                 mesh=None) -> Callable:
     """tokens (B, T) -> logits (B, Vp) of the last position, fp32: the
     inference forward (no loss, no grads)."""
 
     def prefill(tokens: torch.Tensor) -> torch.Tensor:
-        hidden, _ = model(tokens, block_k)
+        hidden, _ = model(tokens, block_k, mesh=mesh)
         return F.linear(hidden[:, -1], model.lm_head_matrix()).float()
 
     return prefill

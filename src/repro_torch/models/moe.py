@@ -1,5 +1,6 @@
 """Mixture-of-Experts layer of the port: shared + routed experts, top-k
-dispatch with capacity (port of ``repro.models.moe``, single device).
+dispatch with capacity, expert parallelism over a mesh's ``model`` axis
+(port of ``repro.models.moe``).
 
 Router options: ``topk`` (softmax) or ``sinkhorn``, the paper's
 Sinkhorn-Knopp solver as a balanced-assignment router
@@ -11,6 +12,13 @@ run as one ``torch.bmm`` per projection over stacked (E, d, f) weights,
 and the results gather back. Assignments past capacity are dropped. Every
 expert runs on its whole buffer, so a step reads every expert's weights
 whatever the routing.
+
+:func:`moe_apply_ep` is the expert-parallel layer over a
+:class:`~repro_torch.runtime.sharding.CorpusMesh` of (data..., model)
+positions, the reference's ``shard_map`` body run once per position by
+the host: each position routes its data shard's tokens, runs its E/tp
+experts and the shared expert's ff slice, and one counted ``psum`` over
+``model`` combines the partial outputs.
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ from torch import nn
 
 from repro_torch.configs.base import MoESpec
 from repro_torch.core.router import route
+from repro_torch.runtime.sharding import (CorpusMesh, data_axes, psum,
+                                          shard_index)
 from .layers import MLP, normal_param
 
 
@@ -34,9 +44,10 @@ def padded_experts(n_experts: int, tp: int) -> int:
 
 
 class Dispatch(NamedTuple):
-    """One layer's routing of n tokens: ``probs`` (n, E), ``topw`` and
-    ``topi`` (n, k), and per assignment in token-major order (n * k,):
-    ``rank`` within its expert and ``keep`` (1 kept, 0 dropped)."""
+    """One layer's routing of n tokens per leading index (...): ``probs``
+    (..., n, E), ``topw`` and ``topi`` (..., n, k), and per assignment in
+    token-major order (..., n * k): ``rank`` within its expert and
+    ``keep`` (1 kept, 0 dropped)."""
     probs: torch.Tensor
     topw: torch.Tensor
     topi: torch.Tensor
@@ -68,9 +79,18 @@ def one_hot(idx: torch.Tensor, e: int, dtype=torch.int64) -> torch.Tensor:
 
 def ranks_in_expert(eid: torch.Tensor, e: int) -> torch.Tensor:
     """Rank of each assignment within its expert: an exclusive cumsum of the
-    one-hot of ``eid`` (token-major order)."""
+    one-hot of ``eid`` (..., n * k) over its last dim (token-major
+    order)."""
     oh = one_hot(eid, e)
-    return (oh.cumsum(0) - oh).gather(1, eid[:, None])[:, 0]
+    return (oh.cumsum(-2) - oh).gather(-1, eid[..., None])[..., 0]
+
+
+def switch_aux(dp: Dispatch) -> torch.Tensor:
+    """Switch-style load-balance loss per leading index, fp32:
+    E * sum_e fraction_tokens_e * mean_prob_e."""
+    e = dp.probs.shape[-1]
+    frac = one_hot(dp.topi[..., 0], e, torch.float32).mean(-2)
+    return e * (frac * dp.probs.mean(-2)).sum(-1)
 
 
 class MoE(nn.Module):
@@ -97,48 +117,157 @@ class MoE(nn.Module):
         """Experts in the buffers, padding included."""
         return self.router.shape[0]
 
-    def dispatch(self, flat: torch.Tensor, router_kind: str,
+    def dispatch(self, xs: torch.Tensor, router_kind: str,
                  n_real: int | None) -> Dispatch:
-        """Route n tokens (n, d): probabilities, the top k, ranks, drops."""
+        """Route n tokens xs (..., n, d), each leading index on its own:
+        probabilities, the top k, ranks, drops, and the capacity of n."""
         sp = self.spec
-        n, e = flat.shape[0], self.n_experts
+        n, e = xs.shape[-2], self.n_experts
         cap = capacity(n, sp.top_k, e, sp.capacity_factor, n_real)
-        logits = F.linear(flat, self.router).float()
+        logits = F.linear(xs, self.router.to(xs.device)).float()
         probs = route(logits, router_kind, n_iter=sp.router_iters,
-                      n_real=n_real)                              # (n, E)
-        topw, topi = top_k_stable(probs, sp.top_k)                # (n, k)
+                      n_real=n_real)                          # (..., n, E)
+        topw, topi = top_k_stable(probs, sp.top_k)            # (..., n, k)
         topw = topw / topw.sum(-1, keepdim=True).clamp(min=1e-9)
-        rank = ranks_in_expert(topi.reshape(-1), e)
-        keep = (rank < cap).to(flat.dtype)
+        rank = ranks_in_expert(topi.flatten(-2), e)
+        keep = (rank < cap).to(xs.dtype)
         return Dispatch(probs, topw, topi, rank, keep, cap)
+
+    def experts(self, xs: torch.Tensor, dp: Dispatch, ms=(0,),
+                tp: int = 1) -> torch.Tensor:
+        """xs (G, n, d), routed by ``dp`` -> (G, n, d): the layer's body
+        without its aux. Row g's tokens scatter into its (E, C, d) buffer,
+        run through the E/tp experts of model index ``ms[g]`` (all of them
+        at tp 1) and gather back; the shared expert runs on that index's
+        slice of its ff dim. At tp > 1 each row is so a partial sum over
+        the model axis. ``ms`` is sorted, so an index's rows are one slice
+        and its experts one ``bmm`` per projection over their buffers.
+        The weights are slices of the stacked ones, moved to xs's device:
+        views on their own device, a copy per call on any other."""
+        g, n, d = xs.shape
+        k, dev = self.spec.top_k, xs.device
+        e_loc = self.n_experts // tp
+        eid = dp.topi.reshape(g, n * k)
+        rankc = dp.rank.clamp(max=dp.cap - 1)
+        tok = torch.arange(n, device=dev).repeat_interleave(k)
+        gi = torch.arange(g, device=dev)[:, None].expand(g, n * k)
+        # dropped assignments add exactly 0.0 into slot cap - 1
+        buf = torch.zeros((g, self.n_experts, dp.cap, d), dtype=xs.dtype,
+                          device=dev)
+        buf.index_put_((gi, eid, rankc), xs[:, tok] * dp.keep[..., None],
+                       accumulate=True)                       # (G, E, C, d)
+        wt = (dp.keep * dp.topw.reshape(g, n * k).to(xs.dtype))[..., None]
+        outs = []
+        for m in sorted(set(ms)):
+            lo, hi = ms.index(m), len(ms) - ms[::-1].index(m)
+            ex = slice(m * e_loc, (m + 1) * e_loc)
+            my = buf[lo:hi, ex].transpose(0, 1).reshape(
+                e_loc, (hi - lo) * dp.cap, d)
+            h = torch.bmm(my, self.w_gate[ex].to(dev))
+            hu = torch.bmm(my, self.w_up[ex].to(dev))
+            ob = torch.bmm(F.silu(h) * hu, self.w_down[ex].to(dev)) \
+                .reshape(e_loc, hi - lo, dp.cap, d).transpose(0, 1)
+            if tp > 1:                  # another index's experts add 0
+                rel = eid[lo:hi] - m * e_loc
+                got = ob[gi[:hi - lo], rel.clamp(0, e_loc - 1),
+                         rankc[lo:hi]]
+                got = torch.where(((rel >= 0) & (rel < e_loc))[..., None],
+                                  got, got.new_zeros(()))
+            else:
+                got = ob[gi, eid, rankc]
+            out = (got * wt[lo:hi]).reshape(hi - lo, n, k, d).sum(2)
+            if self.shared is not None:
+                sh = self.shared
+                f_loc = sh.w_gate.shape[0] // tp
+                fs = slice(m * f_loc, (m + 1) * f_loc)
+                x = xs[lo:hi]
+                out = out + F.linear(
+                    F.silu(F.linear(x, sh.w_gate[fs].to(dev)))
+                    * F.linear(x, sh.w_up[fs].to(dev)),
+                    sh.w_down[:, fs].to(dev))
+            outs.append(out)
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def forward(self, x: torch.Tensor):
         """x (B, T, d) -> (out (B, T, d), aux load-balance loss scalar);
         the reference's ``moe_apply`` with ``n_real`` the spec's expert
         count."""
         b, t, d = x.shape
-        n, e, k = b * t, self.n_experts, self.spec.top_k
-        flat = x.reshape(n, d)
-        dp = self.dispatch(flat, self.spec.router, self.spec.n_experts)
-        eid = dp.topi.reshape(-1)
-        rankc = dp.rank.clamp(max=dp.cap - 1)
-        tok = torch.arange(n, device=x.device).repeat_interleave(k)
-        # dropped assignments add exactly 0.0 into slot cap - 1
-        buf = torch.zeros((e, dp.cap, d), dtype=x.dtype, device=x.device)
-        buf.index_put_((eid, rankc), flat[tok] * dp.keep[:, None],
-                       accumulate=True)                           # (E, C, d)
-        h = torch.bmm(buf, self.w_gate)
-        hu = torch.bmm(buf, self.w_up)
-        out_buf = torch.bmm(F.silu(h) * hu, self.w_down)
-        gathered = out_buf[eid, rankc] \
-            * (dp.keep * dp.topw.reshape(-1).to(x.dtype))[:, None]
-        out = gathered.reshape(n, k, d).sum(1)
-        if self.shared is not None:
-            out = out + self.shared(flat)
-        # switch-style aux loss: E * sum_e fraction_tokens_e * mean_prob_e
-        frac = one_hot(dp.topi[:, 0], e, torch.float32).mean(0)
-        aux = e * (frac * dp.probs.mean(0)).sum()
-        return out.reshape(b, t, d), aux.to(x.dtype)
+        xs = x.reshape(1, b * t, d)
+        dp = self.dispatch(xs, self.spec.router, self.spec.n_experts)
+        out = self.experts(xs, dp)
+        return out.reshape(b, t, d), switch_aux(dp)[0].to(x.dtype)
+
+
+def moe_apply_ep(moe: MoE, x: torch.Tensor, mesh: CorpusMesh,
+                 tp_axis: str = "model"):
+    """x (B, T, d) -> (out (B, T, d), aux): :class:`MoE` with its experts
+    dealt over ``mesh``'s ``tp_axis`` (the reference's ``moe_apply_ep``).
+
+    The B * T tokens split into equal contiguous shards over the other
+    axes (the data axes; the reference's batch split where their size
+    divides B). Per position, on its device, :meth:`MoE.dispatch` routes
+    and ranks its data shard's n_loc tokens locally, with the capacity
+    ``int(cf * k * n_loc / n_real + 1)`` (so the Sinkhorn router balances
+    per data shard; top-k routing equals the single-device layer's), and
+    :meth:`MoE.experts` runs its E/tp experts and its slice of the shared
+    expert's ff dim. The positions that share a device run as one batch
+    of rows, each with its own routing, which computes what a loop over
+    them would.
+
+    One counted ``psum`` over ``tp_axis`` sums the partial outputs, and
+    each data shard's sum comes back to x's device. ``aux`` is the mean
+    over the data shards of each shard's switch loss (the reference's
+    ``lax.pmean``; equal over ``tp_axis`` already). Gradients flow
+    through the host-driven copies by autograd.
+
+    Where a position lies on another device than the weights, its expert
+    slice and shared ff slice are copied there on every call of every
+    layer: no device holds its slice resident yet, so EP over several
+    cards moves the routed weights each step."""
+    b, t, d = x.shape
+    tp = mesh.axis_size(tp_axis)
+    if moe.n_experts % tp:
+        raise ValueError(f"{moe.n_experts} experts do not split over "
+                         f"{tp_axis}={tp}")
+    n_data = mesh.size // tp
+    n = b * t
+    if n % n_data:
+        raise ValueError(f"{n} tokens do not split over {n_data} data "
+                         "shards")
+    shared = moe.shared
+    if shared is not None and shared.w_gate.shape[0] % tp:
+        raise ValueError(f"shared ff {shared.w_gate.shape[0]} does not "
+                         f"split over {tp_axis}={tp}")
+    ti = mesh.axis_names.index(tp_axis)
+    coords = mesh.coords()
+    dax = data_axes(mesh, tp_axis)
+    shards = [shard_index((dax,), mesh, c)[0] for c in coords]
+    xs_all = x.reshape(n_data, n // n_data, d)
+    parts, auxs = [None] * mesh.size, {}
+    groups: dict = {}
+    for pos, dev in enumerate(mesh.devices):
+        groups.setdefault(dev, []).append(pos)
+    for dev, poss in groups.items():
+        # by model index, so each index's positions are one slice
+        poss = sorted(poss, key=lambda p: (coords[p][ti], p))
+        ms = [coords[p][ti] for p in poss]
+        xd = xs_all.to(dev)
+        xs = torch.cat([xd[shards[p]:shards[p] + 1] for p in poss])
+        dp = moe.dispatch(xs, moe.spec.router, moe.spec.n_experts)
+        out = moe.experts(xs, dp, ms, tp)                   # (G, n_loc, d)
+        aux = switch_aux(dp)                                # (G,)
+        for i, p in enumerate(poss):
+            parts[p] = out[i]
+            if ms[i] == 0:
+                auxs[shards[p]] = aux[i]
+    parts = psum(mesh, parts, tp_axis)      # ONE collective per MoE layer
+    first = {}
+    for pos, shard in enumerate(shards):
+        first.setdefault(shard, pos)
+    out = torch.cat([parts[first[s]].to(x.device) for s in range(n_data)])
+    aux = torch.stack([auxs[s].to(x.device) for s in range(n_data)]).mean()
+    return out.reshape(b, t, d), aux.to(x.dtype)
 
 
 def moe_dropped_fraction(moe: MoE, x: torch.Tensor,

@@ -21,6 +21,12 @@ block. The reference's functions map onto :class:`Transformer`:
 ``init_params`` is its constructor, ``forward`` its ``forward``,
 ``lm_head_matrix`` / ``lm_loss`` / ``init_cache`` / ``decode_step`` its
 methods of those names.
+
+Expert parallelism: a ``mesh`` (a
+:class:`~repro_torch.runtime.sharding.CorpusMesh` with a ``model`` axis)
+given to ``forward`` / ``decode_step`` runs every MoE layer of that call
+through :func:`~repro_torch.models.moe.moe_apply_ep`, where the reference
+switches on its module global ``layers.MESH``.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from .layers import MLP, Attention, Norm, normal_param
 from .mamba2 import Mamba2, mamba2_decode
-from .moe import MoE
+from .moe import MoE, moe_apply_ep
 from .rwkv6 import RWKV6TimeMix, rwkv6_decode
 
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -91,24 +97,26 @@ class Block(nn.Module):
             self.mlp = MLP(d, cfg.d_ff, cfg.mlp, generator, device, dtype)
             self.moe = None
 
-    def _ffn(self, h: torch.Tensor):
+    def _ffn(self, h: torch.Tensor, mesh=None):
         hn = self.norm2(h)
         if self.moe is not None:
-            out, aux = self.moe(hn)
+            out, aux = (self.moe(hn) if mesh is None
+                        else moe_apply_ep(self.moe, hn, mesh))
             return h + out, aux
         return h + self.mlp(hn), h.new_zeros(())
 
-    def forward(self, h: torch.Tensor, block_k: int = 512):
-        """The reference's ``_attn_mlp_block``: (h, aux)."""
+    def forward(self, h: torch.Tensor, block_k: int = 512, mesh=None):
+        """The reference's ``_attn_mlp_block``: (h, aux); the MoE expert
+        parallel over ``mesh`` when one is given."""
         h = h + self.attn(self.norm1(h), block_k)
-        return self._ffn(h)
+        return self._ffn(h, mesh)
 
     def decode(self, h: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-               pos: int) -> torch.Tensor:
+               pos: int, mesh=None) -> torch.Tensor:
         """The reference's ``_attn_block_decode``; ck and cv are written in
         place."""
         h = h + self.attn.decode(self.norm1(h), ck, cv, pos)
-        return self._ffn(h)[0]
+        return self._ffn(h, mesh)[0]
 
 
 class RWKVBlock(nn.Module):
@@ -220,11 +228,12 @@ class Transformer(nn.Module):
         return self.embed if self.lm_head is None else self.lm_head
 
     def forward(self, tokens: torch.Tensor, block_k: int = 512,
-                remat: bool = False):
+                remat: bool = False, mesh=None):
         """tokens (B, T) -> (hidden (B, T, d) after the final norm, aux
         load-balance loss summed over the layers; zero but for the MoE).
         ``remat`` checkpoints as the reference's ``forward(remat=True)``
-        does; the result is the same either way."""
+        does; the result is the same either way. ``mesh`` runs the MoE
+        layers expert parallel."""
         h = F.embedding(tokens, self.embed)
         bk = min(block_k, tokens.shape[1])
         if self.cfg.family == "hybrid":
@@ -234,7 +243,7 @@ class Transformer(nn.Module):
         def layer(blk):
             if chunk is not None:               # rwkv6: no aux
                 return lambda h: (blk(h, chunk), h.new_zeros(()))
-            return lambda h: blk(h, bk)
+            return lambda h: blk(h, bk, mesh)
 
         def run(blks, h):
             """h through ``blks``, each checkpointed under remat: (h, the
@@ -343,15 +352,16 @@ class Transformer(nn.Module):
             cache["v"] = zeros(g, *kv)
         return cache
 
-    def decode_step(self, cache: dict, tokens: torch.Tensor):
+    def decode_step(self, cache: dict, tokens: torch.Tensor, mesh=None):
         """One-token decode. tokens (B, 1) -> (logits (B, V) fp32, cache).
-        The cache's states are written in place and ``pos`` advances."""
+        The cache's states are written in place and ``pos`` advances.
+        ``mesh`` runs the MoE layers expert parallel."""
         pos = cache["pos"]
         h = F.embedding(tokens, self.embed)
         family = self.cfg.family
         if family in ATTN_FAMILIES:
             for i, blk in enumerate(self.layers):
-                h = blk.decode(h, cache["k"][i], cache["v"][i], pos)
+                h = blk.decode(h, cache["k"][i], cache["v"][i], pos, mesh)
         elif family == "ssm":
             for i, blk in enumerate(self.layers):
                 h = blk.decode(h, cache["shift"][i], cache["wkv"][i])

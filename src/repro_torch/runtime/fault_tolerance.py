@@ -26,12 +26,15 @@ errors torch raises, and a failed launch of one of the port's kernels
 (``kernels.ops`` raises ``RuntimeError``). They are retried; nothing here
 answers from the CPU or from a kernel's plain version instead.
 
-The elastic mesh helpers of the reference module (``elastic_mesh``,
-``scaled_global_batch``) are not ported yet.
+``elastic_mesh`` and ``scaled_global_batch`` are the reference's elastic
+policy: the mesh for the live device count after failures (tensor
+parallelism fixed, the loss absorbed by the data and pod axes), and the
+global batch over the live hosts.
 """
 from __future__ import annotations
 
 import collections
+import math
 import random
 import time
 from dataclasses import dataclass, field
@@ -339,3 +342,37 @@ class ShardHealth:
             "opened": list(self.opened),
             "ema_s": {s: round(v, 6) for s, v in sorted(self._ema.items())},
         }
+
+
+def elastic_mesh(n_devices: int, model_parallel: int = 8,
+                 pod_size: int = 256, devices=None):
+    """The mesh for the LIVE device count (the survivors after failures),
+    the reference's arithmetic and axis names: tensor parallelism stays
+    ``model_parallel`` (the weights are sharded that way; resharding it is
+    the expensive path) and the loss is absorbed by the data and pod axes.
+    Past one pod, and with whole pods, ``("pod", "data", "model")``, else
+    ``("data", "model")``. ``n_devices`` must be a multiple of
+    ``model_parallel``. The default TP of 8 is one 8-GPU NVLink node (the
+    reference's 16 is a TPU pod's). Positions are dealt over ``devices``
+    as ``runtime.sharding.make_mesh`` deals them (default: the visible
+    CUDA devices; raises without one)."""
+    from repro_torch.runtime.sharding import make_mesh
+    if n_devices % model_parallel:
+        raise ValueError(f"{n_devices} devices not divisible by "
+                         f"TP={model_parallel}")
+    rest = n_devices // model_parallel
+    if n_devices > pod_size and rest % (pod_size // model_parallel) == 0:
+        return make_mesh((n_devices // pod_size, pod_size // model_parallel,
+                          model_parallel), ("pod", "data", "model"), devices)
+    return make_mesh((rest, model_parallel), ("data", "model"), devices)
+
+
+def scaled_global_batch(base_batch: int, base_hosts: int,
+                        live_hosts: int, keep_global: bool = True) -> int:
+    """Elastic batch policy: keep the global batch (the per-host batch
+    grows) or scale it with the fleet (exact per-host batch; the caller
+    rescales the learning rate)."""
+    if keep_global:
+        per = math.ceil(base_batch / live_hosts)
+        return per * live_hosts
+    return (base_batch // base_hosts) * live_hosts

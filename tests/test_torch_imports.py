@@ -1,6 +1,8 @@
 """The port stands alone: it imports no JAX and nothing of the reference
 package, its entry points refuse to fall back to the CPU, and its serve
-CLI runs on the host when asked."""
+CLI runs on the host when asked. No port test imports the reference's
+dry-run, which changes process-wide state when imported."""
+import ast
 import json
 import os
 import re
@@ -45,9 +47,10 @@ def test_port_imports_no_jax_and_no_reference_package():
               "repro_torch.optim.adamw", "repro_torch.optim.schedules",
               "repro_torch.checkpoint.checkpointer",
               "repro_torch.launch.train", "repro_torch.runtime.compression",
-              "repro_torch.data.pipeline"):
+              "repro_torch.data.pipeline", "repro_torch.launch.dryrun",
+              "repro_torch.launch.mesh", "repro_torch.runtime.analysis"):
         assert m in mods
-    assert len(mods) >= 42
+    assert len(mods) >= 45
     from repro_torch.kernels import ops
     for fn in ("bsr_sddmm", "bsr_sddmm_blocks"):
         assert callable(getattr(ops, fn))
@@ -123,3 +126,59 @@ def test_serve_cli_runs_on_cpu():
     assert rec["workload"] == "wmd_topk" and rec["device"] == "cpu"
     assert rec["top_k"] == 4 and 0 < rec["solved_frac"] <= 1
     assert np.isfinite(rec["ms_per_batch_p50"])
+
+
+DRYRUN = "repro.launch.dryrun"
+
+
+def dryrun_imports(source: str) -> list:
+    """Lines of ``source`` that import the reference's dry-run: an
+    ``import`` or ``from ... import`` statement, or an ``import_module`` /
+    ``__import__`` call naming it; text inside string literals (a script
+    run in a subprocess) is not code and is not matched."""
+    hits = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mod = node.module or ""
+            names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            names = [str(node.args[0].value)]
+        else:
+            continue
+        if any(n == DRYRUN or n.startswith(DRYRUN + ".") for n in names):
+            hits.append(node.lineno)
+    return hits
+
+
+def test_guard_finds_dryrun_imports():
+    for src in ("import repro.launch.dryrun",
+                "import repro.launch.dryrun as D",
+                "from repro.launch import dryrun",
+                "from repro.launch import mesh, dryrun as D",
+                "from repro.launch.dryrun import SHAPES",
+                "def f():\n    import repro.launch.dryrun",
+                "import importlib\n"
+                "importlib.import_module('repro.launch.dryrun')"):
+        assert dryrun_imports(src), src
+    for src in ("S = 'from repro.launch import dryrun'",
+                "S = \"\"\"\nimport repro.launch.dryrun\n\"\"\"",
+                "from repro_torch.launch import dryrun",
+                "import repro_torch.launch.dryrun",
+                "from repro.launch import mesh"):
+        assert not dryrun_imports(src), src
+
+
+def test_no_port_test_imports_the_reference_dryrun():
+    """The reference's dry-run sets XLA_FLAGS and ``layers.TP_AXIS`` when
+    imported (and ``layers.MESH`` when a cell runs): in a test process it
+    breaks every later reference LM call of that worker. Port tests read
+    it from a subprocess only."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 30
+    bad = {f.name: dryrun_imports(f.read_text()) for f in files}
+    assert not any(bad.values()), {k: v for k, v in bad.items() if v}
