@@ -79,9 +79,12 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
   5000 documents, and the dense one with N cut to 512, against the
   single-device solvers at 1e-3. Outside the runs that inject faults,
   every sharded search must cover every shard;
-- the LM decode server: the reduced models on the card against the host,
-  then qwen2_moe_a2_7b, granite_3_2b, rwkv6_3b and zamba2_7b at full
-  width (serve steps, prefill against decode);
+- the LM decode server: the reduced models of all ten archs on the card
+  against the host, then qwen2_moe_a2_7b, granite_3_2b, rwkv6_3b,
+  zamba2_7b, qwen2_5_14b and phi3_medium_14b at full width and depth, and
+  chameleon_34b, nemotron_4_340b and qwen3_moe_235b_a22b at full width
+  and the depth whose fp32 weights fit the card (serve steps, prefill
+  against decode);
 - training: the reduced granite and qwen2_moe (Sinkhorn router) train
   step on the card against the host and checkpoint save / restore /
   resume against the uninterrupted run; granite_3_2b at full width
@@ -94,6 +97,9 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
   (``Transformer`` / ``make_serve_step`` with ``mesh=``): 32 serve steps
   against the same model without a mesh (top-k, no drops; one ``psum``
   per MoE layer a step) and the Sinkhorn router's per-shard semantics;
+  the reduced qwen2_moe's weights on the host serving over positions on
+  the card (expert slices copied once, then held: no copy at the second
+  step, logits equal to the per-call copies' bit for bit);
   the reduced qwen2_moe train step with a mesh on the card against the
   host and against the non-EP gradients; the dry-run's whole meta sweep
   (``repro_torch.launch.dryrun``: 10 archs x 4 shapes x 2 meshes, the
@@ -155,7 +161,7 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models.model import (make_prefill,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models.moe import (moe_apply_ep,  # noqa: E402
-                                    moe_dropped_fraction)
+                                    moe_dropped_fraction, slice_copies)
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.model import (TrainHParams,  # noqa: E402
                                       make_train_step)
@@ -190,6 +196,12 @@ K1_CLASSES = ((32, 32), (24, 56), (56, 24), (48, 48), (64, 64))
 K4_RTOL, K4_ATOL = 5e-5, 5e-5
 # K5: one iteration, sums in another order (tests/test_kernels.py's)
 K5_RTOL, K5_ATOL = 1e-5, 1e-5
+# K5's subnormal edges: tests/test_torch_kernels.py's "subnormal" and
+# "subnormal_live" inputs (v_r, N, L) and the doc and slot whose G column
+# is subnormal; the kernel must give no NaN there and equal its plain
+# version, which takes a subnormal t as not positive (w = 0)
+K5_SUBNORMAL_SHAPE = (23, 64, 28)
+K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT = 1, 9
 # one_to_many: sparse, sparse_unfused and kernel against dense at
 # tests/test_sinkhorn.py's tolerance. The kernel impl makes M with K3,
 # which sums a.b in another order than the dense impl's cuBLAS GEMM: at
@@ -319,12 +331,26 @@ DIST_POISON_LAM = 500.0
 # their 128-token chunks, so the state carries between chunks at full width
 LM_SMALL = (("granite_3_2b", None), ("qwen2_moe_a2_7b", "sinkhorn"),
             ("qwen2_moe_a2_7b", "topk"), ("musicgen_large", None),
-            ("rwkv6_3b", None), ("zamba2_7b", None))
+            ("rwkv6_3b", None), ("zamba2_7b", None), ("qwen2_5_14b", None),
+            ("phi3_medium_14b", None), ("chameleon_34b", None),
+            ("nemotron_4_340b", None), ("qwen3_moe_235b_a22b", None))
 LM_SMALL_STEPS = 8
 LM_RTOL, LM_ATOL = 1e-4, 1e-4
 LM_BATCH, LM_STEPS, LM_PROFILE_STEPS = 4, 32, 8
 LM_PREFILL_BATCH, LM_PREFILL_LEN, LM_PREFILL_TOL = 2, 8, 2e-3
 LM_SSM_PREFILL_LEN = 256
+# the five archs the card had not run, at full width, after the four
+# above: (arch, phase, layers run). The two 14 B models at their published
+# depth; the others at the largest depth whose fp32 weights (the port's
+# n_params: embedding and head, then per layer) stay at or under ~70 GB of
+# the 80, leaving the rest to the KV cache, the logits and the workspace:
+# chameleon 4.29 + 23 x 2.77 GB of 48 layers, nemotron 37.75 + 2 x 13.82
+# of 96, qwen3_moe 4.98 + 6 x 9.95 of 94
+LM_WIDE = (("qwen2_5_14b", "lm_full_qwen2_5", 48),
+           ("phi3_medium_14b", "lm_full_phi3", 40),
+           ("chameleon_34b", "lm_wide_chameleon", 23),
+           ("nemotron_4_340b", "lm_wide_nemotron", 2),
+           ("qwen3_moe_235b_a22b", "lm_wide_qwen3_moe", 6))
 # training (no hand-written kernel: the reference's train path reaches no
 # Pallas kernel). The reduced granite and qwen2_moe (Sinkhorn router) on
 # the card against the host: one train step (metrics within
@@ -1050,6 +1076,56 @@ def k5_check(pre, x0, label: str) -> dict:
             "laid_out_tb_per_s": laid_out / (ms * 1e-3) / 1e12}
 
 
+def k5_subnormal_inputs(edge: str):
+    """tests/test_torch_kernels.py's ``_k5_inputs`` at K5_SUBNORMAL_SHAPE
+    for ``edge`` "subnormal" or "subnormal_live", drawn from that test
+    case's own seed (conftest's: adler32 of its node id): (g, G/r, val, x)
+    in numpy fp32. Each doc's live slots end at a drawn slot (with dead
+    slots inside); then the subnormal G column at K5_SUBNORMAL_DOC's
+    K5_SUBNORMAL_SLOT, dead past the doc's last live slot, or live."""
+    import zlib
+    v_r, n, length = K5_SUBNORMAL_SHAPE
+    rng = np.random.default_rng(zlib.adler32(
+        "tests/test_torch_kernels.py::test_sddmm_spmm_step_plain_matches_"
+        f"pallas[{edge}]".encode()))
+    g = np.abs(rng.standard_normal((v_r, n, length))).astype(np.float32)
+    g += 0.1
+    gor = g * 1.7
+    val = np.abs(rng.standard_normal((n, length))).astype(np.float32)
+    val = np.where(val > 0.8, val, 0.0).astype(np.float32)
+    x = (np.abs(rng.standard_normal((v_r, n))) + 0.5).astype(np.float32)
+    x[0, :4] = 0.0
+    ends = rng.integers(0, length + 1, n)
+    ends[:3] = (0, length, 1)
+    for d, e in enumerate(ends):
+        val[d, e:] = 0.0
+        if e:
+            val[d, e - 1] = 1.0 + rng.random()
+    if edge == "subnormal":
+        val[K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT - 4:] = 0.0
+    else:
+        val[K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 1.5
+    g[:, K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 1e-42
+    return g, gor, val, x
+
+
+def k5_subnormal(dev) -> dict:
+    """K5 against its plain version at the subnormal inputs: no NaN, and
+    within K5's tolerance everywhere."""
+    out = {}
+    for edge in ("subnormal", "subnormal_live"):
+        g, gor, val, x = (torch.as_tensor(a, device=dev)
+                          for a in k5_subnormal_inputs(edge))
+        got = ops.sddmm_spmm_step(g, gor, val, x)
+        want = ref.sddmm_spmm_step_ref(g, gor, val, x)
+        if torch.isnan(got).any() or torch.isnan(want).any():
+            raise AssertionError(f"K5 {edge}: NaN at a subnormal t")
+        err = compare(got, want, K5_RTOL, K5_ATOL, f"K5 {edge}")
+        out[edge] = {"shape": list(K5_SUBNORMAL_SHAPE),
+                     "max_abs_err": err[0]}
+    return out
+
+
 def phase_k5(vecs, docs, r, vecs_sel) -> dict:
     """K5 on one paper query's G and G/r from the uniform start, and on a
     200-word query's; then its path: ``CONFIG.n_iter`` steps through
@@ -1088,12 +1164,13 @@ def phase_k5(vecs, docs, r, vecs_sel) -> dict:
     wide_rec = k5_check(pre200, torch.full((200, n), 1.0 / 200,
                                            device=vecs.device), "query_200")
     del pre200
+    subnormal = k5_subnormal(vecs.device)
     rec = {"phase": "k5", "name": "sddmm_spmm_step", "lam": 1.0,
            **{k: v for k, v in paper.items() if k != "label"},
            "library_ms": None,
            "library": "none: no single PyTorch call computes an SDDMM "
                       "fused with an SpMM",
-           "query_200": wide_rec,
+           "query_200": wide_rec, "subnormal": subnormal,
            "path": {"steps": CONFIG.n_iter, "launches": launches,
                     "ms": path_ms,
                     "x_max_abs_and_rel_err_vs_sparse_loop": path_err}}
@@ -3072,7 +3149,9 @@ def phase_lm_small_parity(dev) -> None:
     import copy
     rows = []
     for arch, router in LM_SMALL:
-        host = Transformer(small_cfg(arch, router), 0, device="cpu")
+        cfg = small_cfg(arch, router)
+        router = cfg.moe.router if cfg.moe else None
+        host = Transformer(cfg, 0, device="cpu")
         card = copy.deepcopy(host).to(dev)
         with torch.inference_mode():
             th, lh, _ = lm_decode(host, LM_BATCH, LM_SMALL_STEPS)
@@ -3172,13 +3251,20 @@ def hold_prefill_decode(model, gen, length: int = LM_PREFILL_LEN) -> dict:
     cache = model.init_cache(LM_PREFILL_BATCH, length)
     dec = torch.stack([model.decode_step(cache, tokens[:, t:t + 1])[0]
                        for t in range(length)], 1)
+    # make_prefill, the entry point, against decode's last position: the
+    # (B, d) head GEMM and the (B, T, d) one above sum a d-long dot in
+    # other orders, so it is held at the prefill tolerance, not bit-near
     last = make_prefill(model)(tokens)[:, :cfg.vocab_size]
-    torch.testing.assert_close(last, full[:, -1], rtol=1e-5, atol=1e-5)
     err = (dec - full).abs()
+    err_last = (last - dec[:, -1]).abs()
     return {"batch": LM_PREFILL_BATCH, "len": length,
             "max_abs_err": float(err.max()),
+            "prefill_entry_max_abs_err": float(err_last.max()),
             "within": bool(torch.allclose(dec, full, rtol=LM_PREFILL_TOL,
-                                          atol=LM_PREFILL_TOL))}
+                                          atol=LM_PREFILL_TOL)
+                           and torch.allclose(last, dec[:, -1],
+                                              rtol=LM_PREFILL_TOL,
+                                              atol=LM_PREFILL_TOL))}
 
 
 def set_moe(model, **spec) -> dict:
@@ -3198,16 +3284,29 @@ def restore_moe(model, old: dict) -> None:
         model.layers[i].moe.spec = spec
 
 
-def phase_lm_full(dev, arch: str, phase: str, card: str) -> dict:
-    """``arch`` at full width and depth in fp32 with random weights (seed
-    0, made on the card): LM_STEPS serve steps at LM_BATCH, their p50/p99
-    and tokens per second, peak memory, the step's bound, a profiled
-    window's busy share, and prefill against decode."""
-    cfg = get_config(arch)
+def phase_lm_full(dev, arch: str, phase: str, card: str,
+                  layers: int | None = None) -> dict:
+    """``arch`` at full width in fp32 with random weights (seed 0, made on
+    the card), at its published depth or cut to ``layers``: LM_STEPS serve
+    steps at LM_BATCH, their p50/p99 and tokens per second, peak memory,
+    the step's bound, a profiled window's busy share, and prefill against
+    decode."""
+    import dataclasses
+    published = get_config(arch)
+    cfg = published
+    if layers is not None and layers != published.num_layers:
+        cfg = dataclasses.replace(published, num_layers=layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rec = {"phase": phase, "arch": arch, "nvidia_smi": card,
-           "dtype": "float32", "batch": LM_BATCH, "steps": LM_STEPS}
+           "dtype": "float32", "batch": LM_BATCH, "steps": LM_STEPS,
+           "layers": cfg.num_layers,
+           "published_layers": published.num_layers,
+           "reduced": ([] if cfg is published else
+                       [f"num_layers {published.num_layers} -> "
+                        f"{cfg.num_layers}: the fp32 weights of the "
+                        "published depth do not fit one card"]),
+           "published_n_params_config": published.n_params()}
     with torch.inference_mode():
         t0 = time.perf_counter()
         gen = torch.Generator(dev).manual_seed(0)
@@ -3288,11 +3387,72 @@ def phase_lm_full(dev, arch: str, phase: str, card: str) -> dict:
                                        if cfg.ssm else LM_PREFILL_LEN)
         rec["prefill_vs_decode"] = held
         if not held["within"]:
-            raise AssertionError(f"{phase}: prefill and decode logits "
-                                 f"differ by {held['max_abs_err']}")
+            raise AssertionError(
+                f"{phase}: prefill and decode logits differ by "
+                f"{held['max_abs_err']}, make_prefill's by "
+                f"{held['prefill_entry_max_abs_err']}")
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     del model, cache, state
     torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def phase_lm_ep_hold(dev) -> dict:
+    """The reduced qwen2_moe (its config's router) with its weights on the
+    host and its LM_EP_MESH positions on the card: LM_SMALL_STEPS serve
+    steps with grad off, where the first copies each MoE layer's slices
+    to the card once (the routed experts' and the shared expert's per
+    model index, and the router) and every later step none; then the same
+    input tokens in grad mode, which copies them on every call. The two
+    paths' logits must be equal bit for bit."""
+    cfg = small_cfg("qwen2_moe_a2_7b")
+    model = Transformer(cfg, 0, device="cpu")
+    mesh = make_mesh(*LM_EP_MESH, devices=[dev])
+    tp = mesh.axis_size("model")
+    n_moe = sum(blk.moe is not None for blk in model.layers)
+    per_layer = tp * (3 + 3 * (cfg.moe.n_shared > 0)) + 1
+    step = make_serve_step(model, mesh)
+
+    def run(inputs, mode):
+        """LM_SMALL_STEPS steps under ``mode``, greedy from token 1 or
+        fed ``inputs``: (the tokens fed, logits, slice copies a step)."""
+        cache = model.init_cache(LM_BATCH, LM_SMALL_STEPS)
+        tok = torch.ones((LM_BATCH, 1), dtype=torch.long)
+        fed, logits, copies = [], [], []
+        for t in range(LM_SMALL_STEPS):
+            if inputs is not None:
+                tok = inputs[:, t:t + 1]
+            fed.append(tok)
+            c0 = slice_copies()
+            with mode():
+                tok, lg, cache = step(cache, tok)
+            copies.append(slice_copies() - c0)
+            logits.append(lg.detach())
+        return torch.cat(fed, 1), torch.stack(logits, 1), copies
+
+    inputs, held, held_copies = run(None, torch.inference_mode)
+    _, per_call, call_copies = run(inputs, torch.enable_grad)
+    want_first = n_moe * per_layer
+    if held_copies != [want_first] + [0] * (LM_SMALL_STEPS - 1):
+        raise AssertionError(f"lm_ep_hold: slice copies a step {held_copies},"
+                             f" want {want_first} then none")
+    if set(call_copies) != {want_first}:
+        raise AssertionError(f"lm_ep_hold: grad-mode copies a step "
+                             f"{call_copies}, want {want_first} each")
+    if not torch.isfinite(held).all():
+        raise AssertionError("lm_ep_hold: non-finite logits")
+    if not torch.equal(held, per_call):
+        raise AssertionError("lm_ep_hold: held and per-call logits differ by "
+                             f"{float((held - per_call).abs().max())}")
+    rec = {"phase": "lm_ep_hold", "arch": cfg.name, "config": "reduced",
+           "router": cfg.moe.router, "weights": "cpu",
+           "mesh": mesh.describe()["shape"], "mesh_devices": str(dev),
+           "steps": LM_SMALL_STEPS, "batch": LM_BATCH,
+           "moe_layers": n_moe, "copies_per_layer_first_step": per_layer,
+           "held_copies_per_step": held_copies,
+           "grad_mode_copies_per_step": call_copies,
+           "logits_bitwise_equal": True}
     emit(rec)
     return rec
 
@@ -3879,7 +4039,7 @@ def main() -> int:
 
     # the LM decode server: reduced models on the card against the host,
     # then qwen2_moe_a2_7b (57 GB), granite_3_2b, rwkv6_3b (11 GB) and
-    # zamba2_7b (27 GB) at full width, one after the other
+    # zamba2_7b (27 GB) at full width, then LM_WIDE
     t_lm = time.perf_counter()
     phase_lm_small_parity(dev)
     smi = info["nvidia_smi"]
@@ -3887,6 +4047,9 @@ def main() -> int:
     phase_lm_full(dev, "granite_3_2b", "lm_full_dense", smi)
     phase_lm_full(dev, "rwkv6_3b", "lm_full_ssm", smi)
     phase_lm_full(dev, "zamba2_7b", "lm_full_hybrid", smi)
+    # the five archs the card had not run, one after the other
+    for arch, phase, layers in LM_WIDE:
+        phase_lm_full(dev, arch, phase, smi, layers)
     emit({"phase": "lm", "seconds": time.perf_counter() - t_lm})
 
     # training: the reduced models on the card against the host (and
@@ -3898,11 +4061,13 @@ def main() -> int:
     phase_train_moe_sinkhorn(smi)
     emit({"phase": "train", "seconds": time.perf_counter() - t_train})
 
-    # expert parallelism over a (2, 4) mesh of positions on the card, then
-    # the dry-run's meta sweep and the FLOP counter against the measured
+    # expert parallelism over a (2, 4) mesh of positions on the card (and
+    # with the weights on the host: slices held on the card), then the
+    # dry-run's meta sweep and the FLOP counter against the measured
     # granite step
     t_ep = time.perf_counter()
     phase_lm_ep(dev, smi, lm_full)
+    phase_lm_ep_hold(dev)
     phase_train_ep_small_parity(dev)
     phase_dryrun(smi, train_full)
     emit({"phase": "ep_dryrun", "seconds": time.perf_counter() - t_ep})

@@ -10,8 +10,11 @@
 //   t[l] = sum_k G[k, l] u[k]                     (SDDMM)
 //   w[l] = val[n, l] * safe_inv(t[l])              (sparse selection)
 //   x'[k, n] = sum_l GR[k, l] w[l]                 (SpMM)
-// safe_inv(z) = 1/z for z > 0, else 0: both inverses are guarded, as in
-// the reference's _step_kernel (K1 keeps a raw val/t instead).
+// safe_inv(z) = 1/z for z >= FLT_MIN, else 0: both inverses are guarded,
+// as in the reference's _step_kernel (K1 keeps a raw val/t instead), and a
+// subnormal argument counts as not positive, as the reference's fp32 flushes
+// it to zero (1/z of a subnormal z overflows to inf, and a dead slot's
+// 0 * inf would turn its doc's x' NaN).
 //
 // What bounds it on the H100: bytes. At the paper's widest query (VR = 23,
 // N = 5000, L = 28) G and G/r are 12.9 MB each, ~8 us at 3.35 TB/s; the
@@ -43,6 +46,8 @@
 //   23-row queries). Shared memory holds only w (L floats a warp), with
 //   fewer warps a block for L over 14 528.
 
+#include <cfloat>
+
 #include <cuda_runtime.h>
 
 #include "device_attr.cuh"
@@ -59,7 +64,7 @@ constexpr int kMaxSmem = 232448;   // the H100's per-block limit (227 KB)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float safe_inv(float z) {
-  return z > 0.f ? 1.f / z : 0.f;
+  return z >= FLT_MIN ? 1.f / z : 0.f;
 }
 
 // One step of the transposing butterfly: lanes on either side of bit O

@@ -17,6 +17,16 @@ def _safe_inv(x: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(x))
 
 
+def _normal_inv(x: torch.Tensor) -> torch.Tensor:
+    """K5's guarded inverse: 0 where ``x`` is below the smallest normal
+    fp32 (subnormal, zero or negative), as the reference's fp32 gives it,
+    whose subnormals flush to zero. ``_safe_inv`` of a subnormal overflows
+    to inf, and a dead slot's ``0 * inf`` is NaN."""
+    pos = x >= torch.finfo(torch.float32).tiny
+    return torch.where(pos, 1.0 / torch.where(pos, x, torch.ones_like(x)),
+                       torch.zeros_like(x))
+
+
 def operand_dtype(gemm: str):
     """The operand dtype of a ``gemm`` policy: ``torch.bfloat16`` or None
     (fp32)."""
@@ -355,10 +365,11 @@ def sddmm_spmm_step_ref(g: torch.Tensor, g_over_r: torch.Tensor,
     """Plain version of K5, one fused SDDMM_SpMM iteration: g and g_over_r
     (v_r, N, L), val (N, L), x (v_r, N) -> x' (v_r, N) with
     u = 1/x, t = sum_k G u, w = val * (1/t), x' = sum_l (G/r) w, both
-    inverses guarded (0 where the argument is not positive)."""
-    u = _safe_inv(x)
+    inverses guarded (0 where the argument is below the smallest normal
+    fp32: :func:`_normal_inv`)."""
+    u = _normal_inv(x)
     t = (g * u[:, :, None]).sum(dim=0)                         # (N, L)
-    w = val * _safe_inv(t)
+    w = val * _normal_inv(t)
     return (g_over_r * w[None]).sum(dim=2)                     # (v_r, N)
 
 

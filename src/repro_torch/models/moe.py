@@ -19,9 +19,15 @@ positions, the reference's ``shard_map`` body run once per position by
 the host: each position routes its data shard's tokens, runs its E/tp
 experts and the shared expert's ff slice, and one counted ``psum`` over
 ``model`` combines the partial outputs.
+
+A position on another device than the weights gets its slices (the routed
+experts', the shared expert's ff slice, the router weight) through
+:meth:`MoE.held`: with grad off, copied there once and held until the
+source changes; in grad mode, moved on every call.
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -33,6 +39,28 @@ from repro_torch.core.router import route
 from repro_torch.runtime.sharding import (CorpusMesh, data_axes, psum,
                                           shard_index)
 from .layers import MLP, normal_param
+
+
+_SLICE_COPIES = [0]
+
+
+def slice_copies() -> int:
+    """Weight slices copied to another device by :func:`_to` so far."""
+    return _SLICE_COPIES[0]
+
+
+def _moves(w: torch.Tensor, dev: torch.device) -> bool:
+    """Whether ``w`` must be copied to reach ``dev``."""
+    return w.device != dev
+
+
+def _to(w: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``w`` on ``dev``: itself where it lies there, else a copy (counted
+    by :func:`slice_copies`). The one place an MoE slice moves."""
+    if not _moves(w, dev):
+        return w
+    _SLICE_COPIES[0] += 1
+    return w.to(dev, copy=True)
 
 
 def padded_experts(n_experts: int, tp: int) -> int:
@@ -111,6 +139,37 @@ class MoE(nn.Module):
         self.w_down = normal_param((e, f, d_model), s_out, **kw)
         self.shared = (MLP(d_model, spec.n_shared * f, "swiglu", **kw)
                        if spec.n_shared > 0 else None)
+        self._held: dict = {}
+        self.register_load_state_dict_post_hook(
+            lambda mod, _: mod._held.clear())
+
+    def held(self, w: torch.Tensor, sel, dev: torch.device,
+             key: tuple) -> torch.Tensor:
+        """``w[sel]`` on ``dev`` (:func:`_to`). On the weights' own device
+        it is a view, and with grad on a copy made on every call, so
+        gradients flow back through it; neither is held. With grad off, a
+        copy to another device is held per (``dev``, ``key``), ``key``
+        naming the slice as (name, model index, tp), and reused while
+        ``w`` is the same tensor at the same version and storage: an
+        in-place update (AdamW), a reassigned parameter, a move of the
+        module or a ``load_state_dict`` makes a fresh one at the next
+        call. A device holds one tp's slices: a key of another tp drops
+        the device's others. Only a weak reference to ``w`` is kept. An
+        inference tensor (a model built under ``torch.inference_mode()``,
+        as the server builds it) tracks no version, and neither does a
+        write through ``.data``: the caller must not write such weights in
+        place other than by ``load_state_dict``."""
+        if torch.is_grad_enabled() or not _moves(w, dev):
+            return _to(w[sel], dev)
+        stamp = (None if w.is_inference() else w._version, w.data_ptr())
+        hit = self._held.get((dev, key))
+        if hit is None or hit[0]() is not w or hit[1] != stamp:
+            for old in [k for k in self._held
+                        if k[0] == dev and k[1][-1] != key[-1]]:
+                del self._held[old]
+            hit = self._held[dev, key] = (weakref.ref(w), stamp,
+                                          _to(w[sel], dev))
+        return hit[2]
 
     @property
     def n_experts(self) -> int:
@@ -118,13 +177,16 @@ class MoE(nn.Module):
         return self.router.shape[0]
 
     def dispatch(self, xs: torch.Tensor, router_kind: str,
-                 n_real: int | None) -> Dispatch:
+                 n_real: int | None, tp: int = 1) -> Dispatch:
         """Route n tokens xs (..., n, d), each leading index on its own:
-        probabilities, the top k, ranks, drops, and the capacity of n."""
+        probabilities, the top k, ranks, drops, and the capacity of n;
+        ``tp`` is the mesh's model axis, which keys the held router."""
         sp = self.spec
         n, e = xs.shape[-2], self.n_experts
         cap = capacity(n, sp.top_k, e, sp.capacity_factor, n_real)
-        logits = F.linear(xs, self.router.to(xs.device)).float()
+        logits = F.linear(xs, self.held(self.router, slice(None),
+                                        xs.device, ("router", 0, tp))
+                          ).float()
         probs = route(logits, router_kind, n_iter=sp.router_iters,
                       n_real=n_real)                          # (..., n, E)
         topw, topi = top_k_stable(probs, sp.top_k)            # (..., n, k)
@@ -142,8 +204,9 @@ class MoE(nn.Module):
         slice of its ff dim. At tp > 1 each row is so a partial sum over
         the model axis. ``ms`` is sorted, so an index's rows are one slice
         and its experts one ``bmm`` per projection over their buffers.
-        The weights are slices of the stacked ones, moved to xs's device:
-        views on their own device, a copy per call on any other."""
+        The weights are slices of the stacked ones on xs's device
+        (:meth:`held`): views on their own device, a copy on any other,
+        held across calls with grad off."""
         g, n, d = xs.shape
         k, dev = self.spec.top_k, xs.device
         e_loc = self.n_experts // tp
@@ -163,9 +226,12 @@ class MoE(nn.Module):
             ex = slice(m * e_loc, (m + 1) * e_loc)
             my = buf[lo:hi, ex].transpose(0, 1).reshape(
                 e_loc, (hi - lo) * dp.cap, d)
-            h = torch.bmm(my, self.w_gate[ex].to(dev))
-            hu = torch.bmm(my, self.w_up[ex].to(dev))
-            ob = torch.bmm(F.silu(h) * hu, self.w_down[ex].to(dev)) \
+            wg, wu, wd = (self.held(getattr(self, nm), ex, dev,
+                                    (nm, m, tp))
+                          for nm in ("w_gate", "w_up", "w_down"))
+            h = torch.bmm(my, wg)
+            hu = torch.bmm(my, wu)
+            ob = torch.bmm(F.silu(h) * hu, wd) \
                 .reshape(e_loc, hi - lo, dp.cap, d).transpose(0, 1)
             if tp > 1:                  # another index's experts add 0
                 rel = eid[lo:hi] - m * e_loc
@@ -176,15 +242,17 @@ class MoE(nn.Module):
             else:
                 got = ob[gi, eid, rankc]
             out = (got * wt[lo:hi]).reshape(hi - lo, n, k, d).sum(2)
-            if self.shared is not None:
-                sh = self.shared
+            sh = self.shared
+            if sh is not None:
                 f_loc = sh.w_gate.shape[0] // tp
                 fs = slice(m * f_loc, (m + 1) * f_loc)
+                sg = self.held(sh.w_gate, fs, dev, ("shared.w_gate", m, tp))
+                su = self.held(sh.w_up, fs, dev, ("shared.w_up", m, tp))
+                sd = self.held(sh.w_down, (slice(None), fs), dev,
+                               ("shared.w_down", m, tp))
                 x = xs[lo:hi]
-                out = out + F.linear(
-                    F.silu(F.linear(x, sh.w_gate[fs].to(dev)))
-                    * F.linear(x, sh.w_up[fs].to(dev)),
-                    sh.w_down[:, fs].to(dev))
+                out = out + F.linear(F.silu(F.linear(x, sg))
+                                     * F.linear(x, su), sd)
             outs.append(out)
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -222,9 +290,14 @@ def moe_apply_ep(moe: MoE, x: torch.Tensor, mesh: CorpusMesh,
     through the host-driven copies by autograd.
 
     Where a position lies on another device than the weights, its expert
-    slice and shared ff slice are copied there on every call of every
-    layer: no device holds its slice resident yet, so EP over several
-    cards moves the routed weights each step."""
+    slice, shared ff slice and the router weight are copied there by
+    :meth:`MoE.held`. With grad off (serving, ``torch.inference_mode()``)
+    each device holds each slice once, from the first call that places
+    it there until its source changes, so later steps move no weights.
+    In grad mode (training) the copies are made on every call of every
+    layer, so that autograd carries each one's gradient back to the
+    stacked weights: EP training over several cards still moves the
+    routed weights each step."""
     b, t, d = x.shape
     tp = mesh.axis_size(tp_axis)
     if moe.n_experts % tp:
@@ -254,7 +327,7 @@ def moe_apply_ep(moe: MoE, x: torch.Tensor, mesh: CorpusMesh,
         ms = [coords[p][ti] for p in poss]
         xd = xs_all.to(dev)
         xs = torch.cat([xd[shards[p]:shards[p] + 1] for p in poss])
-        dp = moe.dispatch(xs, moe.spec.router, moe.spec.n_experts)
+        dp = moe.dispatch(xs, moe.spec.router, moe.spec.n_experts, tp)
         out = moe.experts(xs, dp, ms, tp)                   # (G, n_loc, d)
         aux = switch_aux(dp)                                # (G,)
         for i, p in enumerate(poss):

@@ -452,8 +452,10 @@ def test_sinkhorn_fused_all_padded_rows_and_docs_are_inert(rng,
 
 
 # ------------------------------------------------- K5 sddmm_spmm_step
-# the dead slot whose G column is subnormal (edge "subnormal"): t ~ 1e-41,
-# so 1/t overflows to inf and w = 0 * inf = NaN there
+# the slot whose G column is subnormal (edges "subnormal", dead, and
+# "subnormal_live", live): t ~ 1e-41, below the smallest normal fp32, so
+# K5's guard gives 1/t = 0 and w = 0 there, as the reference's flushed fp32
+# does (unguarded, 1/t overflows to inf: 0 * inf = NaN at the dead slot)
 K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT = 1, 9
 
 
@@ -462,8 +464,9 @@ def _k5_inputs(rng, v_r, n, length, edge):
     live slots end at a slot drawn from 0 (all-pad) to L, with dead slots
     inside; "x_zero": whole rows and columns of x are 0 (u = 0);
     "subnormal": "last_live", and one dead slot past a doc's last live
-    one has a subnormal G column; "gr_inf": "last_live", and one G/r entry
-    at doc 2's dead last slot is inf (inf * w = inf * 0 = NaN)."""
+    one has a subnormal G column; "subnormal_live": that slot is live
+    (val > 0); "gr_inf": "last_live", and one G/r entry at doc 2's dead
+    last slot is inf (inf * w = inf * 0 = NaN)."""
     g = np.abs(rng.standard_normal((v_r, n, length))).astype(np.float32)
     g += 0.1
     gor = g * 1.7
@@ -471,7 +474,7 @@ def _k5_inputs(rng, v_r, n, length, edge):
     val = np.where(val > 0.8, val, 0.0).astype(np.float32)
     x = (np.abs(rng.standard_normal((v_r, n))) + 0.5).astype(np.float32)
     x[0, :4] = 0.0                                    # guarded 1/x
-    if edge in ("last_live", "subnormal", "gr_inf"):
+    if edge in ("last_live", "subnormal", "subnormal_live", "gr_inf"):
         ends = rng.integers(0, length + 1, n)
         ends[:3] = (0, length, 1)
         for d, e in enumerate(ends):
@@ -484,6 +487,9 @@ def _k5_inputs(rng, v_r, n, length, edge):
         x[rng.random((v_r, n)) < 0.1] = 0.0
     if edge == "subnormal":
         val[K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT - 4:] = 0.0
+        g[:, K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 1e-42
+    if edge == "subnormal_live":
+        val[K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 1.5
         g[:, K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 1e-42
     if edge == "gr_inf":
         val[2, length - 1] = 0.0
@@ -503,34 +509,57 @@ def _k5_inputs(rng, v_r, n, length, edge):
     pytest.param(70, 64, 36, "last_live", id="vr70_l36"),
     pytest.param(23, 64, 28, "x_zero", id="x_zero"),
     pytest.param(23, 64, 28, "subnormal", id="subnormal"),
+    pytest.param(23, 64, 28, "subnormal_live", id="subnormal_live"),
     pytest.param(23, 64, 28, "gr_inf", id="gr_inf")])
 def test_sddmm_spmm_step_plain_matches_pallas(rng, v_r, n, length, edge):
     """K5's plain version against the Pallas kernel in interpret mode, on
     the edges of the card kernel's design: the last live slot anywhere
     from 0 to L, L no multiple of 4 or over 32 (slot classes), v_r over
     32 and over 64 (row chunks of 32), zero x, an inf G/r entry at a
-    dead slot (NaN in both, at that entry alone). With a subnormal dead G
-    column the plain version gives NaN in that doc, as the card does; XLA
-    on the CPU flushes the subnormal products to 0 (ROADMAP queue 3, P2),
-    so there the Pallas kernel equals the plain version on the flushed
-    column."""
+    dead slot (NaN in both, at that entry alone), and a subnormal G
+    column at a dead and at a live slot: XLA on the CPU flushes the
+    subnormal products to 0, and the plain version's guard takes a
+    subnormal t as not positive, so both give w = 0 there and no NaN, on
+    the same unflushed inputs."""
     g, gor, val, x = _k5_inputs(rng, v_r, n, length, edge)
     got = ops.sddmm_spmm_step(*_t(g, gor, val, x)).numpy()
     want = np.asarray(ref_ops.sddmm_spmm_step(
         *map(jnp.asarray, (g, gor, val, x)), block_n=32, interpret=True))
-    if edge == "subnormal":
-        nan = np.zeros_like(got, dtype=bool)
-        nan[:, K5_SUBNORMAL_DOC] = True
-        np.testing.assert_array_equal(np.isnan(got), nan)
-        np.testing.assert_allclose(got[~nan], want[~nan], **K5_TOL)
-        g[:, K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 0.0
-        got = ops.sddmm_spmm_step(*_t(g, gor, val, x)).numpy()
+    if edge in ("subnormal", "subnormal_live"):
+        assert not np.isnan(got).any() and not np.isnan(want).any()
+        # w = 0 at the subnormal column: x' as with that slot dead and G 0
+        flushed = (g.copy(), val.copy())
+        flushed[0][:, K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 0.0
+        flushed[1][K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT] = 0.0
+        np.testing.assert_array_equal(got, ops.sddmm_spmm_step(
+            *_t(flushed[0], gor, flushed[1], x)).numpy())
     if edge == "gr_inf":
         nan = np.zeros_like(got, dtype=bool)
         nan[3, 2] = True
         np.testing.assert_array_equal(np.isnan(want), nan)
         np.testing.assert_array_equal(np.isnan(got), nan)
     np.testing.assert_allclose(got, want, **K5_TOL)
+
+
+@pytest.mark.parametrize("edge", ["subnormal", "subnormal_live"])
+def test_chip_smoke_k5_subnormal_inputs_are_this_files(edge):
+    """chip_smoke.py holds the card's K5 against its plain version at the
+    inputs of the subnormal cases above, drawn from their seeds."""
+    import sys
+    import zlib
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    rng = np.random.default_rng(zlib.adler32(
+        "tests/test_torch_kernels.py::test_sddmm_spmm_step_plain_matches_"
+        f"pallas[{edge}]".encode()))
+    want = _k5_inputs(rng, *chip_smoke.K5_SUBNORMAL_SHAPE, edge)
+    got = chip_smoke.k5_subnormal_inputs(edge)
+    assert (chip_smoke.K5_SUBNORMAL_DOC, chip_smoke.K5_SUBNORMAL_SLOT) == (
+        K5_SUBNORMAL_DOC, K5_SUBNORMAL_SLOT)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
 
 
 # ------------------------------------------------ the kernel path (K3 -> K4)
