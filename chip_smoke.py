@@ -33,7 +33,7 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
 - K1 at the main path's chunk and the paper's widest with its fixed cost
   (``n_iter`` 0 and 1) and the inert docs' share, and in every tile
   class up to 64 x 64; K2 beside cuBLAS SGEMM of the same product (also
-  at 128 queries, two launches); and K1's shared-memory against its
+  at 128 queries, one launch); and K1's shared-memory against its
   device-memory variant on each side of the tile where ``auto`` switches
   between them (``--k1-crossover-sweep``: across eight tiles from 96 x 28
   to 192 x 192);
@@ -1363,7 +1363,7 @@ def phase_profile_one_to_many(corpus, dev, reps: int = 5) -> None:
 class CapturingCascade(CascadePruner):
     """The cascade as a user would pass it to ``search``, recording the
     inputs of each of its K2s calls: the (sup, mask) of the staging and
-    the padded candidate vocabulary of the RWMD stage."""
+    the candidate vocabulary of the RWMD stage."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -1378,7 +1378,8 @@ class CapturingCascade(CascadePruner):
 
 
 def phase_k2s(index, sup, mask, vids, label: str) -> dict:
-    """K2s against its plain version on one (sup, mask, vocab_ids)."""
+    """K2s against its plain version on one (sup, mask, vocab_ids), with
+    the route its launcher takes there."""
     a = index.vecs[sup]
     b = index.vecs
 
@@ -1399,8 +1400,8 @@ def phase_k2s(index, sup, mask, vids, label: str) -> dict:
     n_rows = int(torch.unique(vids).numel())
     live_rows = float(mask.sum())
     # what this run's data needs: the live support rows of a, each distinct
-    # vocabulary row once (the padded tail repeats vids[0]), the ids, and
-    # the (Q, Vc) output; the product over the distinct rows
+    # vocabulary row once, the ids, and the (Q, Vc) output; the product
+    # over the distinct rows
     n_bytes = (4.0 * (live_rows * w + mask.numel() + n_rows * w + q * vc)
                + 8.0 * vc)
     n_flops = 2.0 * live_rows * w * n_rows + 2.0 * (n_rows + live_rows) * w
@@ -1408,7 +1409,9 @@ def phase_k2s(index, sup, mask, vids, label: str) -> dict:
     rec = {"phase": "k2s", "name": "rwmd_min_cdist_subset", "inputs": label,
            "shape": {"Q": q, "B": bq, "w": w, "V": b.shape[0], "Vc": vc,
                      "distinct_rows": n_rows, "live_rows": int(live_rows),
+                     "live_per_query": [int(x) for x in mask.sum(dim=1)],
                      "masked_queries": errs.pop("masked_queries")},
+           "subset_route": ops.rwmd_subset_route(q, bq, vc),
            **errs, "ms": time_ms(kernel), "launch_ms": launch_ms(kernel),
            "plain_ms": time_ms(plain, reps=5, warmup=1),
            "bound_ms": bms, "bound_by": by, "library_ms": None,
@@ -2849,6 +2852,7 @@ def phase_shards(corpus, index, card: str) -> dict:
                 ix, [qs], f"shards_S{n}_shard{si}")
         rec["shards"][str(n)] = srec
     rec["k2s_checked"] = {key: {"shape": r["shape"],
+                                "subset_route": r["subset_route"],
                                 "max_abs_err": r["max_abs_err"],
                                 "ms": r["ms"]} for key, r in k2s.items()}
     two = engines[2]
@@ -2861,8 +2865,7 @@ def phase_shards(corpus, index, card: str) -> dict:
         prof["device_idle_share"] = 1.0 - out[3] / out[0]
     rec["profile_2_shards"] = prof
     emit(rec)
-    return {"record": rec, "engines": engines, "base": base,
-            "k2s": k2s["single"]}
+    return {"record": rec, "engines": engines, "base": base, "k2s": k2s}
 
 
 def phase_shard_snapshot(corpus, engine, card: str) -> dict:
@@ -3976,6 +3979,12 @@ def main() -> int:
     phase_einsum(corpus, index)
     phase_profile(corpus, index, impl="sparse")
     phase_kcache(corpus, index)
+    # more queries than one stacked block serves (64), still one launch,
+    # against as many candidate words as the 10-query stage has
+    sup, _, mask = paper_chunk(index.vocab_size, dev, q=128, seed=6)
+    vids = torch.as_tensor(np.sort(np.random.default_rng(7).choice(
+        index.vocab_size, 53_862, replace=False)), device=dev)
+    k2s_128 = phase_k2s(index, sup, mask, vids, "queries_128")
     smi = info["nvidia_smi"]
     t_serve = time.perf_counter()
     # K2s at the shapes serving gives it on this corpus: one query a
@@ -3991,7 +4000,9 @@ def main() -> int:
     t_shards = time.perf_counter()
     shards = phase_shards(corpus, index, smi)
     two = shards["engines"][2]
-    k2s_shards = shards["k2s"]
+    k2s_shards = shards["k2s"]["single"]
+    k2s_shard_stages = {key: r for key, r in shards["k2s"].items()
+                        if key != "single"}
     shard_k2s_launches = {
         n: srec["prunes"][SHARD_PRUNES[0]]["launches"]["summed"][
             "rwmd_min_cdist_subset"]
@@ -4024,7 +4035,7 @@ def main() -> int:
                                seed=3)
     vids = torch.as_tensor(np.random.default_rng(5).choice(
         dindex.vocab_size, 2048, replace=False), device=dev)
-    phase_k2s(dindex, sup, mask, vids, "wide_200")
+    k2s_wide = phase_k2s(dindex, sup, mask, vids, "wide_200")
     casc = phase_cascade(dedup, dindex, build_s)
     phase_profile_cascade(dedup, dindex)
     phase_k1_adaptive(dindex, *main_path_chunk(dedup, dindex), "dedup_chunk")
@@ -4108,13 +4119,15 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "launch_ms", "plain_ms", "bound_ms",
             "bound_by")
     kernels[1]["fp32_lam1"] = {key: k1_lin[key] for key in keys}
+    # the kernel K2s's launcher picks at each shape
+    kernels[5]["subset_route"] = k2s["subset_route"]
     # K2s at the widest RWMD stage of a one-query search of the paper
     # corpus (what a served request runs); its launches: the light-load
     # serving run's
     light = serve["runs"]["0.25C1"]
     kernels[5]["serve_one_query"] = {
         **{key: k2s_serve[key] for key in keys}, "shape": k2s_serve["shape"],
-        "library_ms": None,
+        "subset_route": k2s_serve["subset_route"], "library_ms": None,
         "launches": light["launches"]["rwmd_min_cdist_subset"],
         "launches_per_dispatch":
             light["launches_per_dispatch"]["rwmd_min_cdist_subset"]}
@@ -4123,8 +4136,22 @@ def main() -> int:
     # held in phase shards); its launches: per sharded search, by S
     kernels[5]["shards_paper_queries"] = {
         **{key: k2s_shards[key] for key in keys},
-        "shape": k2s_shards["shape"], "library_ms": None,
+        "shape": k2s_shards["shape"],
+        "subset_route": k2s_shards["subset_route"],
+        "library_ms": None,
         "launches_per_sharded_search": shard_k2s_launches}
+    # K2s at every shard's widest RWMD stage (S = 1, 2, 4), at 128 queries,
+    # and at queries wider than one group of 128 support rows
+    kernels[5]["shard_stages"] = {
+        key: {**{k: r[k] for k in keys}, "shape": r["shape"],
+              "subset_route": r["subset_route"], "library_ms": None}
+        for key, r in k2s_shard_stages.items()}
+    kernels[5]["queries_128"] = {
+        **{key: k2s_128[key] for key in keys}, "shape": k2s_128["shape"],
+        "subset_route": k2s_128["subset_route"], "library_ms": None}
+    kernels[5]["wide_200"] = {
+        **{key: k2s_wide[key] for key in keys}, "shape": k2s_wide["shape"],
+        "subset_route": k2s_wide["subset_route"], "library_ms": None}
     # K2's product alone on cuBLAS SGEMM as a yardstick
     kernels[0]["sgemm_ms"] = k2["sgemm_ms"]
     kernels[2]["full"] = {key: k3[0][key] for key in keys}

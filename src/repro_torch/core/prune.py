@@ -484,11 +484,13 @@ class CascadePruner:
     def _rwmd_vocab(index, ids_pad, n_real):
         """Host staging of the RWMD subset, numpy as in the reference:
         gather the candidate rows of the host mirror and map their word ids
-        into the compact candidate vocabulary. Returns (vids_pad (Vc_pad,)
-        int64, rel (Sp, L), val (Sp, L)) or None when the subset has no
-        live word. The reference pads the candidate vocabulary to a power
-        of two (>= 128) repeating vids[0]; the padded columns are computed
-        and never gathered. Kept so both packages run the same shapes."""
+        into the compact candidate vocabulary. Returns (vids (Vc,) int64,
+        the distinct live words in increasing order, rel (Sp, L), val (Sp,
+        L)) or None when the subset has no live word. The reference pads
+        the candidate vocabulary to a power of two (>= 128) repeating
+        vids[0]; those columns are computed and never gathered, so K2s here
+        gets Vc unpadded: the bounds are the same, with up to half the
+        columns fewer."""
         idx = index.docs_host.idx[ids_pad]
         val = index.docs_host.val[ids_pad].copy()
         val[n_real:] = 0.0                    # pad rows out of the vocab
@@ -506,22 +508,21 @@ class CascadePruner:
                              f"[0, {index.vocab_size})")
         rel = np.searchsorted(vids, idx).astype(np.int32)
         rel[~live] = 0
-        vids_pad = _pad_pow2_ids(vids, min_size=128).astype(np.int64)
-        vids_pad[vids.size:] = vids[0]
-        return vids_pad, rel, val
+        return vids.astype(np.int64), rel, val
 
     def _rwmd_prep(self, index, sup, mask, ids_pad, n_real):
         """The RWMD subset stage's producer: :meth:`_rwmd_vocab`, then K2s
         on the candidate vocabulary's embedding rows only, so the (Q*B, V)
-        block shrinks to (Q*B, Vc). Returns (minm device (Qp, Vc_pad), rel
-        np, val np) or None when the subset has no live word."""
+        block shrinks to (Q*B, Vc), Vc the distinct live words. Returns
+        (minm device (Qp, Vc), rel np, val np) or None when the subset has
+        no live word."""
         staged = self._rwmd_vocab(index, ids_pad, n_real)
         if staged is None:
             return None
-        vids_pad, rel, val = staged
+        vids, rel, val = staged
         minm = ops.rwmd_min_cdist(
             index.vecs[sup], mask, index.vecs,
-            vocab_ids=torch.as_tensor(vids_pad, device=index.device))
+            vocab_ids=torch.as_tensor(vids, device=index.device))
         return minm, rel, val
 
     def _rwmd_subset(self, index, sup, mask, ids_pad, n_real, qmask):

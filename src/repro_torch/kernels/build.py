@@ -97,6 +97,8 @@ def load() -> ctypes.CDLL:
     lib.rwmd_min_cdist_subset_launch.argtypes = [p, p, p, p, p, i, i, i, i,
                                                  i, p]
     lib.rwmd_min_cdist_subset_launch.restype = i
+    lib.rwmd_min_cdist_subset_stacked.argtypes = [i, i, i]
+    lib.rwmd_min_cdist_subset_stacked.restype = i
     lib.sinkhorn_fused_batched_launch.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, f, i, i, f, i, i, i, p]
     lib.sinkhorn_fused_batched_launch.restype = i

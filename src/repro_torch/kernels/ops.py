@@ -7,9 +7,9 @@ tensors' device (made the calling thread's current device for the launch:
 the sharded engine launches from pool threads, possibly for shards on
 different cards) and that device's current stream, raises if the launch
 failed, and adds one to its ``launches`` counter for each kernel launch
-(``rwmd_min_cdist`` once per 64 queries, the others once per call;
-``bsr_sddmm`` counts its launch under ``bsr_sddmm_blocks``). The library
-load and the counters are safe under threads. A tensor on the CPU goes to
+(one per call; ``bsr_sddmm`` counts its launch under
+``bsr_sddmm_blocks``). The library load and the counters are safe under
+threads. A tensor on the CPU goes to
 the plain version in :mod:`.ref` instead (and does not count); a CUDA
 tensor always launches the kernel — there is no fallback.
 """
@@ -24,8 +24,8 @@ from . import ref
 
 # per-block dynamic shared memory limit of the H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
-# queries per launch of the stacked K2 (kStMaxQ in rwmd_min_cdist.cu); more
-# queries run as one launch per slice
+# queries a block of the stacked K2 serves (kStMaxQ in rwmd_min_cdist.cu);
+# more queries take more blocks of the same launch
 RWMD_STACKED_MAX_Q = 64
 
 _LIB = None
@@ -100,9 +100,9 @@ def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
                    vocab_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Masked min-over-support cdist (the RWMD prune stage).
     a (Q, B, w), mask (Q, B), b (V, w) -> minM (Q, V); all-masked rows
-    come out +inf. On the card one launch per RWMD_STACKED_MAX_Q queries:
-    a block per vocabulary tile serves every live row of its queries, so
-    b is read once per launch.
+    come out +inf. On the card one launch at any Q: a block per
+    (vocabulary tile, RWMD_STACKED_MAX_Q queries) serves every live row of
+    its queries, so b is read once per RWMD_STACKED_MAX_Q queries.
 
     ``vocab_ids`` (Vc,) int64 switches to K2s
     (:func:`rwmd_min_cdist_subset`): only those rows of b, and the result
@@ -118,7 +118,8 @@ def rwmd_min_cdist(a: torch.Tensor, mask: torch.Tensor, b: torch.Tensor,
     out = torch.empty((q, v), dtype=torch.float32, device=dev)
     _launch(dev, "rwmd_min_cdist", _lib().rwmd_min_cdist_launch,
             _ptr(a), _ptr(mask), _ptr(b), _ptr(out), q, bq, w, v)
-    _count(rwmd_min_cdist, -(-q // RWMD_STACKED_MAX_Q))
+    if q and v:
+        _count(rwmd_min_cdist)
     return out
 
 
@@ -132,7 +133,10 @@ def rwmd_min_cdist_subset(a: torch.Tensor, mask: torch.Tensor,
     ``b[vocab_ids]`` only. a (Q, B, w), mask (Q, B), b (V, w), vocab_ids
     (Vc,) int64 with every id in [0, V) -> (Q, Vc) in ``vocab_ids`` order.
     The kernel gathers the rows in its load; no (Vc, w) copy is made. Vc
-    needs no padding. One launch at any B and Vc (at most 65535 queries).
+    needs no padding. One launch at any B and Vc (at most 65535 queries):
+    wide Vc takes K2's stacked kernel over the gathered rows, narrow Vc a
+    block per (query, 32 columns); rwmd_min_cdist.cu's subset_stacked()
+    picks.
     On the CPU an id outside [0, V) raises ``ValueError``; the card does
     not check them (that would cost a sync per launch), so a caller on the
     card checks its ids on the host, as the cascade does."""
@@ -156,6 +160,15 @@ def rwmd_min_cdist_subset(a: torch.Tensor, mask: torch.Tensor,
 
 
 rwmd_min_cdist_subset.launches = 0
+
+
+def rwmd_subset_route(q: int, b: int, vc: int) -> str:
+    """The kernel a K2s call of q queries of b support rows against vc
+    candidate words launches on the card: ``"stacked"`` (K2's kernel over
+    the gathered rows) or ``"per_query"`` (a block per query and 32
+    columns). Asked of the built library's routing rule."""
+    return ("stacked" if _lib().rwmd_min_cdist_subset_stacked(q, b, vc)
+            else "per_query")
 
 
 def cdist_exp(a: torch.Tensor, b: torch.Tensor, r: torch.Tensor,

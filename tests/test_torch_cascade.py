@@ -365,6 +365,43 @@ def test_cascade_rwmd_stage_rejects_out_of_vocab_ids(dedup, own_engine):
     assert CascadePruner._rwmd_vocab(own_engine.index, sp, 2) is not None
 
 
+def test_rwmd_stage_vocab_unpadded_matches_reference(parity, carried):
+    """The cascade hands K2s the distinct live words of its candidates,
+    unpadded (the reference pads them to a power of two of at least 128,
+    repeating the first), and the rwmd stage's bounds and the
+    "ivf+wcd+rwmd" top-k still equal the reference's, at PARITY's
+    tolerance for the dedup corpus."""
+    _, lam, n_iter, k, tol = PARITY["dedup_lam1"]
+    qs, index, ref_res = parity["dedup_lam1"]
+    ref_index, _ = carried
+    eng = WmdEngine(index, lam=lam, n_iter=n_iter)
+    sup, r, mask = _staged(eng, qs)
+    rsup, rr, rmask = _staged(RefEngine(ref_index, lam=lam, n_iter=n_iter,
+                                        impl="sparse"), qs)
+    np.testing.assert_array_equal(sup.numpy(), np.asarray(rsup))
+    ids = np.arange(0, index.n_docs, 3, dtype=np.int32)
+    sp = _pad_pow2_ids(ids)
+    casc, ref_casc = CascadePruner(), ref_resolve_pruner("ivf+wcd+rwmd")
+    docs = index.docs_host
+    words = np.unique(docs.idx[ids][docs.val[ids] > 0])
+    minm = casc._rwmd_prep(index, sup, mask, sp, ids.size)[0]
+    ref_minm = np.asarray(ref_casc._rwmd_prep(ref_index, rsup, rmask, sp,
+                                              ids.size)[0])
+    assert minm.shape == (sup.shape[0], words.size)
+    assert ref_minm.shape[1] > words.size      # the reference's padding
+    np.testing.assert_allclose(minm.numpy(), ref_minm[:, :words.size],
+                               **tol)
+    qm = casc.id_qmask(index, None, sp, ids.size, qp=sup.shape[0])
+    lb = casc.stage_bounds("rwmd", index, sup, r, mask, sp, ids.size, qm)
+    ref_qm = ref_casc.id_qmask(ref_index, None, sp, ids.size,
+                               qp=rsup.shape[0])
+    ref_lb = ref_casc.stage_bounds("rwmd", ref_index, rsup, rr, rmask, sp,
+                                   ids.size, ref_qm)
+    np.testing.assert_allclose(lb.numpy(), np.asarray(ref_lb), **tol)
+    _hold(eng.search(qs, k, prune="ivf+wcd+rwmd"),
+          ref_res["ivf+wcd+rwmd", None], eng, qs, tol)
+
+
 def test_resolve_cascade_specs():
     p = resolve_pruner("ivf+wcd+rwmd", nprobe=3)
     assert isinstance(p, CascadePruner)

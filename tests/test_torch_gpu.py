@@ -255,36 +255,68 @@ def test_one_to_many_on_card_matches_host(impl):
         torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
 
 
+# K2s cases: (q, b, vc, w, filler queries, live rows per query or None for
+# a random 70%); ROUTE_TILES: the 128-column tiles from which K2s takes
+# the stacked kernel at q=4, b=24 (rwmd_min_cdist.cu's subset_stacked:
+# q * tiles >= kStRouteTiles = 112 per group of 128 support rows)
+ROUTE_TILES = 28
+K2S_CASES = {
+    "24-1000-300": (4, 24, 1000, 300, 1, None),
+    "48-128-300": (4, 48, 128, 300, 1, None),
+    "200-3000-300": (4, 200, 3000, 300, 1, None),
+    "24-77-61": (4, 24, 77, 61, 1, None),
+    "130-45-61": (4, 130, 45, 61, 1, None),
+    "65-2048-300": (4, 65, 2048, 300, 1, None),
+    "fillers6_vc50000": (16, 24, 50_000, 300, 6, None),
+    "one_query_12_live_vc60000": (1, 16, 60_000, 300, 0, 12),
+    "q70": (70, 24, 20_000, 300, 1, None),
+    "q70_w61": (70, 24, 20_000, 61, 1, None),
+    "route_below": (4, 24, 128 * (ROUTE_TILES - 1), 300, 1, None),
+    "route_at": (4, 24, 128 * (ROUTE_TILES - 1) + 1, 300, 1, None),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,vc,w", [(24, 1000, 300), (48, 128, 300),
-                                    (200, 3000, 300), (24, 77, 61),
-                                    (130, 45, 61), (65, 2048, 300)])
-def test_rwmd_min_cdist_subset_matches_plain(rng, b, vc, w):
-    """K2s: ids in any order, with repeats (the cascade pads with
-    vids[0]), a Vc that is no multiple of the 32-column tile, an
-    all-masked query, w=61 (4-byte copies), and more than 128 support
-    rows (b=130, 200: passes of 128 rows inside the block; b=65 fills
-    nine of the block's 16 row warps); one launch at every shape."""
+@pytest.mark.parametrize("case", list(K2S_CASES))
+def test_rwmd_min_cdist_subset_matches_plain(rng, case):
+    """K2s: ids in any order, with repeats where the vocabulary is narrow
+    (the reference's padding repeats vids[0]) and distinct where it is
+    wide (the port's cascade passes its live words unpadded), a Vc that is
+    no multiple of a column tile, all-masked filler queries, w=61 (4-byte
+    copies), more than 128 support rows (b=130, 200), a one-query stage of
+    12 live rows, more queries than one stacked block's 64, and a Vc on
+    each side of the route's switch; one launch at every shape."""
     dev = _card()
-    q, v = 4, 20000
+    q, b, vc, w, fillers, live = K2S_CASES[case]
+    v = max(20000, vc + 1000)
     a = torch.tensor(rng.standard_normal((q, b, w)), dtype=torch.float32,
                      device=dev)
-    mask = torch.tensor(rng.random((q, b)) > 0.3, dtype=torch.float32,
-                        device=dev)
-    mask[:, 0] = 1.0
-    mask[-1] = 0.0                            # an all-masked (filler) row
+    if live is None:
+        mask = torch.tensor(rng.random((q, b)) > 0.3, dtype=torch.float32,
+                            device=dev)
+        mask[:, 0] = 1.0
+    else:
+        mask = torch.zeros((q, b), device=dev)
+        mask[:, :live] = 1.0
+    if fillers:
+        mask[-fillers:] = 0.0                 # all-masked (filler) rows
     vocab = torch.tensor(rng.standard_normal((v, w)), dtype=torch.float32,
                          device=dev)
     ids = rng.choice(v, vc, replace=False)
-    ids[-vc // 4:] = ids[0]                   # padded tail repeats ids[0]
+    if vc <= 4096:
+        ids[-vc // 4:] = ids[0]               # padded tail repeats ids[0]
     ids = torch.tensor(ids, dtype=torch.int64, device=dev)
+    route = ops.rwmd_subset_route(q, b, vc)
+    if case.startswith("route_"):
+        assert route == ("stacked" if case == "route_at" else "per_query")
     before = ops.rwmd_min_cdist_subset.launches
     got = ops.rwmd_min_cdist(a, mask, vocab, vocab_ids=ids)
     torch.cuda.synchronize()
     assert ops.rwmd_min_cdist_subset.launches == before + 1
     assert got.shape == (q, vc)
     want = ref.rwmd_min_cdist_subset_ref(a, mask, vocab, ids)
-    assert torch.isinf(got[-1]).all()
+    if fillers:
+        assert torch.isinf(got[-fillers:]).all()
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin)
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
@@ -596,7 +628,8 @@ def test_rwmd_min_cdist_designs_match_plain(rng, q, b, v, w):
     and 24 put two queries' rows in one 8-row group), an all-masked query, more
     live rows than one stacked group (b = 200), a ragged V, w = 61 (not a
     multiple of 4: the stacked kernel's 4-byte copies), and more queries
-    than one stacked launch holds (65 and 130: a launch per 64). The query
+    than one stacked block serves (65 and 130: a block row per 64 queries,
+    one launch). The query
     words are vocabulary rows, so exact matches (d ~ 0) occur: held in
     squared distance at chip_smoke.py's K2_SQ_RTOL."""
     dev = _card()
@@ -611,7 +644,7 @@ def test_rwmd_min_cdist_designs_match_plain(rng, q, b, v, w):
     before = ops.rwmd_min_cdist.launches
     got = ops.rwmd_min_cdist(a, mask, vocab)
     torch.cuda.synchronize()
-    assert ops.rwmd_min_cdist.launches == before + -(-q // 64)
+    assert ops.rwmd_min_cdist.launches == before + 1
     want = ref.rwmd_min_cdist_ref(a, mask, vocab)
     assert torch.isinf(got[1]).all()
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))

@@ -336,8 +336,9 @@ def test_k1_tiles_compute_one_function_on_the_host(rng, tile):
 
 def test_k2_designs_are_checked(rng):
     """K2 has one design, the stacked-query kernel, at any number of
-    queries (a launch per RWMD_STACKED_MAX_Q of them on the card): more
-    queries than one launch holds equal the plain version query by query,
+    queries (one launch on the card, a block per RWMD_STACKED_MAX_Q of
+    them): more queries than one block holds equal the plain version query
+    by query,
     and the removed ``design`` keyword raises TypeError."""
     a, mask, b = map(torch.from_numpy, _k2_inputs(rng))
     with pytest.raises(TypeError):

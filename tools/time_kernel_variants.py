@@ -7,19 +7,25 @@ Each variant is the committed source with a few lines replaced (VARIANTS
 below). Every variant is compiled by nvcc into a library of its own under
 build/kernel_variants/ (all builds started together) and timed at the
 shapes its path gives it: K3 on one query of 16, 23, 43 and 64 words
-against the paper vocabulary (V = 100 000, w = 300), K2s at a cascade
-RWMD stage (4 queries of 24 support rows, one of them filler, 128 candidate
-words with a repeated tail) and at 2 queries of 200 rows against 2048
-words, K5 on the G and G/r of the paper corpus (N = 5000, L = 28) for its
-widest query (v_r = 23) and for a 200-word query. Some variants time
-parts of a kernel and give wrong results: "stage_only" (K3, K2s) and
-"loads_only" (K5) skip the FFMAs (K5: sums the loaded values instead),
-"compute_only" stages the first chunk alone (K3, K2s) or loads no G or
-G/r (K5). The others are checked against the committed kernel. Prints
+against the paper vocabulary (V = 100 000, w = 300); K5 on the G and G/r
+of the paper corpus (N = 5000, L = 28) for its widest query (v_r = 23)
+and for a 200-word query. K2s runs every route at the shapes of
+K2S_SHAPES, built on the card from seed 0 at the Q, B, live rows and Vc
+that chip_smoke.py's phase k2s captures from cascade searches, plus one
+call of 128 queries: the committed launcher (routed), PR 17's kernel (a
+block per query and 32 columns), K2's stacked kernel over the gathered
+rows, K2 over all of V followed by index_select of the Vc columns, and
+the plain version, each held to the plain version's output; then both
+kernels across the sweep of Vc that sets the route's switch. Some K3 and
+K5 variants time parts of a kernel and give wrong results: "stage_only"
+(K3) and "loads_only" (K5) skip the FFMAs (K5: sums the loaded values
+instead), "compute_only" stages the first chunk alone (K3) or loads no G
+or G/r (K5). The others are checked against the committed kernel. Prints
 the card's name and power limit, one JSON object per compiled kernel
 instance of each variant (registers a thread and spill bytes, from ptxas
--v), then one per timing: the mean device time of 30 launches run back
-to back behind a held stream, in ms.
+-v), then one per timing: the mean device time of 30 launches (K2s: 50,
+the plain version 5) run back to back behind a held stream, in ms; K2s
+times each route twice, in turns.
 """
 from __future__ import annotations
 
@@ -50,20 +56,46 @@ K3_NO_FMA = (K3_SRC, "    if (live) {\n      cdist_ring::prep_rows",
              "    if (live && W < 0) {\n      cdist_ring::prep_rows")
 K3_ONE_STAGE = (K3_SRC, "    if (next < n_chunks)\n",
                 "    if (next < 1)\n")
-K2S_NO_FMA = (K2S_SRC, "      if (live) {\n        cdist_ring::prep_rows",
-              "      if (live && W < 0) {\n        cdist_ring::prep_rows")
-K2S_ONE_STAGE = (K2S_SRC, "      if (next < n_chunks)\n        cdist_ring",
-                 "      if (next < 1)\n        cdist_ring")
-
-
-def k2s_warps(n):
-    return (K2S_SRC, "constexpr int kSubWarps = 16;",
-            f"constexpr int kSubWarps = {n};")
-
-
-def k2s_stages(n):
-    return (K2S_SRC, "constexpr int kSubStages = 2;",
-            f"constexpr int kSubStages = {n};")
+# K2s's routing rule forced to one kernel: PR 17's block per (query, 32
+# columns), or K2's stacked kernel over the gathered rows
+K2S_RULE = "  return (long long)Q * tiles >= kStRouteTiles * groups;"
+K2S_PR17 = (K2S_SRC, K2S_RULE, "  return false;")
+K2S_STACKED = (K2S_SRC, K2S_RULE, "  return true;")
+# the stacked kernel without its 32-row groups (64 rows at most 64 support
+# rows, as K2 had it)
+K2S_NO_RB32 = (K2S_SRC, "  if (rows <= 32) return launch_stacked_rb<32>(x, "
+               "stream);\n", "")
+# the stacked kernel with groups of 64 rows at most (more blocks a wave,
+# more passes over the tile)
+K2S_RB64 = (K2S_SRC, "  return launch_stacked_rb<128>(x, stream);",
+            "  return launch_stacked_rb<64>(x, stream);")
+# the stacked kernel's ring alone (no FFMAs), or its FFMAs on the first
+# chunk alone (wrong results: they time parts of the kernel)
+K2S_STAGE_ONLY = (K2S_SRC, "      if (active) {\n        for (int j = 0;",
+                  "      if (active && W < 0) {\n        for (int j = 0;")
+K2S_COMPUTE_ONLY = (K2S_SRC, "      if (ch + 1 < n_chunks) stage(",
+                    "      if (ch + 1 < 1) stage(")
+# the stacked kernel's FFMAs with the x, y, z and w terms of 8 columns in
+# turn (8 independent FFMAs between dependent ones; each sum in the same
+# order, so the same bits)
+K2S_ILP = (K2S_SRC, """            for (int c = 0; c < 8; ++c) {
+              acc[r][c] = fmaf(av.x, bv[c].x, acc[r][c]);
+              acc[r][c] = fmaf(av.y, bv[c].y, acc[r][c]);
+              acc[r][c] = fmaf(av.z, bv[c].z, acc[r][c]);
+              acc[r][c] = fmaf(av.w, bv[c].w, acc[r][c]);
+            }
+""", """            for (int c = 0; c < 8; ++c)
+              acc[r][c] = fmaf(av.x, bv[c].x, acc[r][c]);
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[r][c] = fmaf(av.y, bv[c].y, acc[r][c]);
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[r][c] = fmaf(av.z, bv[c].z, acc[r][c]);
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[r][c] = fmaf(av.w, bv[c].w, acc[r][c]);
+""")
 
 
 K5_LIM = "const int lim = ONE ? __reduce_max_sync(kFull, L) : L;"
@@ -117,11 +149,13 @@ VARIANTS = {
     ("k3", "committed"): [], ("k3", "tv64"): [K3_TV64],
     ("k3", "tv128"): [K3_TV128], ("k3", "stages3"): [K3_STAGES3],
     ("k3", "stage_only"): [K3_NO_FMA], ("k3", "compute_only"): [K3_ONE_STAGE],
-    ("k2s", "committed"): [], ("k2s", "warps8"): [k2s_warps(8)],
-    ("k2s", "warps8_stages4"): [k2s_warps(8), k2s_stages(4)],
-    ("k2s", "stages4"): [k2s_stages(4)],
-    ("k2s", "stage_only"): [K2S_NO_FMA],
-    ("k2s", "compute_only"): [K2S_ONE_STAGE],
+    ("k2s", "committed"): [], ("k2s", "pr17"): [K2S_PR17],
+    ("k2s", "stacked"): [K2S_STACKED],
+    ("k2s", "stacked_no_rb32"): [K2S_STACKED, K2S_NO_RB32],
+    ("k2s", "stacked_ilp"): [K2S_STACKED, K2S_ILP],
+    ("k2s", "stacked_rb64"): [K2S_STACKED, K2S_RB64],
+    ("k2s", "stage_only"): [K2S_STACKED, K2S_STAGE_ONLY],
+    ("k2s", "compute_only"): [K2S_STACKED, K2S_COMPUTE_ONLY],
     ("k5", "committed"): [], ("k5", "gr_live_extent"): K5_GR_LIVE_EXTENT,
     ("k5", "lim_plain"): K5_LIM_PLAIN, ("k5", "lim_asm"): K5_LIM_ASM,
     ("k5", "lim_redux_all"): K5_LIM_REDUX_ALL,
@@ -239,41 +273,151 @@ def run_k3(libs, vecs, gen) -> None:
                                   "ms": time_ms(call)}), flush=True)
 
 
-def run_k2s(libs, vecs, gen) -> None:
-    v, w = vecs.shape
+# K2s at the shapes chip_smoke.py's phase k2s captures from real cascade
+# searches (its "shape" records on an H100: Q, B, live rows per query, Vc):
+# the widest RWMD stage of the paper corpus's 10 queries (the single
+# engine's, and so every sharded search's: 16 padded queries, six of them
+# filler), of each shard's at S = 2 and 4, of a one-query (served)
+# search, of the dedup corpus's search, and 2 queries of 200 rows against
+# 2048 words; then more queries than one stacked block's 64
+PAPER_10 = (12, 16, 17, 17, 18, 18, 19, 21, 21, 23) + (0,) * 6
+K2S_SHAPES = {
+    "shards_single": (16, 24, PAPER_10, 53_862),
+    "shards_S2_shard0": (16, 24, PAPER_10, 33_553),
+    "shards_S2_shard1": (16, 24, PAPER_10, 29_608),
+    "shards_S4_shard1": (16, 24, PAPER_10, 20_307),
+    "shards_S4_shard2": (16, 24, PAPER_10, 8_105),
+    "shards_S4_shard3": (16, 24, PAPER_10, 2_766),
+    "serve_one_query": (1, 24, (21,), 54_381),
+    "cascade_search": (4, 24, (12, 16, 16, 17), 81),
+    "wide_200": (2, 200, (200, 43), 2048),
+    "queries_128": (128, 24, PAPER_10, 53_862),
+}
+# the switch's sweep: the two kernels at Q of 1 to 16 (live rows as the
+# paper queries', the rest filler) against Vc candidate words
+K2S_SWEEP_Q = {1: (21,), 2: (21, 12), 4: (12, 16, 16, 17),
+               8: PAPER_10[:8], 16: PAPER_10}
+K2S_SWEEP_VC = (1024, 2048, 3072, 4096, 6144, 8192, 12288, 16384, 32768)
+
+
+def k2s_inputs(vecs, gen, q, bq, live, vc):
+    """a (q, bq, w) rows of vecs, a mask with live[i % len(live)] rows of
+    query i live, and vc distinct sorted ids."""
+    v = vecs.shape[0]
     dev = vecs.device
+    a = vecs[torch.randint(0, v, (q, bq), generator=gen).to(dev)]
+    mask = torch.zeros((q, bq), device=dev)
+    for i in range(q):
+        mask[i, :min(bq, live[i % len(live)])] = 1.0
+    ids = torch.randperm(v, generator=gen)[:vc].sort().values.to(dev)
+    return a.contiguous(), mask, ids
+
+
+def hold_k2s(name, got, want, a, mask, bsel) -> float:
+    """chip_smoke.py's check: the same +inf pattern and each finite entry
+    within 1e-5 of |a|^2max + |b|^2 in squared distance; returns the
+    largest absolute error."""
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        raise AssertionError(f"k2s {name}: inf pattern differs from plain")
+    fin = torch.isfinite(want)
+    a2max = torch.where(mask > 0, (a * a).sum(-1),
+                        torch.zeros_like(mask)).max(dim=1).values
+    scale = a2max[:, None] + (bsel * bsel).sum(-1)[None, :]
+    if ((got * got - want * want).abs() > 1e-5 * scale)[fin].any():
+        raise AssertionError(f"k2s {name}: outside the tolerance of plain")
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def run_k2s(libs, vecs, gen) -> None:
+    """Every route of K2s at each shape, in turns (each route twice, the
+    second pass in reverse order): each k2s variant (the committed, routed
+    launcher; PR 17's kernel; the stacked kernel and its variants), K2
+    over all of V then index_select of the Vc columns, and the plain
+    version; then PR 17's and the stacked kernel over the switch's
+    sweep."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ref
+    v, w = vecs.shape
     stream = P(torch.cuda.current_stream().cuda_stream)
-    for label, q, bq, vc, live in (("cascade", 4, 24, 128, (23, 19, 21, 0)),
-                                   ("wide_200", 2, 200, 2048, (200, 150))):
-        a = vecs[torch.randint(0, v, (q, bq), generator=gen).to(dev)]
-        a = a.contiguous()
-        mask = torch.zeros((q, bq), device=dev)
-        for i, n in enumerate(live):
-            mask[i, :n] = 1.0
-        ids = torch.randint(0, v, (vc,), generator=gen).to(dev)
-        ids[-vc // 3:] = ids[0]                 # a padded tail
-        out = torch.empty((q, vc), device=dev)
-        want = None
-        for (kernel, name), lib in libs.items():
-            if kernel != "k2s":
-                continue
+    subset = {}
+    for (kernel, name), lib in libs.items():
+        if kernel == "k2s":
             fn = lib.rwmd_min_cdist_subset_launch
             fn.argtypes = [P] * 5 + [I] * 5 + [P]
+            subset[name] = fn
+    k2 = libs["k2s", "committed"].rwmd_min_cdist_launch
+    k2.argtypes = [P] * 4 + [I] * 4 + [P]
+    route = libs["k2s", "committed"].rwmd_min_cdist_subset_stacked
+    route.argtypes = [I] * 3
 
-            def call():
-                return fn(ptr(a), ptr(mask), ptr(vecs), ptr(ids), ptr(out),
-                          q, bq, w, v, vc, stream)
+    def routes(a, mask, ids, out):
+        q, bq, _ = a.shape
+        vc = ids.numel()
+        full = torch.empty((q, v), device=vecs.device)
+        calls = {name: (lambda fn=fn: fn(ptr(a), ptr(mask), ptr(vecs),
+                                          ptr(ids), ptr(out), q, bq, w, v,
+                                          vc, stream))
+                 for name, fn in subset.items()}
+
+        def k2_gather():
+            if k2(ptr(a), ptr(mask), ptr(vecs), ptr(full), q, bq, w, v,
+                  stream) != 0:
+                raise RuntimeError("k2s k2_gather: launch failed")
+            torch.index_select(full, 1, ids, out=out)
+            return 0
+
+        def plain():
+            out.copy_(ref.rwmd_min_cdist_subset_ref(a, mask, vecs, ids))
+            return 0
+        calls["k2_gather"] = k2_gather
+        calls["plain"] = plain
+        return calls
+
+    for label, (q, bq, live, vc) in K2S_SHAPES.items():
+        a, mask, ids = k2s_inputs(vecs, gen, q, bq, live, vc)
+        out = torch.empty((q, vc), device=vecs.device)
+        calls = routes(a, mask, ids, out)
+        want = ref.rwmd_min_cdist_subset_ref(a, mask, vecs, ids)
+        errs, same, first = {}, {}, None
+        for name, call in calls.items():
+            out.fill_(float("nan"))
             if call() != 0:
                 raise RuntimeError(f"k2s {name}: launch failed")
             torch.cuda.synchronize()
-            if name == "committed":
-                want = out.clone()
-            elif name not in WRONG and not torch.equal(out, want):
-                raise AssertionError(f"k2s {name} differs from committed")
-            print(json.dumps({"kernel": "rwmd_min_cdist_subset",
-                              "variant": name, "inputs": label, "Q": q,
-                              "B": bq, "Vc": vc, "w": w,
-                              "ms": time_ms(call, reps=50)}), flush=True)
+            if name in WRONG:
+                continue
+            errs[name] = hold_k2s(name, out, want, a, mask, vecs[ids])
+            first = out.clone() if first is None else first
+            same[name] = torch.equal(out, first)
+        times = {name: [] for name in calls}
+        order = list(calls)
+        for names in (order, order[::-1]):
+            for name in names:
+                times[name].append(time_ms(calls[name], reps=5 if name ==
+                                           "plain" else 50))
+        print(json.dumps({
+            "kernel": "rwmd_min_cdist_subset", "inputs": label, "Q": q,
+            "B": bq, "live_rows": int(mask.sum()), "Vc": vc, "w": w,
+            "route": "stacked" if route(q, bq, vc) else "per_query",
+            "ms": {n: sum(t) / len(t) for n, t in times.items()},
+            "ms_each": times, "max_abs_err": errs,
+            "bitwise_equal_to_committed": same}), flush=True)
+    for q, live in K2S_SWEEP_Q.items():
+        for vc in K2S_SWEEP_VC:
+            a, mask, ids = k2s_inputs(vecs, gen, q, 24, live, vc)
+            out = torch.empty((q, vc), device=vecs.device)
+            calls = routes(a, mask, ids, out)
+            times = {"pr17": [], "stacked": []}
+            for names in (list(times), list(times)[::-1]):
+                for name in names:
+                    times[name].append(time_ms(calls[name], reps=50))
+            print(json.dumps({
+                "kernel": "rwmd_min_cdist_subset", "inputs": "sweep",
+                "Q": q, "B": 24, "live_rows": int(mask.sum()), "Vc": vc,
+                "tiles": -(-vc // 128),
+                "route": "stacked" if route(q, 24, vc) else "per_query",
+                "ms": {n: sum(t) / len(t) for n, t in times.items()}}),
+                flush=True)
 
 
 def k5_inputs():
