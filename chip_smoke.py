@@ -150,6 +150,7 @@ from repro_torch.core.sparse import (PaddedDocs,  # noqa: E402
 from repro_torch.data.corpus import (dedup_corpus, make_corpus,  # noqa: E402
                                      paper_corpus, zipf_queries)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch import trace  # noqa: E402
 from repro_torch.data.pipeline import wmd_request_stream  # noqa: E402
 from repro_torch.runtime.serving import (FaultInjector,  # noqa: E402
                                          ServeConfig, ServingRuntime,
@@ -2795,7 +2796,8 @@ def phase_shards(corpus, index, card: str) -> dict:
     queries): for each S and prune spec the result against the single
     engine's (one shard bit for bit), the launches per shard and summed,
     the merge's one all_gather, and 15 warm searches beside the single
-    engine's 15 with the merge's share; then the card's idle share over
+    engine's 15, both untraced, with the merge's share from 15 more under
+    the recorder (``wmd.shard.merge``); then the card's idle share over
     one profiled 2-shard cascade search. The single engine's results are
     first held against its exhaustive top-10, and K2s against its plain
     version at the inputs of the widest RWMD stage of the single engine's
@@ -2838,11 +2840,18 @@ def phase_shards(corpus, index, card: str) -> dict:
                 eng.search(qs, TOP_K, prune=prune)
                 full_coverage(eng, label)
 
-            eng.reset_iter_stats()              # zeroes merge_seconds
-            t = wall_ms(timed)
+            eng.reset_iter_stats()
+            t = wall_ms(timed)              # untraced, as the single's
+            trace.enable()
+            for _ in range(E2E_REPS):
+                timed()
+            trace.disable()
+            merge_ns = sum(s.end_ns - s.start_ns
+                           for s in trace.records().spans
+                           if s.name == "wmd.shard.merge")
             srec["prunes"][prune] = {
                 "search_ms": t, "launches": launches,
-                "merge_ms_per_search": eng.merge_seconds * 1e3 / E2E_REPS,
+                "merge_ms_per_search": merge_ns / 1e6 / E2E_REPS,
                 "ratio_to_single": t["median"]
                 / rec["single"][prune]["search_ms"]["median"],
                 "solved": res.solved.tolist(),

@@ -52,6 +52,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from .device import resolve_device
 from .sinkhorn import (LamUnderflowError, gemm_round, select_support,
                        underflow_report)
@@ -150,24 +151,28 @@ class CorpusIndex(NamedTuple):
         ``storage=True``. The doc count is padded to a power of two (>= 8)
         with inert all-zero docs and the width to a multiple of 8, as in
         the reference; ``cols`` keeps only the real ids."""
-        doc_ids = np.asarray(doc_ids, np.int32)
-        rows = doc_ids
-        if not storage and self.remap is not None:
-            rows = self.remap[doc_ids]
-        idx = self.docs_host.idx[rows]
-        val = self.docs_host.val[rows]
-        lg = max(1, int((val > 0).sum(axis=1).max(initial=0)))
-        lg = min(-(-lg // 8) * 8, idx.shape[1])
-        n_pad = 8
-        while n_pad < doc_ids.size:
-            n_pad *= 2
-        pad = ((0, n_pad - doc_ids.size), (0, 0))
-        dev = self.device
-        return DocGroup(docs=PaddedDocs(
-            idx=torch.as_tensor(np.pad(idx[:, :lg], pad), dtype=torch.int64,
-                                device=dev),
-            val=torch.as_tensor(np.pad(val[:, :lg], pad), device=dev)),
-            cols=doc_ids)
+        with trace.span("wmd.subset") as s:
+            doc_ids = np.asarray(doc_ids, np.int32)
+            rows = doc_ids
+            if not storage and self.remap is not None:
+                rows = self.remap[doc_ids]
+            idx = self.docs_host.idx[rows]
+            val = self.docs_host.val[rows]
+            lg = max(1, int((val > 0).sum(axis=1).max(initial=0)))
+            lg = min(-(-lg // 8) * 8, idx.shape[1])
+            n_pad = 8
+            while n_pad < doc_ids.size:
+                n_pad *= 2
+            pad = ((0, n_pad - doc_ids.size), (0, 0))
+            # the ids widen on the host: a blocking copy converts there
+            idx = np.pad(idx[:, :lg], pad).astype(np.int64)
+            val = np.pad(val[:, :lg], pad)
+            if s:
+                trace.add("h2d_pageable_bytes", idx.nbytes + val.nbytes)
+            dev = self.device
+            return DocGroup(docs=PaddedDocs(
+                idx=torch.as_tensor(idx, device=dev),
+                val=torch.as_tensor(val, device=dev)), cols=doc_ids)
 
 
 # ---------------------------------------------------------------- k-means
@@ -1035,6 +1040,8 @@ class WmdEngine:
         self._iters_dropped = 0
         self._kcache = None
         self.kcache_min_hits = max(1, int(kcache_min_hits))
+        # (index, {id(whole-corpus group): live words}) for the solve span
+        self._group_words = (None, {})
         if kcache_slots:
             self.enable_kcache(int(kcache_slots))
 
@@ -1133,39 +1140,44 @@ class WmdEngine:
         sorted by v_r inside each, chunked by ``max_batch`` and each chunk
         trimmed to the smallest multiple of 8 covering its members; empty
         queries are left out."""
-        vr = [int((q > 0).sum()) for q in queries]
-        buckets: dict[int, list[int]] = {}
-        for qi in range(len(queries)):
-            if vr[qi] == 0:
-                continue        # empty marginal: NaN row, never solved
-            buckets.setdefault(bucket_size(vr[qi], self.min_bucket),
-                               []).append(qi)
-        chunks = []
-        for b in sorted(buckets):
-            members = sorted(buckets[b], key=lambda qi: vr[qi])
-            for lo in range(0, len(members), self.max_batch):
-                chunk = members[lo:lo + self.max_batch]
-                width = max(8, min(b, -(-max(vr[qi] for qi in chunk) // 8) * 8))
-                chunks.append((chunk, width))
-        return vr, chunks
+        with trace.span("wmd.plan"):
+            vr = [int((q > 0).sum()) for q in queries]
+            buckets: dict[int, list[int]] = {}
+            for qi in range(len(queries)):
+                if vr[qi] == 0:
+                    continue        # empty marginal: NaN row, never solved
+                buckets.setdefault(bucket_size(vr[qi], self.min_bucket),
+                                   []).append(qi)
+            chunks = []
+            for b in sorted(buckets):
+                members = sorted(buckets[b], key=lambda qi: vr[qi])
+                for lo in range(0, len(members), self.max_batch):
+                    chunk = members[lo:lo + self.max_batch]
+                    width = max(8, min(b, -(-max(vr[qi] for qi in chunk)
+                                             // 8) * 8))
+                    chunks.append((chunk, width))
+            return vr, chunks
 
     def _prep_chunk(self, chunk_queries: list, width: int):
         """Stage one chunk: (sup, r, mask) device tensors, q-padded to a
         power of two with inert fillers when ``pad_q``."""
-        prepared = [_prepare_query(q, width, self.dtype)
-                    for q in chunk_queries]
-        n_live = len(prepared)
-        q_pad = n_live
-        if self.pad_q:
-            q_pad = 1
-            while q_pad < n_live:
-                q_pad *= 2
-        filler = (np.zeros(width, np.int64), np.ones(width, self.dtype),
-                  np.zeros(width, self.dtype))
-        prepared += [filler] * (q_pad - n_live)
-        dev = self.device
-        return tuple(torch.as_tensor(np.stack([p[i] for p in prepared]),
-                                     device=dev) for i in range(3))
+        with trace.span("wmd.stage") as s:
+            prepared = [_prepare_query(q, width, self.dtype)
+                        for q in chunk_queries]
+            n_live = len(prepared)
+            q_pad = n_live
+            if self.pad_q:
+                q_pad = 1
+                while q_pad < n_live:
+                    q_pad *= 2
+            filler = (np.zeros(width, np.int64), np.ones(width, self.dtype),
+                      np.zeros(width, self.dtype))
+            prepared += [filler] * (q_pad - n_live)
+            staged = [np.stack([p[i] for p in prepared]) for i in range(3)]
+            if s:
+                trace.add("h2d_pageable_bytes", sum(a.nbytes for a in staged))
+            dev = self.device
+            return tuple(torch.as_tensor(a, device=dev) for a in staged)
 
     def _kq(self, sup, mask):
         """The chunk's K block as the pair (kq, mq): the kernel impl's
@@ -1177,38 +1189,39 @@ class WmdEngine:
         takes the stacked GEMM and warms the cache from its distances. Both
         give the same bits. Looking the words up reads ``sup`` back to the
         host (one sync per chunk with a cache)."""
-        index = self.index
-        if self.impl == "kernel":
-            return _compute_kq(sup, mask, index.vecs, index.vecs_sq,
-                               self.lam, gemm=self.precision.gemm,
-                               log_domain=self.precision.log_domain), None
-        cache = self._kcache
-        if cache is not None and cache.vecs is not index.vecs:
-            # another embedding table (a new index) drops every row;
-            # append_docs keeps vecs, and with it the cache
-            cache = self._kcache = cache.rebind(index.vecs, index.vecs_sq)
+        with trace.span("wmd.kblock"):
+            index = self.index
+            if self.impl == "kernel":
+                return _compute_kq(sup, mask, index.vecs, index.vecs_sq,
+                                   self.lam, gemm=self.precision.gemm,
+                                   log_domain=self.precision.log_domain), None
+            cache = self._kcache
+            if cache is not None and cache.vecs is not index.vecs:
+                # another embedding table (a new index) drops every row;
+                # append_docs keeps vecs, and with it the cache
+                cache = self._kcache = cache.rebind(index.vecs, index.vecs_sq)
 
-        def stacked():
-            return _compute_kq(sup, mask, index.vecs, index.vecs_sq,
-                               self.lam, gemm=self.precision.gemm,
-                               log_domain=self.precision.log_domain,
-                               with_m=True)
+            def stacked():
+                return _compute_kq(sup, mask, index.vecs, index.vecs_sq,
+                                   self.lam, gemm=self.precision.gemm,
+                                   log_domain=self.precision.log_domain,
+                                   with_m=True)
 
-        if cache is None:
-            return stacked()
-        sup_np = sup.cpu().numpy()
-        ids = np.unique(sup_np.reshape(-1))
-        n_hit = cache.lookup(ids)
-        oversize = len(ids) > cache.slots
-        if oversize or n_hit < self.kcache_min_hits:
-            cache.note_fallback(oversize=oversize)
-            kq, mq = stacked()
-            cache.warm(sup_np, mq)
-            return kq, mq
-        from .kcache import assemble_kq
-        return assemble_kq(cache.rows(ids), np.searchsorted(ids, sup_np),
-                           mask, self.lam,
-                           log_domain=self.precision.log_domain)
+            if cache is None:
+                return stacked()
+            sup_np = sup.cpu().numpy()
+            ids = np.unique(sup_np.reshape(-1))
+            n_hit = cache.lookup(ids)
+            oversize = len(ids) > cache.slots
+            if oversize or n_hit < self.kcache_min_hits:
+                cache.note_fallback(oversize=oversize)
+                kq, mq = stacked()
+                cache.warm(sup_np, mq)
+                return kq, mq
+            from .kcache import assemble_kq
+            return assemble_kq(cache.rows(ids), np.searchsorted(ids, sup_np),
+                               mask, self.lam,
+                               log_domain=self.precision.log_domain)
 
     def _solve_group(self, kq, r, mask, grp: DocGroup, n_live: int,
                      stage: str = "batch", qdoc_mask=None, x0q=None,
@@ -1222,27 +1235,47 @@ class WmdEngine:
         ``x0q`` (Qp, B) warm-starts the einsum solve; ``want_profile``
         returns ``(wmd, profile)``, its converged profile averaged over
         ``prof_mask`` docs (``None`` on the kernel impl)."""
-        kqk, mq = kq
-        scoped = self._scoped()
-        if self.impl == "kernel":
-            from repro_torch.kernels.ops import sinkhorn_fused_all_batched
-            g = _gather_g(kqk, grp.docs.idx)
-            wmd, iters = sinkhorn_fused_all_batched(
-                g, grp.docs.val, r, self.lam, self.n_iter, tol=self.tol,
-                check_every=self.check_every, gemm=self.precision.gemm,
-                log_domain=self.precision.log_domain,
-                resmask=qdoc_mask if scoped else None, with_iters=True)
-            self._record_iters(stage, iters, scoped, n_live)
-            return (wmd, None) if want_profile else wmd
-        out = _solve_batched_einsum(
-            _gather_g(kqk, grp.docs.idx, layout="qnlb"), mq, grp.docs.idx,
-            grp.docs.val, r, mask, self.lam, self.n_iter, tol=self.tol,
-            check_every=self.check_every, gemm=self.precision.gemm,
-            log_domain=self.precision.log_domain, scope=self.scope,
-            qdoc_mask=qdoc_mask if scoped else None, x0q=x0q,
-            with_profile=want_profile, prof_mask=prof_mask)
-        self._record_iters(stage, out[1], scoped, n_live)
-        return (out[0], out[2]) if want_profile else out[0]
+        with trace.span("wmd.solve") as s:
+            if s:
+                n_pad, l_g = grp.docs.idx.shape
+                s.set(docs=len(grp.cols), doc_words=self._live_words(grp),
+                      n_pad=n_pad, l_g=l_g, stage=stage)
+            kqk, mq = kq
+            scoped = self._scoped()
+            if self.impl == "kernel":
+                from repro_torch.kernels.ops import sinkhorn_fused_all_batched
+                g = _gather_g(kqk, grp.docs.idx)
+                wmd, iters = sinkhorn_fused_all_batched(
+                    g, grp.docs.val, r, self.lam, self.n_iter, tol=self.tol,
+                    check_every=self.check_every, gemm=self.precision.gemm,
+                    log_domain=self.precision.log_domain,
+                    resmask=qdoc_mask if scoped else None, with_iters=True)
+                self._record_iters(stage, iters, scoped, n_live)
+                return (wmd, None) if want_profile else wmd
+            out = _solve_batched_einsum(
+                _gather_g(kqk, grp.docs.idx, layout="qnlb"), mq,
+                grp.docs.idx, grp.docs.val, r, mask, self.lam, self.n_iter,
+                tol=self.tol, check_every=self.check_every,
+                gemm=self.precision.gemm,
+                log_domain=self.precision.log_domain, scope=self.scope,
+                qdoc_mask=qdoc_mask if scoped else None, x0q=x0q,
+                with_profile=want_profile, prof_mask=prof_mask)
+            self._record_iters(stage, out[1], scoped, n_live)
+            return (out[0], out[2]) if want_profile else out[0]
+
+    def _live_words(self, grp: DocGroup) -> int:
+        """Live words of the group's real documents, from the host mirror
+        (read while tracing only); a whole-corpus group's once."""
+        index = self.index
+        if self._group_words[0] is not index:
+            self._group_words = (index, {})
+        whole = self._group_words[1]
+        if id(grp) in whole:
+            return whole[id(grp)]
+        n = int(np.count_nonzero(index.docs_host.val[grp.cols] > 0))
+        if any(grp is g for g in index.groups):
+            whole[id(grp)] = n
+        return n
 
     def _warm(self) -> bool:
         """Do survivor solves start from the seed solve's profile?"""
@@ -1265,30 +1298,35 @@ class WmdEngine:
         (Q, N) host tensor in the caller's doc order. A query with no
         support yields a NaN row. Raises :class:`LamUnderflowError` if lam
         underflows K for a corpus word."""
-        queries = [np.asarray(q) for q in queries]
-        if not queries:
-            return torch.zeros((0, self.index.n_docs))
-        vr, chunks = self._plan(queries)
-        # launch every chunk before collecting any result: the device runs
-        # chunk i while the host stages chunk i+1
-        pending = []
-        for chunk, width in chunks:
-            sup, r, mask = self._prep_chunk([queries[qi] for qi in chunk],
-                                            width)
-            kq = self._kq(sup, mask)
-            pending.append((chunk, [
-                (grp, self._solve_group(kq, r, mask, grp, len(chunk)))
-                for grp in self.index.groups]))
-        out = np.zeros((len(queries), self.index.n_docs), self.dtype)
-        for qi in range(len(queries)):
-            if vr[qi] == 0:
-                out[qi] = np.nan
-        for chunk, parts in pending:
-            for grp, wmd_g in parts:
-                w = wmd_g[:len(chunk)].cpu().numpy()
-                self._raise_if_nan(w, [queries[qi] for qi in chunk])
-                out[np.ix_(chunk, self._ext(grp.cols))] = w
-        return torch.from_numpy(out)
+        with trace.span("wmd.batch"):
+            queries = [np.asarray(q) for q in queries]
+            if not queries:
+                return torch.zeros((0, self.index.n_docs))
+            vr, chunks = self._plan(queries)
+            # launch every chunk before collecting any result: the device
+            # runs chunk i while the host stages chunk i+1
+            pending = []
+            for chunk, width in chunks:
+                with trace.span("wmd.chunk") as c:
+                    sup, r, mask = self._prep_chunk(
+                        [queries[qi] for qi in chunk], width)
+                    if c:
+                        _chunk_attrs(c, chunk, vr, width, r)
+                    kq = self._kq(sup, mask)
+                    pending.append((chunk, [
+                        (grp, self._solve_group(kq, r, mask, grp, len(chunk)))
+                        for grp in self.index.groups]))
+            with trace.span("wmd.collect"):
+                out = np.zeros((len(queries), self.index.n_docs), self.dtype)
+                for qi in range(len(queries)):
+                    if vr[qi] == 0:
+                        out[qi] = np.nan
+                for chunk, parts in pending:
+                    for grp, wmd_g in parts:
+                        w = _read(wmd_g[:len(chunk)])
+                        self._raise_if_nan(w, [queries[qi] for qi in chunk])
+                        out[np.ix_(chunk, self._ext(grp.cols))] = w
+            return torch.from_numpy(out)
 
     # ------------------------------------------------------------ search
     def search(self, queries: Sequence, k: int, prune: object = "rwmd",
@@ -1325,92 +1363,103 @@ class WmdEngine:
         ``refine_factor < 1``, or ``mode="refine"`` with ``prune=None``;
         :class:`LamUnderflowError` when ``exp(-lam*M)`` underflows for a
         solved pair."""
-        queries = [np.asarray(q) for q in queries]
-        n = self.index.n_docs
-        if k <= 0:
-            raise ValueError(f"k must be positive, got {k}")
-        if mode not in ("exact", "refine"):
-            raise ValueError(f"mode must be 'exact' or 'refine', "
-                             f"got {mode!r}")
-        if mode == "refine":
+        with trace.span("wmd.search"):
+            queries = [np.asarray(q) for q in queries]
+            n = self.index.n_docs
+            if k <= 0:
+                raise ValueError(f"k must be positive, got {k}")
+            if mode not in ("exact", "refine"):
+                raise ValueError(f"mode must be 'exact' or 'refine', "
+                                 f"got {mode!r}")
+            if mode == "refine":
+                if prune is None:
+                    raise ValueError(
+                        "mode='refine' ranks candidates by a pruner's lower "
+                        "bound; prune=None has no bound to rank by — use "
+                        "mode='exact' for the exhaustive path")
+                if int(refine_factor) < 1:
+                    raise ValueError(f"refine_factor must be >= 1, "
+                                     f"got {refine_factor}")
+            k = min(int(k), n)
+            nq = len(queries)
+            out_i = np.full((nq, k), -1, np.int32)
+            out_d = np.full((nq, k), np.nan, self.dtype)
+            solved = np.zeros(nq, np.int64)
+            if nq == 0 or n == 0:
+                return SearchResult(out_i, out_d, solved)
+
             if prune is None:
-                raise ValueError(
-                    "mode='refine' ranks candidates by a pruner's lower "
-                    "bound; prune=None has no bound to rank by — use "
-                    "mode='exact' for the exhaustive path")
-            if int(refine_factor) < 1:
-                raise ValueError(f"refine_factor must be >= 1, "
-                                 f"got {refine_factor}")
-        k = min(int(k), n)
-        nq = len(queries)
-        out_i = np.full((nq, k), -1, np.int32)
-        out_d = np.full((nq, k), np.nan, self.dtype)
-        solved = np.zeros(nq, np.int64)
-        if nq == 0 or n == 0:
-            return SearchResult(out_i, out_d, solved)
+                d = self.query_batch(queries).numpy()
+                with trace.span("wmd.rank"):
+                    for qi in range(nq):
+                        if np.isnan(d[qi]).all():
+                            continue                      # empty marginal
+                        order = np.argsort(d[qi], kind="stable")[:k]
+                        out_i[qi], out_d[qi] = order, d[qi, order]
+                        solved[qi] = n
+                return SearchResult(out_i, out_d, solved)
 
-        if prune is None:
-            d = self.query_batch(queries).numpy()
-            for qi in range(nq):
-                if np.isnan(d[qi]).all():
-                    continue                      # empty marginal
-                order = np.argsort(d[qi], kind="stable")[:k]
-                out_i[qi], out_d[qi] = order, d[qi, order]
-                solved[qi] = n
-            return SearchResult(out_i, out_d, solved)
+            from .prune import CascadePruner, resolve_pruner
+            pruner = resolve_pruner(prune, nprobe=nprobe)
+            vr, chunks = self._plan(queries)
+            if mode == "refine":
+                if chunks:
+                    self._search_refine(queries, k, pruner, nprobe, chunks,
+                                        int(refine_factor), out_i, out_d,
+                                        solved)
+                return SearchResult(out_i, out_d, solved)
+            if isinstance(pruner, CascadePruner):
+                if chunks:
+                    self._search_cascade(queries, k, pruner, nprobe, chunks,
+                                         out_i, out_d, solved)
+                return SearchResult(out_i, out_d, solved)
+            for chunk, width in chunks:
+                with trace.span("wmd.chunk") as c:
+                    cq = [queries[qi] for qi in chunk]
+                    qc = len(chunk)
+                    sup, r, mask = self._prep_chunk(cq, width)
+                    if c:
+                        _chunk_attrs(c, chunk, vr, width, r)
+                    kq = self._kq(sup, mask)      # shared by both solves
 
-        from .prune import CascadePruner, resolve_pruner
-        pruner = resolve_pruner(prune, nprobe=nprobe)
-        _, chunks = self._plan(queries)
-        if mode == "refine":
-            if chunks:
-                self._search_refine(queries, k, pruner, nprobe, chunks,
-                                    int(refine_factor), out_i, out_d, solved)
-            return SearchResult(out_i, out_d, solved)
-        if isinstance(pruner, CascadePruner):
-            if chunks:
-                self._search_cascade(queries, k, pruner, nprobe, chunks,
-                                     out_i, out_d, solved)
-            return SearchResult(out_i, out_d, solved)
-        for chunk, width in chunks:
-            cq = [queries[qi] for qi in chunk]
-            qc = len(chunk)
-            sup, r, mask = self._prep_chunk(cq, width)
-            kq = self._kq(sup, mask)              # shared by both solves
+                    def solve(doc_ids, qmask=None, stage="seed", warm=None,
+                              prof=None):
+                        # -> ((qc, |ids|) host array, NaN-checked; warm
+                        # profile)
+                        grp = self.index.subset(doc_ids, storage=True)
+                        n_pad = grp.docs.idx.shape[0]
+                        qm = (None if qmask is None else self._pad_qdoc(
+                            qmask, r.shape[0], n_pad))
+                        pm = (None if prof is None else self._pad_qdoc(
+                            prof, r.shape[0], n_pad))
+                        want = self._warm()
+                        out = self._solve_group(kq, r, mask, grp, qc, stage,
+                                                qm, x0q=warm,
+                                                want_profile=want,
+                                                prof_mask=pm)
+                        w, prof_out = out if want else (out, None)
+                        w = _read(w[:qc, :doc_ids.size])
+                        self._raise_if_nan(w, cq)
+                        return w, prof_out
 
-            def solve(doc_ids, qmask=None, stage="seed", warm=None,
-                      prof=None):
-                # -> ((qc, |ids|) host array, NaN-checked; warm profile)
-                grp = self.index.subset(doc_ids, storage=True)
-                n_pad = grp.docs.idx.shape[0]
-                qm = (None if qmask is None else self._pad_qdoc(
-                    qmask, r.shape[0], n_pad))
-                pm = (None if prof is None else self._pad_qdoc(
-                    prof, r.shape[0], n_pad))
-                want = self._warm()
-                out = self._solve_group(kq, r, mask, grp, qc, stage, qm,
-                                        x0q=warm, want_profile=want,
-                                        prof_mask=pm)
-                w, prof_out = out if want else (out, None)
-                w = w[:qc, :doc_ids.size].cpu().numpy()
-                self._raise_if_nan(w, cq)
-                return w, prof_out
-
-            cand, d_cand = self._prune_full(pruner, sup, r, mask, qc, k,
-                                            solve)
-            cand_ext = self._ext(cand)       # storage -> caller doc ids
-            for ci, qi in enumerate(chunk):
-                order = np.argsort(d_cand[ci], kind="stable")[:k]
-                out_i[qi, :order.size] = cand_ext[order]
-                out_d[qi, :order.size] = d_cand[ci, order]
-                solved[qi] = cand.size
-        return SearchResult(out_i, out_d, solved)
+                    cand, d_cand = self._prune_full(pruner, sup, r, mask, qc,
+                                                    k, solve)
+                    with trace.span("wmd.rank"):
+                        cand_ext = self._ext(cand)  # storage -> caller ids
+                        for ci, qi in enumerate(chunk):
+                            order = np.argsort(d_cand[ci], kind="stable")[:k]
+                            out_i[qi, :order.size] = cand_ext[order]
+                            out_d[qi, :order.size] = d_cand[ci, order]
+                            solved[qi] = cand.size
+            return SearchResult(out_i, out_d, solved)
 
     def _pad_qdoc(self, qmask, qp: int, n_pad: int) -> torch.Tensor:
         """A (qc, |ids|) per-query candidate mask (host array or device
         tensor) padded on the device to the solve's (Qp, N_pad) shape:
         fillers and pad docs are outside every scope."""
         out = torch.zeros((qp, n_pad), dtype=torch.bool, device=self.device)
+        if isinstance(qmask, np.ndarray):
+            trace.add("h2d_pageable_bytes", qmask.nbytes)
         out[:qmask.shape[0], :qmask.shape[1]] = torch.as_tensor(
             qmask, device=self.device)
         return out
@@ -1441,27 +1490,35 @@ class WmdEngine:
         score from below. A query's own k picks drive only its warm-start
         profile (``warm_start`` on the einsum impl)."""
         from .prune import _keep_any
-        lb = pruner.lower_bounds(self.index, sup, r, mask)   # (Qp, N)
-        seed_pos = torch.topk(-lb[:qc], k, dim=1).indices.cpu().numpy()
-        seed = np.unique(seed_pos).astype(np.int32)
-        qmask_seed = None
-        if self._warm() and self._scoped():
-            qmask_seed = np.stack([np.isin(seed, seed_pos[qi])
-                                   for qi in range(qc)])
+        with trace.span("wmd.bound"):
+            lb = pruner.lower_bounds(self.index, sup, r, mask)   # (Qp, N)
+        with trace.span("wmd.prune"):
+            seed_pos = _read(torch.topk(-lb[:qc], k, dim=1).indices)
+            seed = np.unique(seed_pos).astype(np.int32)
+            qmask_seed = None
+            if self._warm() and self._scoped():
+                qmask_seed = np.stack([np.isin(seed, seed_pos[qi])
+                                       for qi in range(qc)])
         d_seed, xprof = solve(seed, None, "seed", prof=qmask_seed)
-        thresh = self._threshold(torch.as_tensor(d_seed, device=lb.device),
-                                 k, seed.size)
-        surv = torch.nonzero(_keep_any(lb, thresh)).flatten()
-        surv = surv.cpu().numpy().astype(np.int32)
-        surv = surv[~np.isin(surv, seed)]
-        cand = np.concatenate([seed, surv])
-        if not surv.size:
-            return cand, d_seed
-        qmask_surv = None
-        if self._scoped():
-            surv_dev = torch.as_tensor(surv.astype(np.int64),
-                                       device=lb.device)
-            qmask_surv = lb[:qc, surv_dev] <= thresh[:qc, None]
+        with trace.span("wmd.prune") as s:
+            if s:
+                trace.add("h2d_pageable_bytes", d_seed.nbytes)
+            thresh = self._threshold(
+                torch.as_tensor(d_seed, device=lb.device), k, seed.size)
+            keep = _keep_any(lb, thresh)
+            # nonzero syncs to size its output
+            surv = _read(torch.nonzero(keep).flatten()).astype(np.int32)
+            surv = surv[~np.isin(surv, seed)]
+            cand = np.concatenate([seed, surv])
+            if not surv.size:
+                return cand, d_seed
+            qmask_surv = None
+            if self._scoped():
+                surv_dev = torch.as_tensor(surv.astype(np.int64),
+                                           device=lb.device)
+                if s:
+                    trace.add("h2d_pageable_bytes", surv.size * 8)
+                qmask_surv = lb[:qc, surv_dev] <= thresh[:qc, None]
         d_surv, _ = solve(surv, qmask_surv, "survivor", warm=xprof)
         return cand, np.concatenate([d_seed, d_surv], axis=1)
 
@@ -1661,3 +1718,17 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    """A device result read back to the host (a ``wmd.wait`` span)."""
+    with trace.span("wmd.wait"):
+        return t.cpu().numpy()
+
+
+def _chunk_attrs(span, chunk: list, vr: list, width: int,
+                 r: torch.Tensor) -> None:
+    """A ``wmd.chunk`` span's attributes: its live queries, their words
+    (from ``_plan``'s counts), the staged width and the padded count."""
+    span.set(queries=len(chunk), query_words=sum(vr[qi] for qi in chunk),
+             width=width, qp=int(r.shape[0]))

@@ -60,6 +60,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.runtime.fault_tolerance import PoisonStep, ShardHealth
 from repro_torch.runtime.sharding import CorpusMesh, all_gather, corpus_mesh
 
@@ -447,7 +448,8 @@ class ShardedWmdEngine:
     ``rwmd_topk``, ``min_bucket``, ``iter_stats*``, ``dtype``, ``impl``,
     ``precision``, ``shard_fault_hook``, ``last_coverage``, ``health``)
     plus ``n_shards``, ``docs_per_shard``, ``cluster_counts`` and
-    ``iter_stats_by_shard``; ``merge_seconds`` sums the merge's wall time.
+    ``iter_stats_by_shard``. The merge is a ``wmd.shard.merge`` span
+    (:mod:`repro_torch.trace`).
 
     Fault tolerance: the fan-out is deadline-bounded and health-gated.
     Each shard dispatch runs under a retry loop (``shard_retries``
@@ -486,7 +488,6 @@ class ShardedWmdEngine:
         self.device = sindex.devices[0]        # where the merge runs
         self._pool = ThreadPoolExecutor(max_workers=sindex.n_shards,
                                         thread_name_prefix="wmd-shard")
-        self.merge_seconds = 0.0
         self.shard_timeout_s = shard_timeout_s
         self.shard_retries = max(0, int(shard_retries))
         self.shard_backoff_s = float(shard_backoff_s)
@@ -526,7 +527,6 @@ class ShardedWmdEngine:
     def reset_iter_stats(self) -> None:
         for e in self.engines:
             e.reset_iter_stats()
-        self.merge_seconds = 0.0
 
     def iter_stats(self, stage: str | None = None) -> np.ndarray:
         """Realized iteration counts of every shard, concatenated (per
@@ -587,24 +587,24 @@ class ShardedWmdEngine:
         lane at the +inf/-1 defaults, inert in the sort, so a partial merge
         runs the same collective as a full one. Returns host (Q, k) ids
         (int32, -1 pad) and distances (NaN pad), ascending."""
-        t0 = time.perf_counter()
-        parts = []
-        for si in range(self.n_shards):
-            if si in per_shard:
-                ids, dists = per_shard[si]
-                lane = _pack(np.asarray(ids), dists,
-                             self.sindex.global_ids[si], nq, k)
-            else:
-                lane = _pack(np.full((nq, 0), -1, np.int32),
-                             np.zeros((nq, 0), np.float32),
-                             self.sindex.global_ids[si], nq, k)
-            parts.append(torch.as_tensor(lane, device=self.sindex.devices[si]))
-        dist, ids = merge_topk(parts, k, self.device)
-        dist = dist.cpu().numpy()
-        ids = ids.cpu().numpy().astype(np.int32)
-        dist = np.where(ids >= 0, dist, np.nan).astype(self.dtype)
-        self.merge_seconds += time.perf_counter() - t0
-        return ids, dist
+        with trace.span("wmd.shard.merge"):
+            parts = []
+            for si in range(self.n_shards):
+                if si in per_shard:
+                    ids, dists = per_shard[si]
+                    lane = _pack(np.asarray(ids), dists,
+                                 self.sindex.global_ids[si], nq, k)
+                else:
+                    lane = _pack(np.full((nq, 0), -1, np.int32),
+                                 np.zeros((nq, 0), np.float32),
+                                 self.sindex.global_ids[si], nq, k)
+                parts.append(torch.as_tensor(
+                    lane, device=self.sindex.devices[si]))
+            dist, ids = merge_topk(parts, k, self.device)
+            dist = dist.cpu().numpy()
+            ids = ids.cpu().numpy().astype(np.int32)
+            dist = np.where(ids >= 0, dist, np.nan).astype(self.dtype)
+            return ids, dist
 
     # -------------------------------------------------------------- search
     def _shard_search(self, si: int, queries, k, prune, nprobe, mode,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .device import resolve_device
 from .sinkhorn import (LamUnderflowError, select_support, sinkhorn_wmd_dense,
                        sinkhorn_wmd_dense_stabilized, underflow_report)
@@ -56,34 +57,47 @@ def one_to_many(r_full, docs: PaddedDocs, vecs, lam: float = 10.0,
     underflowed and the distances came out NaN, instead of returning them.
     The check syncs the result — pass ``False`` to keep the launch async.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    dev = resolve_device(device)
-    vecs = _on(vecs, dev, torch.float32)
-    docs = PaddedDocs(idx=_on(docs.idx, dev, torch.int64),
-                      val=_on(docs.val, dev, torch.float32))
-    r, vecs_sel, _ = select_support(r_full, vecs)
+    with trace.span("wmd.one"):
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        dev = resolve_device(device)
+        with trace.span("wmd.one.stage") as st:
+            if st:          # the inputs still on the host
+                trace.add("h2d_pageable_bytes", sum(
+                    a.nbytes for a in (vecs, docs.idx, docs.val)
+                    if isinstance(a, np.ndarray)))
+            vecs = _on(vecs, dev, torch.float32)
+            docs = PaddedDocs(idx=_on(docs.idx, dev, torch.int64),
+                              val=_on(docs.val, dev, torch.float32))
+            r, vecs_sel, sup = select_support(r_full, vecs)
+            if st:          # the support's ids and weights
+                trace.add("h2d_pageable_bytes", sup.nbytes + sup.size * 4)
 
-    if impl == "sparse":
-        # the check below covers this impl: skip the solver's own
-        out = sinkhorn_wmd_sparse(r, vecs_sel, vecs, docs, lam, n_iter,
-                                  check_underflow=False)
-    elif impl == "sparse_unfused":
-        out = sinkhorn_wmd_sparse_unfused(r, vecs_sel, vecs, docs, lam,
+        with trace.span("wmd.one.solve"):
+            if impl == "sparse":
+                # the check below covers this impl: skip the solver's own
+                out = sinkhorn_wmd_sparse(r, vecs_sel, vecs, docs, lam,
+                                          n_iter, check_underflow=False)
+            elif impl == "sparse_unfused":
+                out = sinkhorn_wmd_sparse_unfused(r, vecs_sel, vecs, docs,
+                                                  lam, n_iter)
+            elif impl == "kernel":
+                from repro_torch.kernels.ops import sinkhorn_wmd_kernel
+                out = sinkhorn_wmd_kernel(r, vecs_sel, vecs, docs, lam,
                                           n_iter)
-    elif impl == "kernel":
-        from repro_torch.kernels.ops import sinkhorn_wmd_kernel
-        out = sinkhorn_wmd_kernel(r, vecs_sel, vecs, docs, lam, n_iter)
-    else:
-        c = padded_docs_to_dense(docs, vecs.shape[0])
-        if impl == "dense_stabilized":
-            return sinkhorn_wmd_dense_stabilized(r, vecs_sel, vecs, c, lam,
-                                                 n_iter)
-        out = sinkhorn_wmd_dense(r, vecs_sel, vecs, c, lam, n_iter)
-    if (check_underflow and r.shape[0] > 0
-            and bool(torch.isnan(out).any())):
-        raise LamUnderflowError(underflow_report(lam, vecs_sel, vecs, docs))
-    return out
+            else:
+                c = padded_docs_to_dense(docs, vecs.shape[0])
+                if impl == "dense_stabilized":
+                    return sinkhorn_wmd_dense_stabilized(r, vecs_sel, vecs,
+                                                         c, lam, n_iter)
+                out = sinkhorn_wmd_dense(r, vecs_sel, vecs, c, lam, n_iter)
+        if check_underflow and r.shape[0] > 0:
+            with trace.span("wmd.wait"):
+                nan = bool(torch.isnan(out).any())
+            if nan:
+                raise LamUnderflowError(underflow_report(lam, vecs_sel, vecs,
+                                                         docs))
+        return out
 
 
 def many_to_many(queries: list[np.ndarray], docs: PaddedDocs, vecs,
