@@ -33,10 +33,11 @@ N=5000, 10 queries of 19-43 words, n_iter=15), it drives each path:
 - K1 at the main path's chunk and the paper's widest with its fixed cost
   (``n_iter`` 0 and 1) and the inert docs' share, and in every tile
   class up to 64 x 64; K2 beside cuBLAS SGEMM of the same product (also
-  at 128 queries, one launch); and K1's shared-memory against its
-  device-memory variant on each side of the tile where ``auto`` switches
-  between them (``--k1-crossover-sweep``: across eight tiles from 96 x 28
-  to 192 x 192);
+  at 128 queries, one launch); and K1's live-tile route (``auto`` past
+  64 x 64) against its shared- and device-memory variants on each side
+  of the tile where ``auto`` switched between those two before it
+  (``--k1-crossover-sweep``: across eight tiles from 96 x 28 to 192 x
+  192, against 512 and 4 096 documents);
 - the einsum engine ``WmdEngine(impl="sparse")``: search and
   ``query_batch`` against its exhaustive top-10 and the kernel engine's
   distances, ``warm_start`` on the near-duplicate corpus, the K-column
@@ -756,13 +757,20 @@ def phase_k1_tiles(index, sup, r, mask) -> dict:
     return rec
 
 
-def phase_k1_wide(index, dev, crossover) -> dict:
+# K1's variants past 64 x 64 as the records name them, and the tile that
+# runs each: "live" is what tile="auto" runs there
+K1_WIDE_TILES = (("live", "auto"), ("shared", "shared"),
+                 ("global", "global"))
+
+
+def phase_k1_wide(index, dev, crossover, docs=(512,)) -> dict:
     """K1's variants for tiles wider than 64 query rows or doc slots (no
-    paper shape is): the shared-memory one on 96-row queries, held against
-    the plain version and timed beside the device-memory one at that
-    shape; the two variants on the ``crossover`` tiles
-    (:func:`phase_k1_crossover`); then the tile over the shared-memory
-    limit (:func:`phase_k1_over_limit`)."""
+    paper shape is): what ``auto`` runs there (the live-tile one) on
+    96-row queries, held against the plain version and timed beside the
+    shared- and device-memory ones at that shape; the variants on the
+    ``crossover`` tiles against each of ``docs`` documents
+    (:func:`phase_k1_crossover`); then the tile over
+    the shared-memory limit (:func:`phase_k1_over_limit`)."""
     sup, r, mask = paper_chunk(index.vocab_size, dev, width=96, q=2, seed=1)
     grp = index.subset(np.arange(1024, dtype=np.int32), storage=True)
     for log_domain, lam in ((False, 1.0), (True, CONFIG.lam)):
@@ -778,38 +786,40 @@ def phase_k1_wide(index, dev, crossover) -> dict:
                              f"K1 wide log_domain={log_domain}")
         rec = {"phase": "k1_wide", "log_domain": log_domain,
                "shape": list(g.shape), "max_abs_err": abs_err}
-        for tile in ("shared", "global"):
+        for name, tile in K1_WIDE_TILES:
             def run(tile=tile, g=g, lam=lam, log_domain=log_domain):
                 return ops.sinkhorn_fused_all_batched(
                     g, grp.docs.val, r, lam, CONFIG.n_iter,
                     log_domain=log_domain, tile=tile)
-            rec[tile] = {"max_abs_err": compare(
+            rec[name] = {"max_abs_err": compare(
                 run(), want, K1_RTOL, K1_ATOL,
-                f"K1 wide tile={tile} log_domain={log_domain}")[0],
+                f"K1 wide {name} log_domain={log_domain}")[0],
                 "ms": time_ms(run)}
         emit(rec)
         del g
-    phase_k1_crossover(index, dev, crossover)
+    for n_docs in docs:
+        phase_k1_crossover(index, dev, crossover, n_docs)
     return phase_k1_over_limit(index, dev)
 
 
-# (v_r, L) tiles on each side of where K1's "auto" switches from the
-# shared-memory to the device-memory variant (kTwoBlockSmem in
-# sinkhorn_fused.cu), and the sweep that placed the switch, between the
-# two measured ends of the crossover (96 x 28, 192 x 192), which
-# ``--k1-crossover-sweep`` runs instead
+# (v_r, L) tiles on each side of where K1's "auto" switched from the
+# shared-memory to the device-memory variant before the live-tile one
+# replaced both, and the sweep that placed the switch, between the two
+# measured ends of the crossover (96 x 28, 192 x 192), which
+# ``--k1-crossover-sweep`` runs instead: the live-tile variant against
+# both at every shape the shared one served, against 512 and 4 096 docs
+# (a launch's pair count sets the live-tile kernel's share of fixed cost)
 K1_CROSSOVER = ((160, 160), (176, 176))
 K1_CROSSOVER_SWEEP = ((96, 28), (96, 64), (128, 64), (128, 128), (160, 128),
                       (160, 160), (176, 176), (192, 192))
 
 
-def phase_k1_crossover(index, dev, shapes) -> dict:
-    """Where ``tile="auto"`` switches from the shared-memory variant to the
-    device-memory one: both held against the plain version and timed on
-    the (v_r, L) ``shapes`` (Q=2, N=512 synthetic docs of the paper
-    vocabulary, fp32 at lam=1 and log at lam=10), beside what ``auto``
-    takes there."""
-    n_docs = 512
+def phase_k1_crossover(index, dev, shapes, n_docs: int = 512) -> dict:
+    """The shared-memory, device-memory and live-tile variants (what
+    ``tile="auto"`` takes past 64 x 64) held against the plain version and
+    timed on the (v_r, L) ``shapes`` (Q=2, ``n_docs`` synthetic docs of
+    the paper vocabulary, fp32 at lam=1 and log at lam=10); "faster"
+    names the fastest."""
     rec = {"phase": "k1_crossover", "Q": 2, "N": n_docs,
            "n_iter": CONFIG.n_iter, "shapes": []}
     for v_r, length in shapes:
@@ -823,15 +833,16 @@ def phase_k1_crossover(index, dev, shapes) -> dict:
             want = ref.sinkhorn_fused_all_batched_ref(
                 g, val, r, lam, CONFIG.n_iter, log_domain=log_domain)[0]
             times = {}
-            for tile in ("shared", "global", "auto"):
+            for name, tile in K1_WIDE_TILES:
                 def run(tile=tile, g=g, lam=lam, log_domain=log_domain):
                     return ops.sinkhorn_fused_all_batched(
                         g, val, r, lam, CONFIG.n_iter,
                         log_domain=log_domain, tile=tile)
                 compare(run(), want, K1_RTOL, K1_ATOL,
-                        f"K1 {v_r}x{length} tile={tile} log={log_domain}")
-                times[tile] = time_ms(run)
-            times["faster"] = min(("shared", "global"), key=times.get)
+                        f"K1 {v_r}x{length} {name} log={log_domain}")
+                times[name] = time_ms(run)
+            times["faster"] = min((name for name, _ in K1_WIDE_TILES),
+                                  key=times.get)
             row["log" if log_domain else "fp32"] = times
             del g, want
         rec["shapes"].append(row)
@@ -2077,7 +2088,8 @@ def wide_docs(index, dev, n: int, length: int, seed: int):
 def phase_k1_over_limit(index, dev) -> dict:
     """K1 with a (v_r, L) tile over the card's 227 KB of shared memory:
     256 query rows against 384 docs of 256 slots (263 KB), which
-    ``tile="auto"`` runs on the variant that reads G from device memory;
+    ``tile="auto"`` runs on the live-tile variant (its pairs' live tiles
+    over its arena streamed from device memory);
     fp32 at lam=1 and log at lam=10, fixed and adaptive, and K4 on one
     query's tile, each held against the plain version; timed beside the shared-memory variant at
     the same Q and N on 192-row, 192-slot tiles (both variants there)."""
@@ -2123,14 +2135,14 @@ def phase_k1_over_limit(index, dev) -> dict:
         r2 = r[:, :192].contiguous()
         want = ref.sinkhorn_fused_all_batched_ref(
             g2, v2, r2, lam, CONFIG.n_iter, log_domain=log_domain)[0]
-        for tile in ("shared", "global"):
+        for name, tile in K1_WIDE_TILES:
             def run2(tile=tile, g2=g2, lam=lam, log_domain=log_domain):
                 return ops.sinkhorn_fused_all_batched(
                     g2, v2, r2, lam, CONFIG.n_iter, log_domain=log_domain,
                     tile=tile)
             abs_err, _ = compare(run2(), want, K1_RTOL, K1_ATOL,
-                                 f"K1 192x192 tile={tile} {key}")
-            rec["cases"][f"{key} 192x192 {tile}"] = {
+                                 f"K1 192x192 {name} {key}")
+            rec["cases"][f"{key} 192x192 {name}"] = {
                 "max_abs_err": abs_err, "ms": time_ms(run2)}
         del kq, g, g2
     emit(rec)
@@ -3948,8 +3960,10 @@ def main() -> int:
     phase_k1_tiles(index, sup, r, mask)
     k1_ad = phase_k1_adaptive(index, sup, r, mask, "main_path")
     phase_k1_bf16(index, sup, r, mask)
-    phase_k1_wide(index, dev, K1_CROSSOVER_SWEEP
-                  if "--k1-crossover-sweep" in sys.argv[1:] else K1_CROSSOVER)
+    if "--k1-crossover-sweep" in sys.argv[1:]:
+        phase_k1_wide(index, dev, K1_CROSSOVER_SWEEP, (512, 4096))
+    else:
+        phase_k1_wide(index, dev, K1_CROSSOVER)
     # more live rows than one stacked group of 128 (two groups); more queries
     # than one stacked launch's 64, as refine stages every query of a
     # search (fig15's stream has 128) in one tensor

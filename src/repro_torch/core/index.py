@@ -51,6 +51,7 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import trace
 from .device import resolve_device
@@ -1040,8 +1041,11 @@ class WmdEngine:
         self._iters_dropped = 0
         self._kcache = None
         self.kcache_min_hits = max(1, int(kcache_min_hits))
-        # (index, {id(whole-corpus group): live words}) for the solve span
+        # (index, {id(whole-corpus group): (live words, each doc's live
+        # extent)}) for the solve span
         self._group_words = (None, {})
+        # staged r (while tracing) -> each staged query's live rows
+        self._staged_rows = WeakIdKeyDictionary()
         if kcache_slots:
             self.enable_kcache(int(kcache_slots))
 
@@ -1174,10 +1178,13 @@ class WmdEngine:
                       np.zeros(width, self.dtype))
             prepared += [filler] * (q_pad - n_live)
             staged = [np.stack([p[i] for p in prepared]) for i in range(3)]
+            dev = self.device
+            out = tuple(torch.as_tensor(a, device=dev) for a in staged)
             if s:
                 trace.add("h2d_pageable_bytes", sum(a.nbytes for a in staged))
-            dev = self.device
-            return tuple(torch.as_tensor(a, device=dev) for a in staged)
+                self._staged_rows[out[1]] = np.count_nonzero(staged[2],
+                                                             axis=1)
+            return out
 
     def _kq(self, sup, mask):
         """The chunk's K block as the pair (kq, mq): the kernel impl's
@@ -1238,8 +1245,12 @@ class WmdEngine:
         with trace.span("wmd.solve") as s:
             if s:
                 n_pad, l_g = grp.docs.idx.shape
-                s.set(docs=len(grp.cols), doc_words=self._live_words(grp),
-                      n_pad=n_pad, l_g=l_g, stage=stage)
+                words, ext = self._group_host(grp)
+                s.set(docs=len(grp.cols), doc_words=words, n_pad=n_pad,
+                      l_g=l_g, stage=stage)
+                if self.impl == "kernel" and r in self._staged_rows:
+                    s.set(**_tile_cells(self._staged_rows[r], ext,
+                                        r.shape[1], l_g))
             kqk, mq = kq
             scoped = self._scoped()
             if self.impl == "kernel":
@@ -1263,19 +1274,24 @@ class WmdEngine:
             self._record_iters(stage, out[1], scoped, n_live)
             return (out[0], out[2]) if want_profile else out[0]
 
-    def _live_words(self, grp: DocGroup) -> int:
-        """Live words of the group's real documents, from the host mirror
-        (read while tracing only); a whole-corpus group's once."""
+    def _group_host(self, grp: DocGroup):
+        """The live words of the group's real documents and each one's
+        live extent (its last slot with val != 0, plus one), from the host
+        mirror (read while tracing only); a whole-corpus group's once."""
         index = self.index
         if self._group_words[0] is not index:
             self._group_words = (index, {})
         whole = self._group_words[1]
         if id(grp) in whole:
             return whole[id(grp)]
-        n = int(np.count_nonzero(index.docs_host.val[grp.cols] > 0))
+        val = index.docs_host.val[grp.cols]
+        nz = val != 0
+        ext = np.where(nz.any(axis=1),
+                       val.shape[1] - np.argmax(nz[:, ::-1], axis=1), 0)
+        out = (int(np.count_nonzero(val > 0)), ext)
         if any(grp is g for g in index.groups):
-            whole[id(grp)] = n
-        return n
+            whole[id(grp)] = out
+        return out
 
     def _warm(self) -> bool:
         """Do survivor solves start from the seed solve's profile?"""
@@ -1724,6 +1740,26 @@ def _read(t: torch.Tensor) -> np.ndarray:
     """A device result read back to the host (a ``wmd.wait`` span)."""
     with trace.span("wmd.wait"):
         return t.cpu().numpy()
+
+
+def _tile_cells(rows: np.ndarray, ext: np.ndarray, width: int,
+                l_g: int) -> dict:
+    """A ``wmd.solve`` span's K1 tile counts for a chunk whose staged
+    queries have ``rows`` live rows (fillers 0) against documents of live
+    extents ``ext``, in a launch of (``width``, ``l_g``) tiles:
+    ``wide_cells``, the live cells (rows x extent) of its pairs where the
+    tile is past 64 x 64 (0 where K1's warp variant runs it), and
+    ``onchip_cells``, the part of them whose live tile the live-tile
+    kernel holds in shared memory (``kernels.ops.live_tile_bytes`` within
+    ``LIVE_ARENA_BYTES``; the rest it streams from device memory)."""
+    from repro_torch.kernels import ops
+    if ops.fits_warp(width, l_g):
+        return {"wide_cells": 0, "onchip_cells": 0}
+    k, e = np.broadcast_arrays(rows[:, None], ext[None, :])
+    cells = k * e
+    onchip = ops.live_tile_bytes(k, e) <= ops.LIVE_ARENA_BYTES
+    return {"wide_cells": int(cells.sum()),
+            "onchip_cells": int(cells[onchip].sum())}
 
 
 def _chunk_attrs(span, chunk: list, vr: list, width: int,

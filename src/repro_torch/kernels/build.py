@@ -100,10 +100,13 @@ def load() -> ctypes.CDLL:
     lib.rwmd_min_cdist_subset_stacked.argtypes = [i, i, i]
     lib.rwmd_min_cdist_subset_stacked.restype = i
     lib.sinkhorn_fused_batched_launch.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, f, i, i, f, i, i, i, p]
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, f, i, i, i, i,
+        p]
     lib.sinkhorn_fused_batched_launch.restype = i
-    lib.sinkhorn_fused_smem_bytes.argtypes = [i, i, i]
+    lib.sinkhorn_fused_smem_bytes.argtypes = [i, i, i, i]
     lib.sinkhorn_fused_smem_bytes.restype = ctypes.c_longlong
+    lib.sinkhorn_fused_live_floats.argtypes = [i, i]
+    lib.sinkhorn_fused_live_floats.restype = ctypes.c_longlong
     lib.cdist_exp_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, i, i, p]
     lib.cdist_exp_launch.restype = i
     lib.sddmm_spmm_step_launch.argtypes = [p, p, p, p, p, i, i, i, p]

@@ -64,17 +64,30 @@
 // once per (query, doc) tile, and every iteration and the distance line
 // run on chip; u, x, t, w never leave the SM, and GM is rebuilt from the
 // tile (no second array). The final sum is in a fixed order, so the
-// result is deterministic. Three variants:
+// result is deterministic. Four variants; "auto" routes by the shapes it
+// is given, (v_r, L):
 // - sinkhorn_fused_warp_kernel ("warp", what "auto" runs up to 64 x 64,
 //   every shape of the paper's workload): a warp per tile, no block
 //   barrier, asynchronous tile loads, inert docs skipped (its comment
 //   below);
-// - the kernel just below ("shared"): the tile in dynamic shared memory
-//   (row stride padded to an odd count so the SpMM's row-per-thread reads
-//   hit distinct banks), what "auto" runs past 64 x 64 while two blocks
-//   fit an SM;
+// - sinkhorn_fused_live_kernel (what "auto" runs past 64 x 64): each
+//   pair solved over its live tile only (rows to its last live row, slots
+//   to its last val != 0), read once into shared memory, pairs of varied
+//   size packed into persistent blocks in two launches by size, and
+//   sinkhorn_fused_stream_kernel for the pairs over its arena (their
+//   comments below). Past 64 x 64 a group pads its documents to its
+//   widest and a chunk its queries to its widest, so most of a padded
+//   tile is dead (news20's 500-slot group averages ~146 live slots): the
+//   two variants below run every padded slot, and this one only the live
+//   ones. On small tiles with little padding (~96 rows, at most 64
+//   slots) the shared variant is faster (PERF.md, section 7);
+// - the kernel just below ("shared"): the padded tile in dynamic shared
+//   memory (row stride padded to an odd count so the SpMM's row-per-thread
+//   reads hit distinct banks), 64 threads a block;
 // - sinkhorn_fused_global_kernel ("global"): G read from device memory at
-//   every pass, what "auto" runs past that (kTwoBlockSmem).
+//   every pass, any size.
+// "shared" and "global" were "auto"'s route past 64 x 64 before the live
+// kernel; they stay for the tests and timings that hold it against them.
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py phases k1, k1_tiles,
 // k1_crossover; PERF.md) the warp variant was 2.2-3.3x faster than the
 // block-per-tile design it replaced at the paper's chunks, and faster in
@@ -305,31 +318,40 @@ sinkhorn_fused_batched_kernel(const float* __restrict__ g,
 // over the slots, then a shuffle sum), so every read of G is coalesced.
 // A doc's tile is read twice per iteration; at 256 x 256 one block's tile
 // is 256 KB, and the tiles of the blocks in flight fit the 50 MB L2.
+//
+// stream_solve is that solve for one pair, by every thread of a block of
+// kGThreads, over the tile's rows [0, K) and slots [0, Lt): the
+// device-memory kernel passes the whole tile; the stream kernel below
+// passes a pair whose live tile is over the live-tile kernel's shared
+// memory, trimmed to its last live row and slot. Its reductions take
+// 2 * kGThreads / 32 floats (red), which global_smem_bytes reserves from
+// the same constant: a block of more threads would write red past what
+// is reserved. Rows past K are zero (or -inf) on the slots kept and
+// slots past Lt have val 0, so they change nothing but the live-row
+// count (a constant factor that cancels) and the NaN a dead row's 0 * inf
+// gives the full loop where some w is not finite, which the end
+// restores.
 constexpr int kGThreads = 256;
 
 template <bool BF16>
-__global__ void __launch_bounds__(kGThreads)
-sinkhorn_fused_global_kernel(const float* __restrict__ g,
+__device__ void stream_solve(float* smem, const float* __restrict__ g,
                              const float* __restrict__ val,
                              const float* __restrict__ r,
                              const float* __restrict__ resmask,
-                             float* __restrict__ wmd,
-                             int* __restrict__ iters, int VR, int N, int L,
-                             int n_iter, float lam, int log_domain,
+                             float* __restrict__ wmd, int* __restrict__ iters,
+                             int q, int n, int VR, int N, int L, int K,
+                             int Lt, int n_iter, float lam, int log_domain,
                              int block_n, float tol, int check_every) {
-  constexpr int NW = kGThreads / 32;
-  extern __shared__ float smem[];
-  float* xs = smem;                        // (VR,)
-  float* us = xs + VR;                     // (VR,)
-  float* rinv = us + VR;                   // (VR,)
-  float* ws = rinv + VR;                   // (L,)
-  float* wprev = ws + L;                   // (L,) w at the last decision
-  float* vals = wprev + L;                 // (L,)
-  float* shift = vals + L;                 // (L,)
-  float* red = shift + L;                  // (2 * NW,)
+  constexpr int NT = kGThreads, NW = NT / 32;
+  float* xs = smem;                        // (K,)
+  float* us = xs + K;                      // (K,)
+  float* rinv = us + K;                    // (K,)
+  float* ws = rinv + K;                    // (Lt,)
+  float* wprev = ws + Lt;                  // (Lt,) w at the last decision
+  float* vals = wprev + Lt;                // (Lt,)
+  float* shift = vals + Lt;                // (Lt,)
+  float* red = shift + Lt;                 // (2 * NW,)
 
-  const int n = blockIdx.x;
-  const int q = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5;
   const size_t nl = (size_t)N * L;
@@ -345,38 +367,38 @@ sinkhorn_fused_global_kernel(const float* __restrict__ g,
     return isfinite(v) ? expf(v - shift[l]) : 0.f;
   };
 
-  for (int l = tid; l < L; l += kGThreads) {
+  for (int l = tid; l < Lt; l += NT) {
     vals[l] = val[(size_t)n * L + l];
     float m = -INFINITY;
     if (log_domain)
-      for (int k = 0; k < VR; ++k) m = fmaxf(m, gq[(size_t)k * nl + l]);
+      for (int k = 0; k < K; ++k) m = fmaxf(m, gq[(size_t)k * nl + l]);
     shift[l] = log_domain && isfinite(m) ? m : 0.f;
   }
-  for (int k = tid; k < VR; k += kGThreads)
+  for (int k = tid; k < K; k += NT)
     rinv[k] = safe_inv(r[(size_t)q * VR + k]);
   __syncthreads();
 
   // live rows of this doc: any G != 0 (pad rows are all zero)
-  for (int k = wid; k < VR; k += NW) {
+  for (int k = wid; k < K; k += NW) {
     bool live = false;
-    for (int l = lane; l < L; l += 32) live = live || gat(k, l) != 0.f;
+    for (int l = lane; l < Lt; l += 32) live = live || gat(k, l) != 0.f;
     live = __any_sync(0xffffffffu, live);
     if (lane == 0) us[k] = live ? 1.f : 0.f;
   }
   __syncthreads();
   float cnt = 0.f;
-  for (int k = 0; k < VR; ++k) cnt += us[k];
-  for (int k = tid; k < VR; k += kGThreads)
+  for (int k = 0; k < K; ++k) cnt += us[k];
+  for (int k = tid; k < K; k += NT)
     xs[k] = us[k] > 0.f ? 1.f / cnt : 0.f;
   __syncthreads();
 
   int end = check_every > 0 ? INT_MAX : n_iter, next = 1;
   for (int done = 0;; ++done) {
-    for (int k = tid; k < VR; k += kGThreads) us[k] = safe_inv(xs[k]);
+    for (int k = tid; k < K; k += NT) us[k] = safe_inv(xs[k]);
     __syncthreads();
-    for (int l = tid; l < L; l += kGThreads) {             // SDDMM
+    for (int l = tid; l < Lt; l += NT) {                   // SDDMM
       float t = 0.f;
-      for (int k = 0; k < VR; ++k)
+      for (int k = 0; k < K; ++k)
         t = fmaf(rnd<BF16>(gat(k, l)), rnd<BF16>(us[k]), t);
       const float v = vals[l];
       float inv = log_domain ? safe_inv(t) : 1.f / t;
@@ -384,10 +406,10 @@ sinkhorn_fused_global_kernel(const float* __restrict__ g,
     }
     __syncthreads();
     if (done >= end) break;         // last pass: u and w for the distance
-    for (int k = wid; k < VR; k += NW) {                   // SpMM
+    for (int k = wid; k < K; k += NW) {                    // SpMM
       const float ri = rinv[k];
       float x = 0.f;
-      for (int l = lane; l < L; l += 32)
+      for (int l = lane; l < Lt; l += 32)
         x = fmaf(rnd<BF16>(gat(k, l) * ri), rnd<BF16>(ws[l]), x);
       for (int off = 16; off > 0; off >>= 1)
         x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -396,15 +418,14 @@ sinkhorn_fused_global_kernel(const float* __restrict__ g,
     __syncthreads();
     if (check_every > 0 && done + 1 == next) {              // decide
       float diff = 0.f, scale = 0.f;
-      for (int l = tid; l < L; l += kGThreads) {
+      for (int l = tid; l < Lt; l += NT) {
         if (doc_in_scope && vals[l] > 0.f) {
           diff = nanmax(diff, fabsf(ws[l] - wprev[l]));
           scale = nanmax(scale, fabsf(ws[l]));
         }
         wprev[l] = ws[l];           // each thread reads only its own slots
       }
-      const bool conv = done > 0 && converged<kGThreads>(diff, scale, tol,
-                                                          red);
+      const bool conv = done > 0 && converged<NT>(diff, scale, tol, red);
       if (conv || done + 1 >= n_iter) {
         end = done + 1;
       } else {
@@ -415,9 +436,9 @@ sinkhorn_fused_global_kernel(const float* __restrict__ g,
 
   // distance line: sum_k u[k] sum_l GM[k,l] w[l], a warp per row
   float part = 0.f;
-  for (int k = wid; k < VR; k += NW) {
+  for (int k = wid; k < K; k += NW) {
     float s = 0.f;
-    for (int l = lane; l < L; l += 32) {
+    for (int l = lane; l < Lt; l += 32) {
       const float gv = gat(k, l);
       const float gm = gv > 0.f ? (-gv * logf(gv)) / lam : 0.f;
       s = fmaf(gm, ws[l], s);
@@ -426,7 +447,9 @@ sinkhorn_fused_global_kernel(const float* __restrict__ g,
       s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) part = fmaf(us[k], s, part);
   }
-  __syncthreads();                  // red was last read by the decisions
+  bool bad = false;                 // a w that is not finite
+  for (int l = tid; l < Lt; l += NT) bad = bad || !isfinite(ws[l]);
+  bad = __syncthreads_or(bad);      // red was last read by the decisions
   if (lane == 0) red[wid] = part;
   __syncthreads();
   if (tid == 0) {
@@ -434,15 +457,33 @@ sinkhorn_fused_global_kernel(const float* __restrict__ g,
     for (int i = 0; i < NW; ++i) total += red[i];
     if (log_domain) {
       float corr = 0.f;
-      for (int l = 0; l < L; ++l) corr = fmaf(shift[l], vals[l], corr);
+      for (int l = 0; l < Lt; ++l) corr = fmaf(shift[l], vals[l], corr);
       total -= corr / lam;
     }
+    // a dead row's 0 * inf (a row of the tile that no slot kept reaches)
+    if (bad && cnt < (float)VR) total = NAN;
     wmd[(size_t)q * N + n] = total;
     if (iters != nullptr)
       atomicMax(iters + (size_t)q * ((N + block_n - 1) / block_n) +
                     n / block_n,
                 end);
   }
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kGThreads)
+sinkhorn_fused_global_kernel(const float* __restrict__ g,
+                             const float* __restrict__ val,
+                             const float* __restrict__ r,
+                             const float* __restrict__ resmask,
+                             float* __restrict__ wmd,
+                             int* __restrict__ iters, int VR, int N, int L,
+                             int n_iter, float lam, int log_domain,
+                             int block_n, float tol, int check_every) {
+  extern __shared__ float smem[];
+  stream_solve<BF16>(smem, g, val, r, resmask, wmd, iters, blockIdx.y,
+                     blockIdx.x, VR, N, L, VR, L, n_iter, lam, log_domain,
+                     block_n, tol, check_every);
 }
 
 // Warp-per-tile variant (tile="warp"), the redesign for tiles up to 64 x
@@ -851,15 +892,561 @@ sinkhorn_fused_warp_kernel(const float* __restrict__ g,
   async_copy::wait<0>();
 }
 
+// Live-tile variant, what "auto" runs past 64 x 64. Each
+// (query, doc) pair is solved over its live tile only: the query's rows up
+// to its last live row (any G != 0 on the slots kept; under log_domain any
+// finite log K) and the doc's slots up to its last val != 0. The live tile
+// is read from device memory once, exponentiated once as it lands (log
+// domain), and every pass of the solve reads it from shared memory.
+//
+// Persistent blocks take pairs from a counter in device memory (`work`,
+// zero at launch) kLPairs at a time (fewer in a launch of fewer than
+// kLPairs pairs a block, which would leave blocks idle), measure each (a
+// warp per pair: val's last nonzero, then rows from the last down, eight
+// at a time, until one is live; the first launch measures every pair and
+// keeps its extents in `ext`, where the second reads them), and pack them
+// in order into their arena (the whole of the block's dynamic shared
+// memory) while they fit. A launch's shared memory is one size for every
+// block, and live tiles vary ~10x, so the launches are split by live
+// size: a first launch at two blocks an SM, each with half the arena,
+// takes the pairs whose region fits half of it (most pairs and cells at
+// news20's shapes), a second at one block an SM the rest (lo_floats <
+// live_floats <= hi_floats picks a launch's pairs; each has its own
+// counter). Packing keeps each block's threads busy where tiles are far
+// below its arena; the classes put twice the warps on an SM for the
+// common small tiles (tools/time_kernel_variants.py k1 times both against
+// one launch, and one pair a round; PERF.md). The round's
+// pairs are solved together: every phase is a flat list of items over all
+// of them (a thread per item, then one barrier), so a round of small
+// tiles keeps as many threads busy as one large tile:
+// - SDDMM: an item is a slot l and a run of kLSeg rows, summed in order
+//   into a partial; then an item per slot adds its partials in order and
+//   makes w. SpMM and the distance line: an item is a row k and a run of
+//   kLSeg slots; then an item per row. The row stride is odd, so a warp's
+//   row items read distinct banks; its slot items read neighbouring words.
+// - Each pair's sums run in an order fixed by its own (K, Lt) alone, so a
+//   distance does not depend on the pairs it was packed with.
+// - Adaptive mode: each pair keeps its own count and exit; the residual's
+//   maxima are shared atomicMax on the bits (non-negative floats and NaN
+//   order as unsigned), and the round runs until its last pair stops.
+// - A doc whose val row is all zero loads nothing (distance 0 and the
+//   count of ref.inert_doc_iters, as the warp variant). A filler query has
+//   no live row: its tile is empty and its loop costs one slot pass.
+// - A pair whose live tile is over the whole arena is listed by the
+//   second launch (`over`) for a third, sinkhorn_fused_stream_kernel
+//   (below), which streams it from device memory. `stats`, unless null,
+//   gathers the live cells (K * Lt) solved on chip (stats[0]) and
+//   streamed (stats[1]).
+// 512 threads: a block of 1024 (one an SM) ran ~10% faster in an earlier
+// form of this kernel, which streamed the pairs over its arena itself,
+// but its adaptive exit was wrong on streamed pairs: it ran stream_solve
+// at 1024 threads in space reserved for 256 threads' reductions (the
+// scale maxima of warps 16-31 fell in the packing arena). 1024 threads
+// have not been timed since.
+// fp32: x[k] = (1/r[k]) * sum_l G[k,l] w[l] (a rounding apart from the
+// shared variant's per-element G/r); bf16 rounds as the shared variant.
+constexpr int kLThreads = 512;
+constexpr int kLWarps = kLThreads / 32;
+constexpr int kLPairs = 16;               // pairs measured and packed a round
+constexpr int kLSeg = 64;                 // terms one thread sums in order
+
+__host__ __device__ constexpr long long r4(long long x) {
+  return (x + 3) & ~3LL;
+}
+
+// floats of one pair's region: the tile (row stride Lt | 1), the partial
+// sums, u and 1/r (K each), w, w at the last decision, val and the shift
+// (Lt each), every part 16-byte aligned. kernels/ops.py's live_tile_bytes
+// is the same rule.
+__host__ __device__ inline long long live_floats(int K, int Lt) {
+  const long long ck = (K + kLSeg - 1) / kLSeg, cl = (Lt + kLSeg - 1) / kLSeg;
+  const long long part = ck * Lt > cl * K ? ck * Lt : cl * K;
+  return r4((long long)K * (Lt | 1)) + r4(part) + 2 * r4(K) + 4 * r4(Lt);
+}
+
+// A pair's live extents, by one warp: Lt, its doc's last slot with
+// val != 0, plus one (0: an inert doc); K, its last row with a live entry
+// on those slots (G != 0, or finite log K), plus one, found from the last
+// row down, eight rows a step.
+__device__ __forceinline__ void measure_pair(const float* __restrict__ g,
+                                             const float* __restrict__ val,
+                                             int q, int n, int VR, int N,
+                                             int L, int log_domain, int* K,
+                                             int* Lt) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const size_t nl = (size_t)N * L;
+  int last = -1;
+  for (int l = lane; l < L; l += 32)
+    if (val[(size_t)n * L + l] != 0.f) last = l;
+  const int lt = __reduce_max_sync(full, last) + 1;
+  int kext = 0;
+  if (lt > 0) {
+    const float* gq = g + (size_t)q * VR * nl + (size_t)n * L;
+    for (int k0 = VR; k0 > 0 && kext == 0; k0 -= 8) {
+      unsigned bits = 0;
+      for (int l = lane; l < lt; l += 32) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int k = k0 - 1 - j;
+          if (k >= 0) {
+            const float v = gq[(size_t)k * nl + l];
+            if (log_domain ? isfinite(v) : v != 0.f) bits |= 1u << j;
+          }
+        }
+      }
+      bits = __reduce_or_sync(full, bits);
+      if (bits) kext = k0 - (__ffs(bits) - 1);
+    }
+  }
+  *K = kext;
+  *Lt = lt;
+}
+
+struct LiveRound {
+  // the round's pairs: coordinates, extents and offsets into the arena
+  int q[kLPairs], n[kLPairs], K[kLPairs], Lt[kLPairs];
+  int tile[kLPairs], part[kLPairs], u[kLPairs], rinv[kLPairs], w[kLPairs];
+  int wprev[kLPairs], val[kLPairs], shift[kLPairs];
+  int end[kLPairs], next[kLPairs], scope[kLPairs];
+  unsigned diff[kLPairs], scale[kLPairs];
+  float cnt[kLPairs];
+  // item counts before each pair: rows, slots, SDDMM and SpMM partials
+  int pre_k[kLPairs + 1], pre_l[kLPairs + 1];
+  int pre_sd[kLPairs + 1], pre_sp[kLPairs + 1];
+  int np, maxend;
+  // pairs measured and not yet packed, in the order taken
+  int cq[kLPairs], cn[kLPairs], cK[kLPairs], cL[kLPairs];
+  int ncand, fetch, nfetch, exhausted;
+  int eK[kLPairs], eL[kLPairs];
+};
+
+// the pair that item i falls in, given the last one (a thread's items rise)
+__device__ __forceinline__ int pair_of(const int* pre, int i, int p) {
+  while (i >= pre[p + 1]) ++p;
+  return p;
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kLThreads, 2)
+sinkhorn_fused_live_kernel(const float* __restrict__ g,
+                           const float* __restrict__ val,
+                           const float* __restrict__ r,
+                           const float* __restrict__ resmask,
+                           float* __restrict__ wmd, int* __restrict__ iters,
+                           int* __restrict__ work,
+                           int* __restrict__ ext, int measure,
+                           int* __restrict__ over, int* __restrict__ n_over,
+                           unsigned long long* __restrict__ stats, int Q,
+                           int VR, int N, int L, int n_iter, float lam,
+                           int log_domain, int block_n, float tol,
+                           int check_every, int arena_floats,
+                           int lo_floats, int hi_floats) {
+  extern __shared__ __align__(16) float arena[];
+  __shared__ LiveRound s;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const unsigned full = 0xffffffffu;
+  const int total = Q * N;
+  // pairs a block takes at a time: kLPairs, or its share of a launch of
+  // few pairs, so that they spread over every block
+  const int share = min(kLPairs, max(1, (total + (int)gridDim.x - 1) /
+                                            (int)gridDim.x));
+  const size_t nl = (size_t)N * L;
+  const int nb = (N + block_n - 1) / block_n;
+  const bool adaptive = check_every > 0;
+  if (tid == 0) {
+    s.ncand = 0;
+    s.exhausted = 0;
+  }
+
+  for (;;) {
+    __syncthreads();                // the last round's state is read
+    if (tid == 0) {                 // take the next pairs
+      const int need = s.exhausted ? 0 : min(share, kLPairs - s.ncand);
+      const int base = need > 0 ? atomicAdd(work, need) : total;
+      const int got = base < total ? min(need, total - base) : 0;
+      if (got < need) s.exhausted = 1;
+      s.fetch = base;
+      s.nfetch = got;
+    }
+    __syncthreads();
+    if (wid < s.nfetch) {           // measure one (a warp), or read it
+      const int p = s.fetch + wid, q = p / N, n = p - q * N;
+      int kext, lt;
+      if (measure) {
+        measure_pair(g, val, q, n, VR, N, L, log_domain, &kext, &lt);
+        if (lane == 0) {
+          ext[p] = (int)((unsigned)kext << 16 | (unsigned)lt);
+          if (lt == 0) {            // inert doc: what the full loop gives
+            wmd[(size_t)q * N + n] = 0.f;
+            if (iters != nullptr)
+              atomicMax(iters + (size_t)q * nb + n / block_n,
+                        inert_count(n_iter, tol, check_every));
+          }
+        }
+      } else {
+        kext = (int)((unsigned)ext[p] >> 16);
+        lt = ext[p] & 0xffff;
+      }
+      if (lane == 0) {
+        s.eK[wid] = kext;
+        s.eL[wid] = lt;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {                 // queue, then pack in order
+      for (int i = 0; i < s.nfetch; ++i) {
+        const int p = s.fetch + i;
+        const long long f = s.eL[i] ? live_floats(s.eK[i], s.eL[i]) : 0;
+        if (over != nullptr && f > hi_floats)  // for the stream kernel
+          over[atomicAdd(n_over, 1)] = p;
+        if (s.eL[i] == 0 || f <= lo_floats || f > hi_floats) continue;
+        const int c = s.ncand++;
+        s.cq[c] = p / N;
+        s.cn[c] = p % N;
+        s.cK[c] = s.eK[i];
+        s.cL[c] = s.eL[i];
+      }
+      int taken = 0;
+      s.pre_k[0] = s.pre_l[0] = s.pre_sd[0] = s.pre_sp[0] = 0;
+      {
+        long long off = 0;
+        for (; taken < s.ncand; ++taken) {
+          const int K = s.cK[taken], Lt = s.cL[taken], i = taken;
+          const long long f = live_floats(K, Lt);
+          if (off + f > arena_floats) break;
+          const int ck = (K + kLSeg - 1) / kLSeg, cl = (Lt + kLSeg - 1) / kLSeg;
+          s.q[i] = s.cq[taken];
+          s.n[i] = s.cn[taken];
+          s.K[i] = K;
+          s.Lt[i] = Lt;
+          s.tile[i] = (int)off;
+          s.part[i] = s.tile[i] + (int)r4((long long)K * (Lt | 1));
+          s.u[i] = s.part[i] + (int)r4(ck * Lt > cl * K ? ck * Lt : cl * K);
+          s.rinv[i] = s.u[i] + (int)r4(K);
+          s.w[i] = s.rinv[i] + (int)r4(K);
+          s.wprev[i] = s.w[i] + (int)r4(Lt);
+          s.val[i] = s.wprev[i] + (int)r4(Lt);
+          s.shift[i] = s.val[i] + (int)r4(Lt);
+          s.end[i] = adaptive ? INT_MAX : n_iter;
+          s.next[i] = 1;
+          s.scope[i] = resmask == nullptr ||
+                       resmask[(size_t)s.q[i] * N + s.n[i]] > 0.f;
+          s.diff[i] = s.scale[i] = 0u;
+          s.pre_k[i + 1] = s.pre_k[i] + K;
+          s.pre_l[i + 1] = s.pre_l[i] + Lt;
+          s.pre_sd[i + 1] = s.pre_sd[i] + ck * Lt;
+          s.pre_sp[i + 1] = s.pre_sp[i] + cl * K;
+          if (stats != nullptr)
+            atomicAdd(stats, (unsigned long long)K * Lt);
+          off += f;
+        }
+        s.np = taken;
+        s.maxend = adaptive ? INT_MAX : n_iter;
+      }
+      for (int i = taken; i < s.ncand; ++i) {
+        s.cq[i - taken] = s.cq[i];
+        s.cn[i - taken] = s.cn[i];
+        s.cK[i - taken] = s.cK[i];
+        s.cL[i - taken] = s.cL[i];
+      }
+      s.ncand -= taken;
+    }
+    __syncthreads();
+    const int np = s.np;
+    if (np == 0) {
+      if (s.ncand == 0 && s.exhausted) break;
+      continue;
+    }
+
+    // load: a warp per row of a pair's live tile, lanes over its slots
+    for (int row = wid, p = 0; row < s.pre_k[np]; row += kLWarps) {
+      p = pair_of(s.pre_k, row, p);
+      const int k = row - s.pre_k[p], Lt = s.Lt[p];
+      const float* src =
+          g + ((size_t)s.q[p] * VR + k) * nl + (size_t)s.n[p] * L;
+      float* dst = arena + s.tile[p] + k * (Lt | 1);
+      for (int l = lane; l < Lt; l += 32) async_copy::copy4(dst + l, src + l);
+    }
+    async_copy::commit();
+    for (int i = tid, p = 0; i < s.pre_k[np]; i += kLThreads) {
+      p = pair_of(s.pre_k, i, p);
+      const int k = i - s.pre_k[p];
+      arena[s.rinv[p] + k] = safe_inv(r[(size_t)s.q[p] * VR + k]);
+    }
+    for (int i = tid, p = 0; i < s.pre_l[np]; i += kLThreads) {
+      p = pair_of(s.pre_l, i, p);
+      const int l = i - s.pre_l[p];
+      arena[s.val[p] + l] = val[(size_t)s.n[p] * L + l];
+      arena[s.shift[p] + l] = 0.f;
+    }
+    async_copy::wait<0>();
+    __syncthreads();
+
+    if (log_domain) {               // shift per column (max in any order)
+      for (int i = tid, p = 0; i < s.pre_l[np]; i += kLThreads) {
+        p = pair_of(s.pre_l, i, p);
+        const int l = i - s.pre_l[p], Ls = s.Lt[p] | 1, K = s.K[p];
+        const float* t = arena + s.tile[p] + l;
+        float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+        int k = 0;
+        for (; k + 4 <= K; k += 4)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) m[j] = fmaxf(m[j], t[(k + j) * Ls]);
+        for (; k < K; ++k) m[0] = fmaxf(m[0], t[k * Ls]);
+        const float mm = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
+        arena[s.shift[p] + l] = isfinite(mm) ? mm : 0.f;
+      }
+      __syncthreads();
+    }
+    // exponentiate once (log domain); live rows (any G != 0)
+    for (int row = wid, p = 0; row < s.pre_k[np]; row += kLWarps) {
+      p = pair_of(s.pre_k, row, p);
+      const int k = row - s.pre_k[p], Lt = s.Lt[p];
+      float* t = arena + s.tile[p] + k * (Lt | 1);
+      const float* sh = arena + s.shift[p];
+      bool any = false;
+      for (int l = lane; l < Lt; l += 32) {
+        float v = t[l];
+        if (log_domain) t[l] = v = isfinite(v) ? expf(v - sh[l]) : 0.f;
+        any = any || v != 0.f;
+      }
+      any = __any_sync(full, any);
+      if (lane == 0) arena[s.u[p] + k] = any ? 1.f : 0.f;
+    }
+    __syncthreads();
+    for (int p = wid; p < np; p += kLWarps) {
+      float c = 0.f;
+      for (int k = lane; k < s.K[p]; k += 32) c += arena[s.u[p] + k];
+      for (int off = 16; off > 0; off >>= 1)
+        c += __shfl_xor_sync(full, c, off);
+      if (lane == 0) s.cnt[p] = c;
+    }
+    __syncthreads();
+    for (int i = tid, p = 0; i < s.pre_k[np]; i += kLThreads) {
+      p = pair_of(s.pre_k, i, p);
+      float* u = arena + s.u[p] + (i - s.pre_k[p]);
+      *u = *u > 0.f ? safe_inv(1.f / s.cnt[p]) : 0.f;
+    }
+    __syncthreads();
+
+    for (int done = 0;; ++done) {
+      // SDDMM partials: slot l, rows [c * kLSeg, +kLSeg)
+      for (int i = tid, p = 0; i < s.pre_sd[np]; i += kLThreads) {
+        p = pair_of(s.pre_sd, i, p);
+        if (done > s.end[p]) continue;
+        const int j = i - s.pre_sd[p], Lt = s.Lt[p], Ls = Lt | 1;
+        const int c = j / Lt, l = j - c * Lt;
+        const int k1 = min(c * kLSeg + kLSeg, s.K[p]);
+        const float* t = arena + s.tile[p] + l;
+        const float* u = arena + s.u[p];
+        float a = 0.f;
+        int k = c * kLSeg;
+        for (; k + 4 <= k1; k += 4) {
+          const float4 uu = *reinterpret_cast<const float4*>(u + k);
+          a = fmaf(rnd<BF16>(t[k * Ls]), rnd<BF16>(uu.x), a);
+          a = fmaf(rnd<BF16>(t[(k + 1) * Ls]), rnd<BF16>(uu.y), a);
+          a = fmaf(rnd<BF16>(t[(k + 2) * Ls]), rnd<BF16>(uu.z), a);
+          a = fmaf(rnd<BF16>(t[(k + 3) * Ls]), rnd<BF16>(uu.w), a);
+        }
+        for (; k < k1; ++k) a = fmaf(rnd<BF16>(t[k * Ls]), rnd<BF16>(u[k]), a);
+        arena[s.part[p] + j] = a;
+      }
+      __syncthreads();
+      // w from the partials; the residual's maxima at a decision point
+      for (int i = tid, p = 0; i < s.pre_l[np]; i += kLThreads) {
+        p = pair_of(s.pre_l, i, p);
+        if (done > s.end[p]) continue;
+        const int l = i - s.pre_l[p], Lt = s.Lt[p];
+        const int ck = (s.K[p] + kLSeg - 1) / kLSeg;
+        float t = 0.f;
+        for (int c = 0; c < ck; ++c) t += arena[s.part[p] + c * Lt + l];
+        const float v = arena[s.val[p] + l];
+        const float inv = log_domain ? safe_inv(t) : 1.f / t;
+        const float w = v > 0.f ? v * inv : 0.f;
+        arena[s.w[p] + l] = w;
+        if (adaptive && done < s.end[p] && done + 1 == s.next[p]) {
+          float* wp = arena + s.wprev[p] + l;
+          if (s.scope[p] && v > 0.f) {
+            atomicMax(&s.diff[p], __float_as_uint(fabsf(w - *wp)));
+            atomicMax(&s.scale[p], __float_as_uint(fabsf(w)));
+          }
+          *wp = w;
+        }
+      }
+      __syncthreads();
+      if (done >= s.maxend) break;  // last pass: u and w for the distance
+      // SpMM partials: row k, slots [c * kLSeg, +kLSeg)
+      for (int i = tid, p = 0; i < s.pre_sp[np]; i += kLThreads) {
+        p = pair_of(s.pre_sp, i, p);
+        if (done >= s.end[p]) continue;
+        const int j = i - s.pre_sp[p], K = s.K[p], Lt = s.Lt[p];
+        const int c = j / K, k = j - c * K;
+        const int l1 = min(c * kLSeg + kLSeg, Lt);
+        const float* t = arena + s.tile[p] + k * (Lt | 1);
+        const float* w = arena + s.w[p];
+        const float ri = arena[s.rinv[p] + k];
+        float a = 0.f;
+        int l = c * kLSeg;
+        for (; l + 4 <= l1; l += 4) {
+          const float4 ww = *reinterpret_cast<const float4*>(w + l);
+          if constexpr (BF16) {
+            a = fmaf(rnd<BF16>(t[l] * ri), rnd<BF16>(ww.x), a);
+            a = fmaf(rnd<BF16>(t[l + 1] * ri), rnd<BF16>(ww.y), a);
+            a = fmaf(rnd<BF16>(t[l + 2] * ri), rnd<BF16>(ww.z), a);
+            a = fmaf(rnd<BF16>(t[l + 3] * ri), rnd<BF16>(ww.w), a);
+          } else {
+            a = fmaf(t[l], ww.x, a);
+            a = fmaf(t[l + 1], ww.y, a);
+            a = fmaf(t[l + 2], ww.z, a);
+            a = fmaf(t[l + 3], ww.w, a);
+          }
+        }
+        for (; l < l1; ++l)
+          a = BF16 ? fmaf(rnd<BF16>(t[l] * ri), rnd<BF16>(w[l]), a)
+                   : fmaf(t[l], w[l], a);
+        arena[s.part[p] + j] = a;
+      }
+      __syncthreads();
+      // u = 1/x from the partials
+      for (int i = tid, p = 0; i < s.pre_k[np]; i += kLThreads) {
+        p = pair_of(s.pre_k, i, p);
+        if (done >= s.end[p]) continue;
+        const int k = i - s.pre_k[p], K = s.K[p];
+        const int cl = (s.Lt[p] + kLSeg - 1) / kLSeg;
+        float x = 0.f;
+        for (int c = 0; c < cl; ++c) x += arena[s.part[p] + c * K + k];
+        if constexpr (!BF16) x *= arena[s.rinv[p] + k];
+        arena[s.u[p] + k] = safe_inv(x);
+      }
+      __syncthreads();
+      if (adaptive) {                                       // decide
+        if (tid < np && done < s.end[tid] && done + 1 == s.next[tid]) {
+          const float diff = __uint_as_float(s.diff[tid]);
+          const float scale = __uint_as_float(s.scale[tid]);
+          s.diff[tid] = s.scale[tid] = 0u;
+          const bool conv = done > 0 && !(diff / fmaxf(scale, 1e-30f) > tol);
+          if (conv || done + 1 >= n_iter) {
+            s.end[tid] = done + 1;
+          } else {
+            s.next[tid] = done + 1 + check_every;
+          }
+        }
+        __syncthreads();
+        if (tid == 0) {
+          int m = 0;
+          for (int p = 0; p < np; ++p) m = max(m, s.end[p]);
+          s.maxend = m;
+        }
+      }
+    }
+
+    // distance line: partials of sum_l (-G log G)[k,l] w[l], then u[k]
+    // times each row's sum over lam, then a warp per pair sums its rows
+    // in a fixed order
+    for (int i = tid, p = 0; i < s.pre_sp[np]; i += kLThreads) {
+      p = pair_of(s.pre_sp, i, p);
+      const int j = i - s.pre_sp[p], K = s.K[p], Lt = s.Lt[p];
+      const int c = j / K, k = j - c * K;
+      const int l1 = min(c * kLSeg + kLSeg, Lt);
+      const float* t = arena + s.tile[p] + k * (Lt | 1);
+      const float* w = arena + s.w[p];
+      float a = 0.f;
+      for (int l = c * kLSeg; l < l1; ++l) {
+        const float gv = t[l];
+        a = fmaf(gv > 0.f ? -gv * logf(gv) : 0.f, w[l], a);
+      }
+      arena[s.part[p] + j] = a;
+    }
+    __syncthreads();
+    for (int i = tid, p = 0; i < s.pre_k[np]; i += kLThreads) {
+      p = pair_of(s.pre_k, i, p);
+      const int k = i - s.pre_k[p], K = s.K[p];
+      const int cl = (s.Lt[p] + kLSeg - 1) / kLSeg;
+      float x = 0.f;
+      for (int c = 0; c < cl; ++c) x += arena[s.part[p] + c * K + k];
+      arena[s.rinv[p] + k] = arena[s.u[p] + k] * (x / lam);
+    }
+    __syncthreads();
+    for (int p = wid; p < np; p += kLWarps) {
+      const int K = s.K[p], Lt = s.Lt[p];
+      float part = 0.f, corr = 0.f;
+      bool bad = false;             // a w that is not finite
+      for (int k = lane; k < K; k += 32) part += arena[s.rinv[p] + k];
+      for (int l = lane; l < Lt; l += 32) {
+        const float w = arena[s.w[p] + l];
+        bad = bad || !isfinite(w);
+        if (log_domain)
+          corr = fmaf(arena[s.shift[p] + l], arena[s.val[p] + l], corr);
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        part += __shfl_down_sync(full, part, off);
+        corr += __shfl_down_sync(full, corr, off);
+      }
+      bad = __any_sync(full, bad);
+      if (lane == 0) {
+        float total = log_domain ? part - corr / lam : part;
+        // a dead row's 0 * inf in the full loop (stream_solve's note)
+        if (bad && s.cnt[p] < (float)VR) total = NAN;
+        wmd[(size_t)s.q[p] * N + s.n[p]] = total;
+        if (iters != nullptr)
+          atomicMax(iters + (size_t)s.q[p] * nb + s.n[p] / block_n,
+                    s.end[p]);
+      }
+    }
+  }
+}
+
+// The pairs whose live tile is over the live-tile kernel's arena, which
+// its second launch lists in `over` (n_over of them, in any order), each
+// solved by stream_solve over its live rows and slots (its extents in
+// `ext`, as the first launch measured them) by one block, as the
+// device-memory kernel solves a pair. Persistent blocks take the list in
+// strides; many share an SM (their shared memory is the vectors alone),
+// so the streamed pairs' reads of G overlap as the device-memory
+// kernel's do. A pair's result does not depend on the block that solves
+// it.
+template <bool BF16>
+__global__ void __launch_bounds__(kGThreads)
+sinkhorn_fused_stream_kernel(const float* __restrict__ g,
+                             const float* __restrict__ val,
+                             const float* __restrict__ r,
+                             const float* __restrict__ resmask,
+                             float* __restrict__ wmd, int* __restrict__ iters,
+                             const int* __restrict__ ext,
+                             const int* __restrict__ over,
+                             const int* __restrict__ n_over,
+                             unsigned long long* __restrict__ stats, int VR,
+                             int N, int L, int n_iter, float lam,
+                             int log_domain, int block_n, float tol,
+                             int check_every) {
+  extern __shared__ float smem[];
+  const int count = *n_over;
+  for (int i = blockIdx.x; i < count; i += gridDim.x) {
+    const int p = over[i], q = p / N, n = p - q * N;
+    const int K = (int)((unsigned)ext[p] >> 16), Lt = ext[p] & 0xffff;
+    if (stats != nullptr && threadIdx.x == 0)
+      atomicAdd(stats + 1, (unsigned long long)K * Lt);
+    stream_solve<BF16>(smem, g, val, r, resmask, wmd, iters, q, n, VR, N, L,
+                       K, Lt, n_iter, lam, log_domain, block_n, tol,
+                       check_every);
+    __syncthreads();                // the next pair rewrites the vectors
+  }
+}
+
 struct Args {
   const float *g, *val, *r, *resmask;
   float* wmd;
   int* iters;
+  int* work;
+  int* ext;
+  unsigned long long* stats;
   int Q, VR, N, L, n_iter;
   float lam;
   int log_domain, block_n;
   float tol;
   int check_every;
+  int arena_bytes;
 };
 
 bool fits_warp(int VR, int L) { return VR <= 64 && L <= 64; }
@@ -918,27 +1505,24 @@ long long global_smem_bytes(int VR, int L) {
          (3LL * VR + 4LL * L + 2 * kGThreads / 32);
 }
 
+constexpr long long kMaxBlockSmem = 232448;   // the H100's 227 KB
+// the live-tile kernel's static shared memory (its LiveRound), with room
+// for the compiler's alignment
+constexpr long long kLiveStatic = 2048;
+static_assert(sizeof(LiveRound) + 64 <= kLiveStatic, "LiveRound grew");
+
+
 // Variant: 0 ("auto") picks the warp-per-tile kernel when the tile fits
-// 64 x 64, else the shared-memory one while two of its blocks fit an SM,
-// else the one that reads G from device memory; 1 asks for the
-// warp-per-tile kernel (the tile must fit 64 x 64), 2 for the
-// shared-memory one, 3 for the device-memory one.
+// 64 x 64, else the live-tile route; 1 asks for the warp-per-tile kernel
+// (the tile must fit 64 x 64), 2 for the shared-memory one, 3 for the
+// device-memory one. The shared- and
+// device-memory kernels run every padded slot of the tile (the first
+// reads it into shared memory with 64 threads a block, so at most two
+// blocks an SM; the second reads it from device memory at every pass);
+// "auto" ran them past 64 x 64 until the live-tile kernel replaced them
+// there, and they stay for tests and timings to hold against it.
 bool use_warp(int VR, int L, int variant) {
   return variant == 1 || (variant == 0 && fits_warp(VR, L));
-}
-
-// The shared-memory variant's block shares its SM with a second one up to
-// this size (the SM's 228 KB, 1 KB reserved per block). Past it the block
-// runs alone, and the device-memory variant is the faster one: on an H100
-// at 700 W the shared one wins up to 160 x 160 tiles (107 KB, two blocks
-// per SM) and loses at 192 x 192 (154 KB; chip_smoke.py phase
-// k1_crossover, PERF.md).
-constexpr long long kTwoBlockSmem = 115712;
-
-bool use_global(int VR, int L, int variant) {
-  return variant == 3 ||
-         (variant == 0 && !fits_warp(VR, L) &&
-          smem_bytes(VR, L) > kTwoBlockSmem);
 }
 
 template <typename K>
@@ -955,44 +1539,128 @@ cudaError_t launch_dyn(K kernel, int threads, size_t smem, const Args& a,
 }
 
 template <bool BF16>
+cudaError_t launch_live(const Args& a, cudaStream_t stream) {
+  auto kernel = sinkhorn_fused_live_kernel<BF16>;
+  const size_t smem = (size_t)a.arena_bytes;
+  // the most a block may take beside its LiveRound, set once per device
+  cudaError_t err =
+      device_attr::allow_smem(kernel, (size_t)(kMaxBlockSmem - kLiveStatic));
+  long long room = 0;
+  if (err == cudaSuccess)
+    err = device_attr::room(kernel, kLThreads, smem, &room);
+  if (err != cudaSuccess) return err;
+  // the small class at two blocks an SM, each with half the arena
+  const int half = a.arena_bytes / 8 - 512;
+  long long room2 = 0;
+  err = device_attr::room(kernel, kLThreads, (size_t)half * 4, &room2);
+  if (err != cudaSuccess) return err;
+  // the stream kernel's vectors (at most the wrapper's limit), and its
+  // resident blocks at this shape
+  auto streamed = sinkhorn_fused_stream_kernel<BF16>;
+  const size_t gsmem = (size_t)global_smem_bytes(a.VR, a.L);
+  long long room_s = 0;
+  err = device_attr::allow_smem(streamed, (size_t)kMaxBlockSmem);
+  if (err == cudaSuccess)
+    err = device_attr::room(streamed, kGThreads, gsmem, &room_s);
+  if (err != cudaSuccess) return err;
+  // the first launch measures every pair it takes (all of them) and keeps
+  // its extents in ext; the second reads them there and lists the pairs
+  // over its arena for the stream kernel
+  const long long pairs = (long long)a.Q * a.N;
+  int* over = a.ext + pairs;
+  int blocks = (int)(pairs < room2 ? pairs : room2);
+  kernel<<<blocks, kLThreads, (size_t)half * 4, stream>>>(
+      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.work, a.ext, 1, nullptr,
+      nullptr, a.stats, a.Q, a.VR, a.N, a.L, a.n_iter, a.lam, a.log_domain,
+      a.block_n, a.tol, a.check_every, half, 0, half);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  blocks = (int)(pairs < room ? pairs : room);
+  const int arena = (int)(smem / sizeof(float));
+  kernel<<<blocks, kLThreads, smem, stream>>>(
+      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.work + 1, a.ext, 0, over,
+      a.work + 2, a.stats, a.Q, a.VR, a.N, a.L, a.n_iter, a.lam,
+      a.log_domain, a.block_n, a.tol, a.check_every, arena, half, arena);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  blocks = (int)(pairs < room_s ? pairs : room_s);
+  streamed<<<blocks, kGThreads, gsmem, stream>>>(
+      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.ext, over, a.work + 2,
+      a.stats, a.VR, a.N, a.L, a.n_iter, a.lam, a.log_domain, a.block_n,
+      a.tol, a.check_every);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
 cudaError_t launch(const Args& a, int variant, cudaStream_t s) {
   if (use_warp(a.VR, a.L, variant)) return launch_warp_class<BF16>(a, s);
-  if (use_global(a.VR, a.L, variant))
+  if (variant == 3)
     return launch_dyn(sinkhorn_fused_global_kernel<BF16>, kGThreads,
                       (size_t)global_smem_bytes(a.VR, a.L), a, s);
-  return launch_dyn(sinkhorn_fused_batched_kernel<BF16>, kThreads,
-                    (size_t)smem_bytes(a.VR, a.L), a, s);
+  if (variant == 2)
+    return launch_dyn(sinkhorn_fused_batched_kernel<BF16>, kThreads,
+                      (size_t)smem_bytes(a.VR, a.L), a, s);
+  return launch_live<BF16>(a, s);
 }
 
 }  // namespace
 
-// Dynamic shared-memory bytes one block of the chosen variant needs. The
-// wrapper refuses shapes above the card's per-block limit before
-// launching.
-extern "C" long long sinkhorn_fused_smem_bytes(int VR, int L, int variant) {
+// Shared-memory bytes one block of the chosen variant needs (the
+// live-tile route: its arena and static LiveRound, or the stream
+// kernel's vectors where more). The wrapper refuses shapes above the
+// card's per-block limit before launching.
+extern "C" long long sinkhorn_fused_smem_bytes(int VR, int L, int variant,
+                                               int arena_bytes) {
   if (use_warp(VR, L, variant)) return warp_smem_bytes(VR, L);
-  return use_global(VR, L, variant) ? global_smem_bytes(VR, L)
-                                    : smem_bytes(VR, L);
+  if (variant == 3) return global_smem_bytes(VR, L);
+  if (variant == 2) return smem_bytes(VR, L);
+  // the live-tile kernel's block, or the stream kernel's where more
+  const long long live = arena_bytes + kLiveStatic;
+  const long long streamed = global_smem_bytes(VR, L);
+  return live > streamed ? live : streamed;
+}
+
+// Floats of a pair's region in the live-tile kernel's arena at K live rows
+// and Lt live slots (kernels/ops.py holds its own copy of the rule to it).
+extern "C" long long sinkhorn_fused_live_floats(int K, int Lt) {
+  return live_floats(K, Lt);
 }
 
 // K1 (and K4, Q = 1): g (Q, VR, N, L), val (N, L), r (Q, VR), resmask
 // (Q, N) or null -> wmd (Q, N), and iters (Q, ceil(N / block_n)) unless
 // null, which must hold zeros (each doc folds its count in with
-// atomicMax); fp32 / int32, contiguous, on the device. check_every = 0 runs n_iter iterations (tol
-// and resmask unused); check_every > 0 the adaptive exit. bf16 != 0 rounds
-// the reductions' operands to bf16. Returns the cudaError_t of the launch.
+// atomicMax); fp32 / int32, contiguous, on the device. check_every = 0
+// runs n_iter iterations (tol and resmask unused); check_every > 0 the
+// adaptive exit. bf16 != 0 rounds the reductions' operands to bf16. The
+// live-tile route (variant 0 past 64 x 64) is three launches: the
+// live-tile kernel's two size classes, each taking its pairs from its own
+// int of `work` (three, 0 at launch) and packing them into arena_bytes of
+// shared memory (half of it in the first), then the stream kernel for the
+// pairs over arena_bytes. `ext` holds 2 * Q * N ints, which no caller
+// reads: the first launch writes each pair's live extents (K << 16 | Lt;
+// VR and L are below 2**16, as the stream kernel's shared memory bounds
+// them) to the first Q * N, the second lists the pairs over the arena in
+// the rest and counts them in work[2]. The launches add the on-chip and
+// streamed live cells to stats[0] and stats[1] unless stats is null.
+// Returns the cudaError_t of the launches.
 extern "C" int sinkhorn_fused_batched_launch(
     const float* g, const float* val, const float* r, const float* resmask,
-    float* wmd, int* iters, int Q, int VR, int N, int L, int n_iter,
-    float lam, int log_domain, int block_n, float tol, int check_every,
-    int bf16, int variant, void* stream) {
+    float* wmd, int* iters, int* work, int* ext,
+    unsigned long long* stats, int Q,
+    int VR, int N, int L, int n_iter, float lam, int log_domain, int block_n,
+    float tol, int check_every, int bf16, int variant, int arena_bytes,
+    void* stream) {
   if (Q == 0 || N == 0) return 0;
   if (variant < 0 || variant > 3 || (variant == 1 && !fits_warp(VR, L)) ||
-      (long long)Q * N >= (1 << 30))
+      (long long)Q * N >= (1 << 30) ||
+      (!use_warp(VR, L, variant) && variant == 0 &&
+       (work == nullptr || ext == nullptr || arena_bytes < 4096 ||
+        VR >= (1 << 16) || L >= (1 << 16))))
     return (int)cudaErrorInvalidValue;
-  const Args a{g,  val, r,      resmask,    wmd,     iters, Q,
-               VR, N,   L,      n_iter,     lam,     log_domain,
-               block_n, tol,    check_every};
+  const Args a{g,       val,     r,     resmask, wmd,        iters,
+               work,    ext,     stats, Q,    VR,      N,
+               L,       n_iter,  lam,   log_domain,      block_n,
+               tol,     check_every,    arena_bytes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(bf16 ? launch<true>(a, variant, s)
                     : launch<false>(a, variant, s));

@@ -7,23 +7,31 @@ tensors' device (made the calling thread's current device for the launch:
 the sharded engine launches from pool threads, possibly for shards on
 different cards) and that device's current stream, raises if the launch
 failed, and adds one to its ``launches`` counter for each kernel launch
-(one per call; ``bsr_sddmm`` counts its launch under
-``bsr_sddmm_blocks``). The library load and the counters are safe under
-threads. A tensor on the CPU goes to
-the plain version in :mod:`.ref` instead (and does not count); a CUDA
-tensor always launches the kernel — there is no fallback.
+(one per call; three for K1 past 64 x 64: its live-tile kernel's two size
+classes and the stream kernel; ``bsr_sddmm`` counts its launch under
+``bsr_sddmm_blocks``). The
+library load and the counters are safe under threads. A tensor on the CPU
+goes to the plain version in :mod:`.ref` instead (and does not count); a
+CUDA tensor always launches the kernel — there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from . import ref
 
 # per-block dynamic shared memory limit of the H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
+# K1's live-tile kernel: the shared memory its block packs pairs into (the
+# rest of the 227 KB holds its round's bookkeeping); a pair whose live
+# tile needs more (live_tile_bytes) is streamed from device memory
+LIVE_ARENA_BYTES = 228_352
+# the live-tile kernel's reduction runs (kLSeg in sinkhorn_fused.cu)
+_LIVE_SEG = 64
 # queries a block of the stacked K2 serves (kStMaxQ in rwmd_min_cdist.cu);
 # more queries take more blocks of the same launch
 RWMD_STACKED_MAX_Q = 64
@@ -243,11 +251,37 @@ def sddmm_spmm_step(g: torch.Tensor, g_over_r: torch.Tensor,
 sddmm_spmm_step.launches = 0
 
 
+def fits_warp(v_r: int, length: int) -> bool:
+    """Does K1's ``tile="auto"`` run a (v_r, L) tile on the warp-per-tile
+    kernel (up to 64 x 64)? Past it, ``auto`` runs the live-tile one."""
+    return v_r <= 64 and length <= 64
+
+
+def live_tile_bytes(k, length):
+    """Shared memory the live-tile kernel takes for a (query, doc) pair of
+    ``k`` live rows and ``length`` live slots (``live_floats`` in
+    ``csrc/sinkhorn_fused.cu``): the tile at an odd row stride, the
+    reductions' partial sums, and its vectors. A pair is solved in shared
+    memory where this is at most :data:`LIVE_ARENA_BYTES`, else streamed
+    from device memory. Integers, or integer arrays (elementwise)."""
+    k, length = np.asarray(k, np.int64), np.asarray(length, np.int64)
+
+    def r4(x):
+        return (x + 3) & ~3
+
+    ck, cl = -(-k // _LIVE_SEG), -(-length // _LIVE_SEG)
+    out = 4 * (r4(k * (length | 1)) + r4(np.maximum(ck * length, cl * k))
+               + 2 * r4(k) + 4 * r4(length))
+    return out if out.ndim else int(out)
+
+
 def _solver_smem(lib, v_r: int, length: int, variant: int, name: str) -> None:
     """Refuse a variant whose shared memory exceeds the per-block limit:
     the shared-memory one asked for by name on a tile over 227 KB (``auto``
-    takes the device-memory variant there)."""
-    smem = lib.sinkhorn_fused_smem_bytes(v_r, length, variant)
+    takes the live-tile variant there), or a tile so wide that the
+    live-tile kernel's vectors of one streamed pair do not fit."""
+    smem = lib.sinkhorn_fused_smem_bytes(v_r, length, variant,
+                                         LIVE_ARENA_BYTES)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name}: v_r={v_r}, L={length} needs {smem} B of shared memory "
@@ -274,29 +308,47 @@ def _solver_options(tol, check_every: int, gemm: str, resmask, shape,
 
 def _solve_launch(fn, g, val, r, rm, lam, n_iter, block_n, tol,
                   check_every, gemm, log_domain, tile, q, v_r, n, length,
-                  with_iters: bool):
+                  with_iters: bool, stats=None):
     """Launch K1's kernels (K4 is the Q = 1 case) -> (wmd (q, n), iters
     (q, ceil(n / block_n)) or None without ``with_iters``). iters starts
     at 0: every doc folds its realized count into its block's entry with
-    atomicMax."""
+    atomicMax. The live-tile route (``"auto"`` past 64 x 64) is three
+    launches: the live-tile kernel's two size classes, each taking its
+    pairs from a counter that starts at 0, then the stream kernel for the
+    pairs over the arena, which the second lists and counts (the three
+    ints after iters in one zeroed buffer: one fill for all). The first
+    measures each pair's live extents, which the others read (an int a
+    pair, and an int a pair for the list, in a buffer of their own, which
+    no caller keeps: iters outlives the call in the engine). ``stats``, a
+    zeroed (2,) int64 tensor, gathers the route's live cells solved in
+    shared memory and streamed."""
     lib = _lib()
     _solver_smem(lib, v_r, length, _TILES[tile], fn.__name__)
     dev = g.device
     wmd = torch.empty((q, n), dtype=torch.float32, device=dev)
-    iters = None
-    if with_iters:
-        iters = torch.zeros((q, -(-n // block_n)), dtype=torch.int32,
-                            device=dev)
+    live = tile == "auto" and not fits_warp(v_r, length)
+    iters = work = ext = None
+    if with_iters or live:
+        nb = -(-n // block_n) if with_iters else 0
+        buf = torch.zeros(q * nb + 3 * live, dtype=torch.int32, device=dev)
+        if with_iters:
+            iters = buf[:q * nb].view(q, nb)
+        if live:
+            work = buf[q * nb:]
+            ext = torch.empty(2 * q * n, dtype=torch.int32, device=dev)
     null = ctypes.c_void_p(None)
     _launch(dev, fn.__name__, lib.sinkhorn_fused_batched_launch,
             _ptr(g), _ptr(val), _ptr(r), null if rm is None else _ptr(rm),
-            _ptr(wmd), null if iters is None else _ptr(iters), q, v_r, n,
+            _ptr(wmd), null if iters is None else _ptr(iters),
+            null if work is None else _ptr(work),
+            null if ext is None else _ptr(ext),
+            null if stats is None else _ptr(stats), q, v_r, n,
             length, int(n_iter), ctypes.c_float(float(lam)), int(log_domain),
             int(block_n),
             ctypes.c_float(0.0 if tol is None else float(tol)),
             0 if tol is None else int(check_every), int(gemm == "bf16"),
-            _TILES[tile])
-    _count(fn)
+            _TILES[tile], LIVE_ARENA_BYTES)
+    _count(fn, 3 if live else 1)
     return wmd, iters
 
 
@@ -362,16 +414,26 @@ def sinkhorn_fused_all_batched(g: torch.Tensor, val: torch.Tensor,
     ``tol``. ``gemm="bf16"`` rounds the operands of both reductions to
     bf16, with fp32 products and sums.
 
-    ``tile`` picks the kernel's variant on the card: ``"warp"`` (one warp
-    per (query, doc) tile, asynchronous tile loads, inert docs skipped, up
-    to 64 x 64; ``"registers"`` is an alias of it, the name of the
-    block-per-tile design it replaced), ``"shared"`` (in shared memory,
-    up to the per-block limit), ``"global"`` (G read from device memory
-    at every pass, any size) or ``"auto"`` (warp where the tile fits,
-    else shared memory while two of its blocks fit an SM, else global).
-    All compute the same function; the engine always passes ``"auto"``,
-    and the others let tests and ``chip_smoke.py`` hold and time the
-    variants against each other at one shape.
+    ``tile`` picks the kernel's variant on the card: ``"auto"`` (what the
+    engine always passes), ``"warp"`` (one warp per (query, doc) tile,
+    asynchronous tile loads, inert docs skipped, up to 64 x 64;
+    ``"registers"`` is an alias of it, the name of the block-per-tile
+    design it replaced), ``"shared"`` (the padded tile in shared memory,
+    up to the per-block limit) or ``"global"`` (the padded tile read from
+    device memory at every pass, any size). ``"auto"`` runs the warp
+    variant where the tile fits 64 x 64, and past it the live-tile route:
+    each pair solved over its live tile only, its rows up to its last
+    live row and its slots up to its last ``val != 0``, read once into
+    shared memory, pairs of varied size packed into persistent blocks, in
+    two launches by live size; a pair whose live tile needs more than
+    :data:`LIVE_ARENA_BYTES`, by :func:`live_tile_bytes`, is streamed
+    from device memory by a third; any size. Past 64 x 64 a group's and a
+    chunk's padding leave most of a tile dead, which only the live route
+    skips; on small tiles with little padding (~96 rows, at most 64
+    slots) the shared variant is faster (PERF.md). All compute the same
+    function; ``"shared"`` and ``"global"`` let tests and
+    ``chip_smoke.py`` hold and time the variants against each other at
+    one shape.
     """
     dev = g.device
     _check("g", g, 4, torch.float32, dev)

@@ -50,8 +50,8 @@ def test_rwmd_min_cdist_matches_plain(rng, b):
     (24, 28, "auto"), (48, 48, "auto"), (96, 40, "auto"),
     (24, 28, "shared")])
 def test_sinkhorn_fused_matches_plain(rng, log_domain, v_r, length, tile):
-    """(96, 40) and tile="shared" take the shared-memory variant, the
-    others the warp-per-tile one."""
+    """(96, 40) takes the live-tile variant and tile="shared" the
+    shared-memory one, the others the warp-per-tile one."""
     dev = _card()
     q, n, lam = 3, 700, 4.0
     m = rng.uniform(0.1, 1.5, (q, v_r, n, length))
@@ -126,7 +126,8 @@ def _k4_inputs(rng, dev, v_r, n, length, lam, log_domain, live_rows):
 @pytest.mark.parametrize("v_r,length", [(24, 28), (43, 64), (96, 40)])
 def test_sinkhorn_fused_all_matches_plain(rng, log_domain, v_r, length):
     """K4 (K1's kernels on an (N, 1) grid): pad query rows and all-pad
-    docs are inert; (96, 40) takes the shared-memory variant."""
+    docs are inert; (96, 40) takes the live-tile route (three launches:
+    two size classes, then the pairs over the arena)."""
     dev = _card()
     n, lam = 700, 4.0
     g, val, r = _k4_inputs(rng, dev, v_r, n, length, lam, log_domain,
@@ -136,7 +137,8 @@ def test_sinkhorn_fused_all_matches_plain(rng, log_domain, v_r, length):
                                         log_domain=log_domain,
                                         with_iters=True)
     torch.cuda.synchronize()
-    assert ops.sinkhorn_fused_all.launches == before + 1
+    assert ops.sinkhorn_fused_all.launches == \
+        before + (1 if ops.fits_warp(v_r, length) else 3)
     want, want_iters = ref.sinkhorn_fused_all_ref(g, val, r, lam, 15,
                                                   log_domain=log_domain)
     torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
@@ -552,9 +554,11 @@ def test_bsr_sddmm_matches_plain(rng, v_r, bv, bn):
 def test_sinkhorn_fused_over_the_smem_limit_matches_plain(rng, gemm,
                                                           log_domain, tol):
     """A (256, 256) tile needs 263 KB of shared memory, over the card's 227
-    KB: ``tile="auto"`` takes the variant that reads G from device memory
-    (the shared one is refused by name), held against the plain version,
-    fixed and adaptive, for K1 and for K4 on one query's tile."""
+    KB: the shared variant is refused by name; ``tile="auto"`` takes the
+    live-tile variant, which streams the pairs whose live tile is over its
+    arena from device memory, and ``tile="global"`` reads every pair
+    there: both held against the plain version, fixed and adaptive, for
+    K1 and for K4 on one query's tile."""
     dev = _card()
     lam = 10.0 if log_domain else 1.0
     g, val, r = _cost_inputs(rng, dev, 2, 256, 96, 256, lam, log_domain)
@@ -564,13 +568,11 @@ def test_sinkhorn_fused_over_the_smem_limit_matches_plain(rng, gemm,
     with pytest.raises(ValueError, match="shared memory"):
         ops.sinkhorn_fused_all_batched(g, val, r, lam, 15, tile="shared",
                                        **kw)
-    got, iters = ops.sinkhorn_fused_all_batched(g, val, r, lam, 15,
-                                                with_iters=True, **kw)
-    torch.cuda.synchronize()
-    ref.hold_solve(got, iters, g, val, r, lam, 15, 1e-4, 1e-4, **kw)
-    forced = ops.sinkhorn_fused_all_batched(g, val, r, lam, 15,
-                                            tile="global", **kw)
-    assert torch.equal(forced, got)
+    for tile in ("auto", "global"):
+        got, iters = ops.sinkhorn_fused_all_batched(
+            g, val, r, lam, 15, with_iters=True, tile=tile, **kw)
+        torch.cuda.synchronize()
+        ref.hold_solve(got, iters, g, val, r, lam, 15, 1e-4, 1e-4, **kw)
     # K4 (K1's entry point at Q = 1) takes the same variant
     got4, it4 = ops.sinkhorn_fused_all(g[0], val, r[0], lam, 15,
                                        with_iters=True, **kw)
@@ -725,6 +727,161 @@ def test_sinkhorn_fused_warp_refuses_wide_tiles(rng):
     g, val, r = _euclid_inputs(rng, dev, 1, 65, 8, 16, 1.0, False)
     with pytest.raises(ValueError, match="64 x 64"):
         ops.sinkhorn_fused_all_batched(g, val, r, 1.0, 5, tile="warp")
+
+
+def _live_inputs(rng, dev, q, v_r, n, length, lam, log_domain, w=16):
+    """Tiles past 64 x 64 for K1's live-tile kernel: Euclidean costs
+    (float64 on the card), queries of v_r, v_r - 5 and v_r // 2 live rows
+    and then a filler (no live row, r 1); documents of every live length
+    from 1 to L, every fifth with a run of zeros before its last live
+    words (not front-compacted), every seventh inert (val all zero)."""
+    a = torch.tensor(rng.standard_normal((q, v_r, w)), dtype=torch.float64,
+                     device=dev)
+    b = torch.tensor(rng.standard_normal((n, length, w)),
+                     dtype=torch.float64, device=dev)
+    d2 = ((a * a).sum(-1)[:, :, None, None] + (b * b).sum(-1)[None, None]
+          - 2.0 * torch.einsum("qkw,nlw->qknl", a, b))
+    m = d2.clamp(min=0.0).sqrt()
+    g = (-lam * m) if log_domain else torch.exp(-lam * m)
+    r = np.ones((q, v_r))
+    for qi, nr in enumerate([v_r, v_r - 5, v_r // 2, 0][:q]):
+        g[qi, nr:] = -float("inf") if log_domain else 0.0
+        if nr:
+            r[qi, :nr] = rng.uniform(0.1, 1.0, nr)
+            r[qi, :nr] /= r[qi, :nr].sum()
+    ext = rng.integers(1, length + 1, n)
+    ext[:3] = (length, 1, length // 2)
+    slots = np.arange(length)[None]
+    val = np.where((slots < ext[:, None]) & (rng.random((n, length)) > 0.3),
+                   rng.random((n, length)) + 0.05, 0.0)
+    val[np.arange(n), ext - 1] = 0.5              # the last live slot
+    for j in range(0, n, 5):
+        val[j, :ext[j] // 2] = 0.0
+    val[::7] = 0.0
+    val /= np.maximum(val.sum(1, keepdims=True), 1e-9)
+    return (g.to(torch.float32).contiguous(),
+            torch.tensor(val, dtype=torch.float32, device=dev),
+            torch.tensor(r, dtype=torch.float32, device=dev))
+
+
+def _live_cells(g, val, log_domain):
+    """(on-chip, streamed) live cells of the live-tile kernel's rule:
+    a pair's rows to its last row with a live entry (G != 0, or finite
+    under the log domain) on its slots to its last val != 0, solved on
+    chip where ops.live_tile_bytes fits ops.LIVE_ARENA_BYTES."""
+    nz = val.ne(0)
+    ext = torch.where(nz.any(1), nz.shape[1] - nz.flip(1).int().argmax(1),
+                      torch.zeros_like(nz[:, 0], dtype=torch.long))
+    live = torch.isfinite(g) if log_domain else g.ne(0)
+    inside = torch.arange(g.shape[3], device=g.device) < ext[:, None]
+    rows = (live & inside[None, None]).any(3)              # (Q, v_r, N)
+    k = torch.where(rows.any(1), rows.shape[1]
+                    - rows.flip(1).int().argmax(1), 0)      # (Q, N)
+    onchip = streamed = 0
+    for kk, e in zip(k.flatten().tolist(), ext.repeat(g.shape[0]).tolist()):
+        if ops.live_tile_bytes(kk, e) <= ops.LIVE_ARENA_BYTES:
+            onchip += kk * e
+        else:
+            streamed += kk * e
+    return onchip, streamed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gemm", ["fp32", "bf16"])
+@pytest.mark.parametrize("log_domain", [False, True])
+@pytest.mark.parametrize("v_r,n,length", [(96, 701, 80), (200, 257, 150),
+                                          (40, 301, 100), (256, 96, 256)])
+def test_sinkhorn_fused_live_matches_plain(rng, gemm, log_domain, v_r, n,
+                                           length):
+    """K1's live-tile route (what tile="auto" runs past 64 x 64)
+    on documents of every live length from 1 to L, some not
+    front-compacted and some inert, pad query rows and a filler query,
+    N not a multiple of block_n: fixed, adaptive with a resmask and
+    adaptive, against the plain version (ref.hold_solve) and, fixed,
+    against tile="global"; K4 on the first query's tile. At (256, 96,
+    256) the longest documents' live tiles are over the arena and
+    stream, the others are solved on chip, in one launch. The kernel's
+    count of on-chip and streamed cells equals ops.live_tile_bytes'
+    rule, and that rule the kernel's own."""
+    dev = _card()
+    lam = 10.0 if log_domain else 1.0
+    q = 4
+    g, val, r = _live_inputs(rng, dev, q, v_r, n, length, lam, log_domain)
+    rm = torch.ones((q, n), device=dev)
+    rm[1, 1::2] = 0.0
+    kw = dict(log_domain=log_domain, gemm=gemm)
+    for opts in (dict(), dict(tol=1e-2, check_every=2, resmask=rm),
+                 dict(tol=3e-2, check_every=3)):
+        got, iters = ops.sinkhorn_fused_all_batched(
+            g, val, r, lam, 15, with_iters=True, block_n=64, **kw, **opts)
+        torch.cuda.synchronize()
+        ref.hold_solve(got, iters, g, val, r, lam, 15, 1e-4, 1e-4,
+                       block_n=64, **kw, **opts)
+        # the same bits again: pairs pack into other blocks and rounds
+        # from call to call, and a pair's sums do not depend on its packing
+        again = ops.sinkhorn_fused_all_batched(g, val, r, lam, 15, **kw,
+                                               **opts)
+        torch.testing.assert_close(again, got, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert (got[:, ::7] == 0).all()
+        if not opts:
+            glob, git = ops.sinkhorn_fused_all_batched(
+                g, val, r, lam, 15, with_iters=True, block_n=64,
+                tile="global", **kw)
+            torch.testing.assert_close(got, glob, rtol=1e-4, atol=1e-4,
+                                       equal_nan=True)
+            assert torch.equal(iters, git)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    ops._solve_launch(ops.sinkhorn_fused_all_batched, g, val, r, None, lam,
+                      15, 128, None, 4, gemm, log_domain, "auto", q, v_r, n,
+                      length, False, stats=stats)
+    torch.cuda.synchronize()
+    assert tuple(stats.tolist()) == _live_cells(g, val, log_domain)
+    lib = ops._lib()
+    for k, length_ in ((1, 1), (v_r, length), (33, 65), (255, 257)):
+        assert ops.live_tile_bytes(k, length_) == \
+            4 * lib.sinkhorn_fused_live_floats(k, length_)
+    got4, it4 = ops.sinkhorn_fused_all(g[0], val, r[0], lam, 15,
+                                       with_iters=True, **kw)
+    torch.cuda.synchronize()
+    ref.hold_solve(got4, it4, g[0], val, r[0], lam, 15, 1e-4, 1e-4, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prune", [None, "rwmd"])
+def test_live_tile_engine_on_card_matches_host(prune):
+    """The kernel engine at news20's widths (documents of 1 to 300
+    distinct words, queries of 20 to 280, four doc groups, log domain at
+    lam=10) on the card, where K1 runs its live-tile kernel past 64 x 64
+    (the longest pairs streamed), against the same index on the host (the
+    plain version): ids equal, distances at the reference's spread R2
+    (the K blocks' GEMMs differ, P1)."""
+    from repro_torch.core.index import WmdEngine, build_index
+    from repro_torch.core.sparse import padded_docs_from_lists
+    dev = _card()
+    rng = np.random.default_rng(20)
+    vocab = 4096
+    lens = np.concatenate([[300, 280, 1], rng.integers(1, 301, 253)])
+    ids = [np.sort(rng.choice(vocab, n, replace=False)) for n in lens]
+    docs = padded_docs_from_lists(ids, [rng.random(n) + 0.1 for n in lens])
+    queries = np.zeros((9, vocab), np.float32)
+    for q, n in enumerate((280, 250, 140, 120, 90, 70, 60, 30, 20)):
+        queries[q, rng.choice(vocab, n, replace=False)] = rng.random(n) + .1
+    vecs = rng.standard_normal((vocab, 32)).astype(np.float32) / 4.0
+    host = build_index(docs, vecs, device="cpu", doc_groups=4)
+    card = _carry_to(host, dev)
+    kw = dict(lam=10.0, n_iter=15, precision="log")
+    ec, eh = WmdEngine(card, **kw), WmdEngine(host, **kw)
+    qs = list(queries)
+    ops.reset_launches()
+    got = ec.search(qs, 10, prune=prune)
+    torch.cuda.synchronize()
+    assert ops.launches()["sinkhorn_fused_all_batched"] > 0
+    want = eh.search(qs, 10, prune=prune)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.solved, want.solved)
+    np.testing.assert_allclose(got.distances, want.distances, rtol=1e-3,
+                               atol=5e-3)
 
 
 # ----------------------------------------------------------------- serving

@@ -183,10 +183,77 @@ def test_exhaustive_search_records_the_span_tree(engine, corpus):
         assert s.attrs == {"docs": grp.cols.size,
                            "doc_words": int(live[grp.cols].sum()),
                            "n_pad": grp.cols.size,
-                           "l_g": grp.docs.idx.shape[1], "stage": "batch"}
+                           "l_g": grp.docs.idx.shape[1], "stage": "batch",
+                           "wide_cells": 0, "onchip_cells": 0}
     staged = sum((1 << (len(c) - 1).bit_length()) * w * 16
                  for c, w in chunks)        # int64 ids + 2 fp32 rows
     assert rec.counters == {"h2d_pageable_bytes": staged}
+
+
+@pytest.fixture(scope="module")
+def wide_corpus():
+    """Documents of 1 to 250 distinct words and queries of 20 to 250, so
+    that chunks meet groups past 64 x 64, and the longest pairs' live
+    tiles pass the live-tile kernel's arena."""
+    from repro_torch.core.sparse import padded_docs_from_lists
+    rng = np.random.default_rng(31)
+    vocab = 1024
+    lens = np.concatenate([[250, 240, 1, 2], rng.integers(1, 251, 44)])
+    ids = [np.sort(rng.choice(vocab, n, replace=False)) for n in lens]
+    docs = padded_docs_from_lists(ids, [rng.random(n) + 0.1 for n in lens])
+    queries = np.zeros((5, vocab), np.float32)
+    for q, n in enumerate((250, 230, 100, 70, 20)):
+        queries[q, rng.choice(vocab, n, replace=False)] = rng.random(n) + .1
+    vecs = rng.standard_normal((vocab, 8)).astype(np.float32)
+    return docs, queries, vecs
+
+
+@pytest.mark.parametrize("prune", [None, "rwmd"])
+def test_solve_spans_count_wide_and_onchip_cells(wide_corpus, prune,
+                                                 monkeypatch):
+    """Each ``wmd.solve`` span's ``wide_cells`` and ``onchip_cells`` equal
+    a direct count from the host mirror and the chunk's queries: each
+    query's words times each solved document's live words where the
+    launch's tile is past 64 x 64, and of those the pairs whose live tile
+    fits the live-tile kernel's arena by ``ops.live_tile_bytes``."""
+    docs, queries, vecs = wide_corpus
+    index = build_index(docs, vecs, device="cpu", doc_groups=3)
+    engine = WmdEngine(index, lam=1.0, n_iter=2, precision="log")
+    words_of, log = {}, []
+    prep, solve = engine._prep_chunk, engine._solve_group
+
+    def prep_(chunk_queries, width):
+        out = prep(chunk_queries, width)
+        words_of[id(out[1])] = [int((q > 0).sum()) for q in chunk_queries]
+        return out
+
+    def solve_(kq, r, mask, grp, *a, **kw):
+        log.append((r.shape[1], words_of[id(r)], grp.cols,
+                    grp.docs.idx.shape[1]))
+        return solve(kq, r, mask, grp, *a, **kw)
+
+    monkeypatch.setattr(engine, "_prep_chunk", prep_)
+    monkeypatch.setattr(engine, "_solve_group", solve_)
+    _, rec = _traced(lambda: engine.search(list(queries), 3, prune=prune))
+    solves = [s for s in rec.spans if s.name == "wmd.solve"]
+    assert solves and len(solves) == len(log)
+    live = (index.docs_host.val > 0).sum(axis=1)
+    wide_all = streamed = 0
+    for s, (width, words, cols, l_g) in zip(solves, log):
+        wide = onchip = 0
+        if not ops.fits_warp(width, l_g):
+            for k in words:
+                for e in live[cols].tolist():
+                    wide += k * e
+                    if ops.live_tile_bytes(k, e) <= ops.LIVE_ARENA_BYTES:
+                        onchip += k * e
+        assert (s.attrs["wide_cells"], s.attrs["onchip_cells"]) == \
+            (wide, onchip)
+        wide_all += wide
+        streamed += wide - onchip
+    assert wide_all > 0
+    if prune is None:
+        assert streamed > 0
 
 
 def test_rwmd_search_records_the_span_tree(engine, corpus):

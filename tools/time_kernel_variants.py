@@ -1,7 +1,21 @@
-"""Time design variants of K3 (cdist_exp), K2s (rwmd_min_cdist_subset)
-and K5 (sddmm_spmm_step) side by side on one card, in one process.
+"""Time design variants of K1's live-tile kernel (sinkhorn_fused_all_batched
+past 64 x 64), K3 (cdist_exp), K2s (rwmd_min_cdist_subset) and K5
+(sddmm_spmm_step) side by side on one card, in one process.
 
-    python3 tools/time_kernel_variants.py [k3] [k2s] [k5]
+    python3 tools/time_kernel_variants.py [k1] [k3] [k2s] [k5]
+
+K1 runs on news20_knn's corpus (bench/configs/news20_knn.json, drawn by the
+benchmark's generator from seed 0) at the engine's chunks of 64 pool
+queries: the committed live-tile kernel (persistent blocks that pack pairs
+into their arena, launched by live size: the pairs that fit half the
+arena at two blocks an SM, then the rest at one; a third launch streams
+the pairs over the arena), "one_launch" (one packing launch at one block
+an SM for every size that fits), "one_pair" (packing one pair a round)
+and "t256" (256 threads and 8 pairs a round), beside the
+device-memory variant that "auto" ran before, on the widest group at the
+median and the widest chunk, then over every (chunk, group) of the call
+past 64 x 64. Every variant's distances equal the committed kernel's
+(t256: within 1e-5).
 
 Each variant is the committed source with a few lines replaced (VARIANTS
 below). Every variant is compiled by nvcc into a library of its own under
@@ -45,9 +59,34 @@ OUT = ROOT / "build" / "kernel_variants"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-shared"]
 
-K3_SRC, K2S_SRC, K5_SRC = ("cdist_exp.cu", "rwmd_min_cdist.cu",
-                            "sddmm_spmm_step.cu")
-SRC = {"k3": K3_SRC, "k2s": K2S_SRC, "k5": K5_SRC}
+K1_SRC, K3_SRC, K2S_SRC, K5_SRC = ("sinkhorn_fused.cu", "cdist_exp.cu",
+                                    "rwmd_min_cdist.cu", "sddmm_spmm_step.cu")
+SRC = {"k1": K1_SRC, "k3": K3_SRC, "k2s": K2S_SRC, "k5": K5_SRC}
+# K1's live-tile kernel packing one pair a round (a block per pair)
+K1_ONE_PAIR = (K1_SRC, "          if (off + f > arena_floats) break;",
+               "          if (taken > 0 || off + f > arena_floats) break;")
+K1_T256 = [(K1_SRC, "constexpr int kLThreads = 512;",
+            "constexpr int kLThreads = 256;"),
+           (K1_SRC, "constexpr int kLPairs = 16; ",
+            "constexpr int kLPairs = 8; ")]
+# one launch at one block an SM, the whole arena, for pairs of every size
+K1_ONE_LAUNCH = [
+    (K1_SRC, "__global__ void __launch_bounds__(kLThreads, 2)\n"
+             "sinkhorn_fused_live_kernel(",
+     "__global__ void __launch_bounds__(kLThreads, 1)\n"
+     "sinkhorn_fused_live_kernel("),
+    (K1_SRC, """  int blocks = (int)(pairs < room2 ? pairs : room2);
+  kernel<<<blocks, kLThreads, (size_t)half * 4, stream>>>(
+      a.g, a.val, a.r, a.resmask, a.wmd, a.iters, a.work, a.ext, 1, nullptr,
+      nullptr, a.stats, a.Q, a.VR, a.N, a.L, a.n_iter, a.lam, a.log_domain,
+      a.block_n, a.tol, a.check_every, half, 0, half);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  blocks =""", """  int blocks ="""),
+    (K1_SRC, "a.work + 1, a.ext, 0, over,", "a.work + 1, a.ext, 1, over,"),
+    (K1_SRC, "a.check_every, arena, half, arena);",
+     "a.check_every, arena, 0, arena);")]
+
 K3_TV64 = (K3_SRC, "return BMAX <= 32 ? 64 : 128;", "return 64;")
 K3_TV128 = (K3_SRC, "return BMAX <= 32 ? 64 : 128;", "return 128;")
 K3_STAGES3 = (K3_SRC, "constexpr int kStages = 2;",
@@ -146,6 +185,8 @@ def k5_min_blocks(n, wide):
 
 # (kernel, variant) -> replacements (file, old, new); "committed" is none
 VARIANTS = {
+    ("k1", "committed"): [], ("k1", "one_launch"): K1_ONE_LAUNCH,
+    ("k1", "one_pair"): [K1_ONE_PAIR], ("k1", "t256"): K1_T256,
     ("k3", "committed"): [], ("k3", "tv64"): [K3_TV64],
     ("k3", "tv128"): [K3_TV128], ("k3", "stages3"): [K3_STAGES3],
     ("k3", "stage_only"): [K3_NO_FMA], ("k3", "compute_only"): [K3_ONE_STAGE],
@@ -477,6 +518,106 @@ def run_k5(libs) -> None:
                   flush=True)
 
 
+def k1_chunks():
+    """news20_knn's engine (as bench/entries/search.py builds it) on its
+    corpus from seed 0, and the staged K block of every chunk of 64 pool
+    queries: (engine, [(width, qp, kq), ...])."""
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from bench.traffic.generate import DenseRows, make
+    from repro_torch.core.index import WmdEngine, build_index
+    from repro_torch.core.sparse import PaddedDocs
+    config = json.loads((ROOT / "bench" / "configs" /
+                         "news20_knn.json").read_text())
+    corpus = make(config, 0, "cuda")
+    eng = dict(config["engine"])
+    groups = eng.pop("doc_groups")
+    index = build_index(PaddedDocs(idx=corpus.idx, val=corpus.val),
+                        corpus.vecs, device="cuda", doc_groups=groups)
+    engine = WmdEngine(index, lam=config["lam"], n_iter=config["n_iter"],
+                       **eng)
+    rows = list(DenseRows(64, config["vocab_size"]).fill(corpus.pool,
+                                                         range(64)))
+    _, chunks = engine._plan(rows)
+    out = []
+    for chunk, width in chunks:
+        sup, r, mask = engine._prep_chunk([rows[i] for i in chunk], width)
+        out.append((width, r, engine._kq(sup, mask)[0]))
+    return engine, out
+
+
+def run_k1(libs) -> None:
+    engine, chunks = k1_chunks()            # puts src/ on the path
+    from repro_torch.core.index import _gather_g
+    stream = P(torch.cuda.current_stream().cuda_stream)
+    lam, n_iter = engine.lam, engine.n_iter
+    arena = 228_352
+
+    def launcher(lib, g, val, r, variant):
+        q, v_r, n, length = g.shape
+        fn = lib.sinkhorn_fused_batched_launch
+        fn.argtypes = [P] * 9 + [I] * 5 + [F, I, I, F, I, I, I, I, P]
+        wmd = torch.empty((q, n), device=g.device)
+
+        def call():
+            # the three work counters (zeroed) and two ints a pair, as ops
+            work = torch.zeros(3, dtype=torch.int32, device=g.device)
+            ext = torch.empty(2 * q * n, dtype=torch.int32, device=g.device)
+            return fn(ptr(g), ptr(val), ptr(r), P(None), ptr(wmd), P(None),
+                      ptr(work), ptr(ext), P(None), q, v_r, n, length,
+                      n_iter, F(lam), 1, 128, F(0.0), 0, 0, variant, arena,
+                      stream)
+        return call, wmd
+
+    def designs():
+        for (kernel, name), lib in libs.items():
+            if kernel == "k1":
+                yield name, lib, 0
+                if name == "committed":
+                    yield "device_memory", lib, 3
+
+    widths = sorted(w for w, _, _ in chunks)
+    pick = {"median_chunk": widths[len(widths) // 2],
+            "widest_chunk": widths[-1]}
+    grp = engine.index.groups[-1]
+    for label, width in pick.items():
+        _, r, kq = next(c for c in chunks if c[0] == width)
+        g = _gather_g(kq, grp.docs.idx)
+        want = None
+        for name, lib, variant in designs():
+            call, wmd = launcher(lib, g, grp.docs.val, r, variant)
+            if call() != 0:
+                raise RuntimeError(f"k1 {name}: launch failed")
+            torch.cuda.synchronize()
+            if want is None:
+                want = wmd.clone()
+            elif name == "device_memory" or name == "t256":
+                torch.testing.assert_close(wmd, want, rtol=1e-5, atol=1e-5,
+                                           equal_nan=True)
+            elif not torch.equal(wmd.nan_to_num(), want.nan_to_num()):
+                raise AssertionError(f"k1 {name} differs from committed")
+            print(json.dumps({"kernel": "sinkhorn_fused_all_batched",
+                              "variant": name, "inputs": label,
+                              "shape": list(g.shape),
+                              "ms": time_ms(call, reps=5)}), flush=True)
+        del g
+    # every (chunk, group) of the call past 64 x 64: K1's wide work a call
+    total = {}
+    for width, r, kq in chunks:
+        for grp in engine.index.groups:
+            if width <= 64 and grp.docs.idx.shape[1] <= 64:
+                continue
+            g = _gather_g(kq, grp.docs.idx)
+            for name, lib, variant in designs():
+                call, _ = launcher(lib, g, grp.docs.val, r, variant)
+                total[name] = total.get(name, 0.0) + time_ms(call, reps=2)
+            del g
+    for name, ms in total.items():
+        print(json.dumps({"kernel": "sinkhorn_fused_all_batched",
+                          "variant": name, "inputs": "call_64_queries",
+                          "ms": ms}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_kernel_variants: no CUDA device", file=sys.stderr)
@@ -490,6 +631,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     libs = build_all(kernels)
+    if "k1" in kernels:
+        run_k1(libs)
     gen = torch.Generator().manual_seed(0)
     vecs = torch.randn((100_000, 300), generator=gen).to("cuda")
     if "k3" in kernels:
