@@ -23,12 +23,12 @@ def control_readings(cell_name: str, seed: int, device="cuda") -> dict:
     """The widest of each compared number when the TF32 reference answers
     ``sample`` queries of the pool in place of the program."""
     import torch
-    from bench.traffic.generate import STREAM_SAMPLE, make, rng
+    from bench.traffic.generate import STREAM_SAMPLE, rng
     from bench.wmdbench import cell as cells
     from bench.wmdbench.check import readings, reference_distances
     cell = cells.resolve(cell_name)
     entry = cells.entry_module(cell.traffic)
-    corpus = make(cell.config, seed, torch.device(device))
+    corpus = cells.make_corpus(cell.config, seed, torch.device(device))
     n = int(cell.spec["check"]["sample"])
     pos = rng(seed, STREAM_SAMPLE).choice(corpus.pool.n, n, replace=False)
     k = int(cell.traffic.get("k", 0))

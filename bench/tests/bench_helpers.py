@@ -20,11 +20,21 @@ TINY_POOL = 256
 TINY_LIMITS = {"search": {"topk_gap": 2e-3}, "one_to_many": {"dist_gap": 1e-3}}
 
 
-def tiny_config(name: str) -> dict:
-    cfg = json.loads((ROOT / "bench" / "configs" / f"{name}.json")
-                     .read_text())
-    cfg.update(TINY)
-    cfg["name"] = f"tiny_{name}"
+def tiny_config(name: str, bench: Path = ROOT / "bench") -> dict:
+    """The configuration ``name`` cut by its corpus module's ``tiny``, or,
+    for the default corpus, by :func:`tiny_default`; named
+    ``tiny_<name>``."""
+    from bench.wmdbench import cell as cells
+    cfg = json.loads((bench / "configs" / f"{name}.json").read_text())
+    cut = (cells.corpus_module(cfg, bench).tiny if "corpus" in cfg
+           else tiny_default)(cfg)
+    cut["name"] = f"tiny_{name}"
+    return cut
+
+
+def tiny_default(cfg: dict) -> dict:
+    """The cut of a configuration drawn by ``bench/traffic/generate.py``."""
+    cfg = dict(cfg, **TINY)
     cfg["query_pool"] = dict(cfg["query_pool"], size=TINY_POOL)
     for key in ("doc_words",):
         spec = dict(cfg[key])

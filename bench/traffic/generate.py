@@ -1,5 +1,9 @@
 """The benchmark's own corpus and query-pool generator (frozen: later
-changes to the program do not change what is measured).
+changes to the program do not change what is measured), and the default
+corpus: it draws every configuration that names no ``corpus`` of its own
+(``bench/corpora/<corpus>.py``, found by ``bench.wmdbench.cell``). A
+corpus module may use the helpers here (``rng``, ``generator``, ``Bags``,
+``draw_bags``, ``to_ell``) and returns its ``Corpus``.
 
 A document or query is drawn as in the program's ``make_corpus``
 (``src/repro_torch/data/corpus.py``): Zipf-drawn ranks (exponent

@@ -74,10 +74,9 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_start: float,
     torch.backends.cuda.matmul.allow_tf32 = bool(cell.config["tf32"])
     torch.backends.cudnn.allow_tf32 = bool(cell.config["tf32"])
 
-    from bench.traffic.generate import make
     parts = {"imports_s": time.perf_counter() - t_start}
     t = time.perf_counter()
-    corpus = make(cell.config, seed, device)
+    corpus = cells.make_corpus(cell.config, seed, device)
     _sync(device)
     parts["data_s"] = time.perf_counter() - t
     t = time.perf_counter()
