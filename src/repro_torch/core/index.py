@@ -957,6 +957,7 @@ class SearchResult(NamedTuple):
 
 
 ENGINE_IMPLS = ("sparse", "kernel")
+CASCADE_BOUNDS = ("admissible", "wcd")
 
 
 class WmdEngine:
@@ -996,6 +997,15 @@ class WmdEngine:
     calls (:mod:`.kcache`); chunks with fewer than ``kcache_min_hits``
     resident words take the stacked GEMM and warm the cache. Results equal
     the uncached engine's bit for bit.
+
+    ``cascade_bound`` picks the centroid bound of the ivf cascade's prune
+    tests. ``"admissible"`` (the default) prunes by
+    :func:`.prune._wcd_admissible`, which the truncated score cannot
+    undercut, so a cascade probing every cluster returns the exhaustive
+    top-k. ``"wcd"`` prunes by the plain word-centroid distance, as the
+    reference's cascade does: tighter, so fewer documents are solved, but
+    at large ``lam`` a near-duplicate's truncated score can lie below its
+    WCD, and the cascade can drop a true top-k document.
     """
 
     def __init__(self, index: CorpusIndex, lam: float = 10.0,
@@ -1006,10 +1016,14 @@ class WmdEngine:
                  precision=None, scope: str = "query",
                  warm_start: bool = False, iter_stats_maxlen: int = 4096,
                  kcache_slots: int | None = None,
-                 kcache_min_hits: int = 4):
+                 kcache_min_hits: int = 4,
+                 cascade_bound: str = "admissible"):
         if impl not in ENGINE_IMPLS:
             raise ValueError(f"impl must be one of {ENGINE_IMPLS}, "
                              f"got {impl!r}")
+        if cascade_bound not in CASCADE_BOUNDS:
+            raise ValueError(f"cascade_bound must be one of "
+                             f"{CASCADE_BOUNDS}, got {cascade_bound!r}")
         if scope not in ("chunk", "query"):
             raise ValueError(f"scope must be 'chunk' or 'query', "
                              f"got {scope!r}")
@@ -1029,6 +1043,7 @@ class WmdEngine:
         self.max_batch = int(max_batch)
         self.pad_q = bool(pad_q)
         self.prune_slack = float(prune_slack)
+        self.cascade_bound = cascade_bound
         self.tol = None if tol is None else float(tol)
         self.check_every = int(check_every)
         self.scope = scope
@@ -1361,9 +1376,10 @@ class WmdEngine:
         clusters per query, ``None`` = all); an exact solve of the union of
         each query's k best-bounded docs, whose kth distance is the query's
         threshold; an exact solve of the docs whose bound passes it (+
-        ``prune_slack``); a rank over the solved docs. With an RWMD stage
-        and every cluster probed the result equals the exhaustive top-k (up
-        to tie order). A cascade at ``nprobe < n_clusters`` is approximate:
+        ``prune_slack``); a rank over the solved docs. A cascade with every
+        cluster probed returns the exhaustive top-k (up to tie order; a
+        pivot stage is near-exact). A cascade at ``nprobe < n_clusters`` is
+        approximate:
         un-probed clusters are never scored, recall is monotone in
         ``nprobe``, and a query with fewer than k reachable candidates pads
         its row with -1 / NaN.
@@ -1587,7 +1603,7 @@ class WmdEngine:
                 w, xp = out if want else (out, None)
                 parts.append(w[:len(rows), :doc_ids.size])
                 profs.append(xp)
-            w_all = torch.cat(parts).cpu().numpy()
+            w_all = _read(torch.cat(parts))
             out = np.empty((len(live_q), doc_ids.size), self.dtype)
             lo = 0
             for rows, cq, *_ in prepped:
@@ -1670,41 +1686,56 @@ class WmdEngine:
         """
         from .prune import _pad_pow2_ids, _smallest
         index = self.index
+        admissible = self.cascade_bound == "admissible"
         live_q, sup_g, r_g, mask_g = self._stage_all(queries, chunks)
         qg = len(live_q)
+        # each staged query's live rows, for the K2s span (tracing only)
+        rows = self._staged_rows.get(r_g) if trace.on() else None
         cdists, pm, qcent = pruner.probe(index, sup_g, r_g, mask_g, nprobe)
         seed_cand = pruner.seed_candidates(index, cdists, mask_g, k, pm)
         if seed_cand.size == 0:
             return
-        sp = _pad_pow2_ids(seed_cand)
-        lb = pruner.stage_bounds(
-            pruner.stages[0], index, sup_g, r_g, mask_g, sp, seed_cand.size,
-            pruner.id_qmask(index, pm, sp, seed_cand.size,
-                            qp=sup_g.shape[0]), qcent=qcent)
-        vals, seed_pos = _smallest(lb[:qg], min(k, seed_cand.size))
-        # +inf picks are non-candidates (a query with fewer candidates)
-        pos_seed = torch.unique(seed_pos[torch.isfinite(vals)]).cpu().numpy()
-        pos_seed = pos_seed[pos_seed < seed_cand.size]
-        if pos_seed.size == 0:
-            return
-        seed = sp[pos_seed]
-        qmask_seed = None
-        if self._warm() and self._scoped():
-            # each query's own finite top-k picks: its warm profile's docs
-            vals_np, pos_np = vals.cpu().numpy(), seed_pos.cpu().numpy()
-            qmask_seed = np.zeros((qg, seed.size), bool)
-            for g in range(qg):
-                own = pos_np[g][np.isfinite(vals_np[g])]
-                own = own[own < seed_cand.size]
-                qmask_seed[g] = np.isin(seed, sp[own])
+        with trace.span("wmd.cascade.first") as s:
+            sp = _pad_pow2_ids(seed_cand)
+            lb = pruner.stage_bounds(
+                pruner.stages[0], index, sup_g, r_g, mask_g, sp,
+                seed_cand.size,
+                pruner.id_qmask(index, pm, sp, seed_cand.size,
+                                qp=sup_g.shape[0]), qcent=qcent,
+                live_rows=rows)
+            vals, seed_pos = _smallest(lb[:qg], min(k, seed_cand.size))
+            # +inf picks are non-candidates (a query with fewer candidates)
+            pos_seed = _read(torch.unique(seed_pos[torch.isfinite(vals)]))
+            pos_seed = pos_seed[pos_seed < seed_cand.size]
+            if s:
+                s.set(docs_in=int(seed_cand.size),
+                      docs_out=int(pos_seed.size))
+            if pos_seed.size == 0:
+                return
+            seed = sp[pos_seed]
+            qmask_seed = None
+            if self._warm() and self._scoped():
+                # each query's own finite top-k picks: its warm profile's
+                # docs
+                vals_np, pos_np = _read(vals), _read(seed_pos)
+                qmask_seed = np.zeros((qg, seed.size), bool)
+                for g in range(qg):
+                    own = pos_np[g][np.isfinite(vals_np[g])]
+                    own = own[own < seed_cand.size]
+                    qmask_seed[g] = np.isin(seed, sp[own])
         # the solve stays v_r-bucketed: per-chunk staging, reused for the
         # seed and survivor solves
         solve_all = self._make_solver(queries, chunks, live_q)
         d_seed, xprofs = solve_all(seed, prof=qmask_seed)
-        thresh = self._threshold(torch.as_tensor(d_seed, device=self.device),
-                                 k, seed.size)
-        surv = pruner.survivors(index, sup_g, r_g, mask_g, cdists, pm,
-                                qcent, thresh, exclude=seed)
+        with trace.span("wmd.cascade.keep") as s:
+            trace.add("h2d_pageable_bytes", d_seed.nbytes)
+            thresh = self._threshold(
+                torch.as_tensor(d_seed, device=self.device), k, seed.size)
+            surv = pruner.survivors(index, sup_g, r_g, mask_g, pm, qcent,
+                                    thresh, exclude=seed, live_rows=rows,
+                                    admissible=admissible)
+            if s:
+                s.set(docs_in=index.n_docs, docs_out=int(surv.size))
         cand = np.concatenate([seed, surv])
         d_cand = d_seed
         if surv.size:
@@ -1714,21 +1745,24 @@ class WmdEngine:
                 # cascade's tightest stage (one more dispatch) against its
                 # own threshold
                 sps = _pad_pow2_ids(surv)
-                lbs = pruner.stage_bounds(
+                lbs = pruner.prune_bounds(
                     pruner.stages[-1], index, sup_g, r_g, mask_g, sps,
                     surv.size,
                     pruner.id_qmask(index, pm, sps, surv.size,
-                                    qp=sup_g.shape[0]), qcent=qcent)
+                                    qp=sup_g.shape[0]), qcent=qcent,
+                    live_rows=rows, admissible=admissible)
                 qmask_surv = lbs[:qg, :surv.size] <= thresh[:qg, None]
             d_surv, _ = solve_all(surv, qmask_surv, "survivor",
                                   warm=xprofs if self._warm() else None)
             d_cand = np.concatenate([d_seed, d_surv], axis=1)
-        cand_ext = self._ext(cand)           # storage -> caller doc ids
-        for g, qi in enumerate(live_q):
-            order = np.argsort(d_cand[g], kind="stable")[:k]
-            out_i[qi, :order.size] = cand_ext[order]
-            out_d[qi, :order.size] = d_cand[g, order]
-            solved[qi] = cand.size
+        with trace.span("wmd.rank"):
+            cand_ext = self._ext(cand)           # storage -> caller doc ids
+            for g, qi in enumerate(live_q):
+                order = np.argsort(d_cand[g], kind="stable")[:k]
+                out_i[qi, :order.size] = cand_ext[order]
+                out_d[qi, :order.size] = d_cand[g, order]
+                solved[qi] = cand.size
+
 
 def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):

@@ -16,6 +16,10 @@ the bound cannot exclude.
 ``WcdPruner`` (word-centroid distance)
     ``lb[q, n] = ||sum_k r_k vec_k - centroid_n||``: admissible for exact
     EMD, near-exact for the truncated score (see the reference's notes).
+    The truncated solve moves the document's mass exactly but not the
+    query's, so the WCD of the query's own weights can pass its score by
+    ~20% on near-duplicates (w = 300, lam = 10, 15 iterations). The
+    cascade therefore ranks by WCD and prunes by :func:`_wcd_admissible`.
 
 ``MaxPruner`` takes the elementwise max of several admissible bounds.
 
@@ -31,6 +35,14 @@ index's device. What the reference reads back with ``np.asarray`` the
 port reads back with ``.cpu()``, which syncs; the drivers keep those
 reads to compact id arrays and bool masks, and thresholds stay on the
 device.
+
+Tracing (``repro_torch.trace``): the cascade's stages record the spans
+``wmd.cascade.probe``, ``wmd.cascade.seed``, ``wmd.cascade.first`` (the
+gathered first stage here; the engine opens it around the seed pick),
+``wmd.cascade.vocab`` (``_rwmd_vocab`` and ``_upload_prep``) and
+``wmd.cascade.rwmd`` (K2s), each with the documents in and out where it
+prunes; every device-to-host read is a ``wmd.wait`` span and every host
+array uploaded counts into ``h2d_pageable_bytes``.
 """
 from __future__ import annotations
 
@@ -41,6 +53,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+
+from .. import trace
+from .index import _read
 
 
 @runtime_checkable
@@ -158,27 +173,49 @@ def _wcd_stage(qcent, centroids, ids_pad, qmask):
     return torch.where(qmask, lb, torch.full_like(lb, float("inf")))
 
 
-def _wcd_dense_sq(qcent, centroids, qc: int) -> torch.Tensor:
-    q = qcent[:qc]
-    d2 = ((q * q).sum(1)[:, None] + (centroids * centroids).sum(1)[None, :]
-          - 2.0 * (q @ centroids.T))
-    return torch.clamp(d2, min=0.0)
+def _wcd_admissible(qcent, a, mask, points) -> torch.Tensor:
+    """A lower bound on the engine's truncated score from centroids:
+    (Qp, w) query centroids, (Qp, B, w) query word vectors with their
+    (Qp, B) live mask, (S, w) points (document centroids or cluster
+    centers) -> (Qp, S).
+
+    The solve's plan P moves each document word's mass exactly, and the
+    query's only approximately: its row sums r' are some distribution over
+    the query's words. With u the unit vector from the point c towards the
+    query centroid q, the score is sum P_kl |v_k - v_l| >= |sum_k r'_k v_k
+    - c| >= <sum_k r'_k v_k - c, u> >= min_k <v_k - c, u> = |q - c| -
+    max_k <q - v_k, u>, whatever r' is: the WCD less the query's spread
+    towards the point (WCD assumes r' = r). A point within radius rho of
+    every document of a cluster bounds them all by the same less rho."""
+    wcd = _wcd_bounds(qcent, points)
+    qa = qcent[:, None, :] - a                           # (Qp, B, w)
+    proj = (qa * qcent[:, None, :]).sum(-1)[:, :, None] - qa @ points.T
+    proj = torch.where(mask[:, :, None] > 0, proj,
+                       torch.full_like(proj, -float("inf")))
+    spread = torch.clamp(proj.amax(dim=1), min=0.0)      # (Qp, S)
+    return torch.where(wcd > 0, wcd - spread / torch.clamp(wcd, min=1e-30),
+                       torch.zeros_like(wcd))
 
 
-def _wcd_dense_keep_all(qcent, centroids, thresh):
-    """Dense WCD threshold pass over every doc, exhaustive probe: squared
-    distances against squared thresholds (sqrt is monotone)."""
-    d2 = _wcd_dense_sq(qcent, centroids, thresh.shape[0])
-    return (d2 <= torch.square(thresh)[:, None]).any(dim=0)
+def _prune_bound(admissible: bool):
+    """The centroid bound the cascade's prune tests take, with
+    :func:`_wcd_admissible`'s signature: that bound, or the plain WCD
+    (tighter, but the truncated score can undercut it)."""
+    if admissible:
+        return _wcd_admissible
+    return lambda qcent, a, mask, points: _wcd_bounds(qcent, points)
 
 
-def _wcd_dense_keep(qcent, centroids, pm, assign, thresh):
-    """Dense WCD threshold pass with candidacy through the doc ->
-    probed-cluster lookup (``assign`` is the device mirror)."""
+def _dense_keep(lb, pm, assign, thresh):
+    """Dense threshold pass over every doc: (Qp, N) bounds -> (N,) bool of
+    docs some live query still needs; with candidacy through the doc ->
+    probed-cluster lookup where ``pm`` is given (``assign`` the device
+    mirror)."""
     qc = thresh.shape[0]
-    d2 = _wcd_dense_sq(qcent, centroids, qc)
-    cand = pm[:qc][:, assign]                            # (qc, N)
-    return (cand & (d2 <= torch.square(thresh)[:, None])).any(dim=0)
+    keep = lb[:qc] <= thresh[:, None]
+    if pm is not None:
+        keep = keep & pm[:qc][:, assign]
+    return keep.any(dim=0)
 
 
 def _pivot_lb(qd, dd) -> torch.Tensor:
@@ -233,17 +270,14 @@ def _rwmd_keep_all(minm, rel, val, n_real, thresh):
     return keep & _live_slots(rel.shape[0], n_real, lb.device)
 
 
-def _cluster_keep_fused(cdists, radii, pm, thresh):
-    """Cluster-radius filter: triangle bound + candidacy + threshold test
-    -> (C,) bool of clusters some live query still needs."""
-    lbm = cdists - radii[None, :]
-    return _keep_any(torch.where(pm, lbm, torch.full_like(lbm, float("inf"))),
-                     thresh)
-
-
-def _cluster_keep_all(cdists, radii, thresh):
-    """Exhaustive-probe variant of :func:`_cluster_keep_fused`."""
-    return _keep_any(cdists - radii[None, :], thresh)
+def _cluster_keep(lbc, radii, pm, thresh):
+    """Cluster-radius filter: a center's bound (:func:`_wcd_admissible`)
+    less the radius, + candidacy where ``pm`` is given + threshold test ->
+    (C,) bool of clusters some live query still needs."""
+    lbm = lbc - radii[None, :]
+    if pm is not None:
+        lbm = torch.where(pm, lbm, torch.full_like(lbm, float("inf")))
+    return _keep_any(lbm, thresh)
 
 
 def _probe_dists(sup, r, mask, vecs, centers):
@@ -279,17 +313,21 @@ class CascadePruner:
        mode). Seed docs come from each query's nearest probed clusters,
        just enough to cover k members.
     2. *ivf radius filter*: after the seed solve fixes the threshold t_q,
-       ``wcd(q, n) >= ||qcent - center_c|| - radius_c`` drops whole
-       clusters.
+       the centroid bound of the cluster's center less its radius
+       (:func:`_wcd_admissible`) drops whole clusters.
     3. *pivot* (optional): ``max_p |d(q, p) - d(n, p)|`` over the index's
        pivot words, a lower bound on WCD at O(P) per pair.
-    4. *wcd*: the centroid bound on the surviving clusters' members.
+    4. *wcd*: the centroid bound on the surviving clusters' members. WCD
+       ranks the seed candidates; the prune tests use
+       :func:`_wcd_admissible` (:meth:`prune_bounds`), which the truncated
+       score cannot undercut.
     5. *rwmd*: the tight bound, on the WCD survivors only, over the
        vocabulary those survivors use (Hopper kernel K2s).
 
-    At ``nprobe = n_clusters`` the exact-top-k story is that of
-    ``"wcd+rwmd"`` (guaranteed through RWMD, near-exact through WCD's
-    truncated-iteration caveat). At smaller ``nprobe`` un-probed clusters
+    At ``nprobe = n_clusters`` the result is the exhaustive top-k (every
+    prune test an admissible bound, up to ``prune_slack``), except through
+    the pivot stage, which bounds WCD and stays near-exact. At smaller
+    ``nprobe`` un-probed clusters
     are never scored: approximate retrieval whose recall is monotone in
     ``nprobe`` for a fixed query batch. The driver is
     :meth:`repro_torch.core.index.WmdEngine.search`; this class owns the
@@ -322,10 +360,15 @@ class CascadePruner:
             nprobe = self.nprobe
         c = cl.n_clusters
         np_eff = c if nprobe is None else max(1, min(int(nprobe), c))
-        cdists, qcent = _probe_dists(sup, r, mask, index.vecs, cl.centers)
-        # pm None == exhaustive probe: the stages skip the candidacy lookups
-        pm = None if np_eff == c else _probe_mask(cdists, np_eff)
-        return cdists, pm, qcent
+        with trace.span("wmd.cascade.probe") as s:
+            if s:
+                s.set(docs_in=index.n_docs, clusters=c, nprobe=np_eff)
+            cdists, qcent = _probe_dists(sup, r, mask, index.vecs,
+                                         cl.centers)
+            # pm None == exhaustive probe: the stages skip the candidacy
+            # lookups
+            pm = None if np_eff == c else _probe_mask(cdists, np_eff)
+            return cdists, pm, qcent
 
     def seed_candidates(self, index, cdists, mask, k: int,
                         pm) -> np.ndarray:
@@ -335,24 +378,31 @@ class CascadePruner:
         cl = index.clusters
         sizes = cl.sizes
         c = cl.n_clusters
-        # one device -> host copy for cdists, the live rows and pm
-        parts = [cdists, mask.sum(dim=1, keepdim=True).to(cdists.dtype)]
-        if pm is not None:
-            parts.append(pm.to(cdists.dtype))
-        host = torch.cat(parts, dim=1).cpu().numpy()
-        cd, live = host[:, :c], host[:, c] > 0
-        pm_np = None if pm is None else host[:, c + 1:] > 0
-        chosen = np.zeros(c, bool)
-        for q in np.nonzero(live)[0]:
-            covered = 0
-            for ci in np.argsort(cd[q], kind="stable"):
-                if (pm_np is not None and not pm_np[q, ci]) or sizes[ci] == 0:
-                    continue
-                chosen[ci] = True
-                covered += sizes[ci]
-                if covered >= k:
-                    break
-        return self.cluster_members(index, chosen)
+        with trace.span("wmd.cascade.seed") as s:
+            # one device -> host copy for cdists, the live rows and pm
+            parts = [cdists, mask.sum(dim=1, keepdim=True).to(cdists.dtype)]
+            if pm is not None:
+                parts.append(pm.to(cdists.dtype))
+            host = _read(torch.cat(parts, dim=1))
+            cd, live = host[:, :c], host[:, c] > 0
+            pm_np = None if pm is None else host[:, c + 1:] > 0
+            chosen = np.zeros(c, bool)
+            for q in np.nonzero(live)[0]:
+                covered = 0
+                for ci in np.argsort(cd[q], kind="stable"):
+                    if ((pm_np is not None and not pm_np[q, ci])
+                            or sizes[ci] == 0):
+                        continue
+                    chosen[ci] = True
+                    covered += sizes[ci]
+                    if covered >= k:
+                        break
+            out = self.cluster_members(index, chosen)
+            if s:
+                probed = (index.n_docs if pm_np is None
+                          else int(sizes[pm_np[live].any(axis=0)].sum()))
+                s.set(docs_in=probed, docs_out=int(out.size))
+            return out
 
     def id_qmask(self, index, pm, ids_pad: np.ndarray, n_real: int,
                  qp: int | None = None) -> torch.Tensor:
@@ -362,17 +412,9 @@ class CascadePruner:
         if pm is None:
             valid = _live_slots(ids_pad.size, n_real, dev)
             return valid[None, :].expand(qp, ids_pad.size)
-        assign_ids = torch.as_tensor(
-            index.clusters.assign[ids_pad].astype(np.int64), device=dev)
-        return _ids_qmask(pm, assign_ids, n_real)
-
-    def cluster_keep(self, index, cdists, pm, thresh) -> np.ndarray:
-        """(C,) host bool: clusters some live query still needs, by the
-        cluster-radius triangle bound against the threshold."""
-        radii = self._radii(index)
-        if pm is None:
-            return _cluster_keep_all(cdists, radii, thresh).cpu().numpy()
-        return _cluster_keep_fused(cdists, radii, pm, thresh).cpu().numpy()
+        assign = index.clusters.assign[ids_pad].astype(np.int64)
+        trace.add("h2d_pageable_bytes", assign.nbytes)
+        return _ids_qmask(pm, torch.as_tensor(assign, device=dev), n_real)
 
     def cluster_members(self, index, keep_c: np.ndarray) -> np.ndarray:
         """Cluster-sorted doc ids of the kept clusters (host slice concat,
@@ -386,12 +428,15 @@ class CascadePruner:
 
     @staticmethod
     def _radii(index) -> torch.Tensor:
-        return torch.as_tensor(index.clusters.radii.astype(np.float32),
-                               device=index.device)
+        radii = index.clusters.radii.astype(np.float32)
+        trace.add("h2d_pageable_bytes", radii.nbytes)
+        return torch.as_tensor(radii, device=index.device)
 
     # --------------------------------------- post-threshold survivor pass
-    def survivors(self, index, sup, r, mask, cdists, pm, qcent, thresh,
-                  exclude: np.ndarray | None = None) -> np.ndarray:
+    def survivors(self, index, sup, r, mask, pm, qcent, thresh,
+                  exclude: np.ndarray | None = None,
+                  live_rows: np.ndarray | None = None,
+                  admissible: bool = True) -> np.ndarray:
         """The post-threshold prune pass, cheapest-first: cluster-radius
         filter, then the per-doc stages on what remains. Returns surviving
         doc ids (``exclude``, typically the solved seeds, removed).
@@ -399,33 +444,37 @@ class CascadePruner:
         The cluster filter and a speculative dense first-stage pass over
         every doc are issued together and read back in one copy: when the
         cluster filter keeps at least ``DENSE_CUTOFF`` of the corpus the
-        dense result replaces the gathered first stage (the radius bound
-        under-estimates every member's WCD, so the dense test subsumes the
-        cluster filter), else it is discarded."""
+        dense result replaces the gathered first stage (both tests are
+        admissible, so the dense one alone is), else it is discarded.
+        ``live_rows`` (each staged
+        query's live rows, known while tracing) fills the
+        ``wmd.cascade.rwmd`` span's ``rows`` and ``queries``;
+        ``admissible=False`` prunes by the plain WCD (:func:`_prune_bound`)."""
         cl = index.clusters
+        bound = _prune_bound(admissible)
         radii = self._radii(index)
         stages = self.stages
-        qd = _query_pivot_dists(index, qcent) if stages[0] == "pivot" else None
+        a = index.vecs[sup]
+        c = cl.centers.shape[0]
         keep_d_dev = None
-        if pm is None:
-            keep_c_dev = _cluster_keep_all(cdists, radii, thresh)
-            if stages[0] == "wcd":
-                keep_d_dev = _wcd_dense_keep_all(qcent, index.centroids,
-                                                 thresh)
-            elif qd is not None:
+        if stages[0] == "wcd":
+            # the centers' and every document's bounds in one pass
+            lb = bound(qcent, a, mask,
+                       torch.cat([cl.centers, index.centroids]))
+            keep_d_dev = _dense_keep(lb[:, c:], pm, cl.assign_dev, thresh)
+        else:
+            lb = bound(qcent, a, mask, cl.centers)
+        keep_c_dev = _cluster_keep(lb[:, :c], radii, pm, thresh)
+        if stages[0] == "pivot":
+            qd = _query_pivot_dists(index, qcent)
+            if pm is None:
                 keep_d_dev = _pivot_dense_keep_all(qd, index.doc_pivot_d,
                                                    thresh)
-        else:
-            keep_c_dev = _cluster_keep_fused(cdists, radii, pm, thresh)
-            if stages[0] == "wcd":
-                keep_d_dev = _wcd_dense_keep(qcent, index.centroids, pm,
-                                             cl.assign_dev, thresh)
-            elif qd is not None:
+            else:
                 keep_d_dev = _pivot_dense_keep(qd, index.doc_pivot_d, pm,
                                                cl.assign_dev, thresh)
-        c = keep_c_dev.shape[0]
-        both = (keep_c_dev if keep_d_dev is None
-                else torch.cat([keep_c_dev, keep_d_dev])).cpu().numpy()
+        both = _read(keep_c_dev if keep_d_dev is None
+                     else torch.cat([keep_c_dev, keep_d_dev]))
         keep_c = both[:c]
         kept_docs = int(cl.sizes[keep_c[:cl.n_clusters]].sum())
         if (keep_d_dev is not None
@@ -441,44 +490,81 @@ class CascadePruner:
                 break
             sp = _pad_pow2_ids(surv)
             if stage == "rwmd":
-                prep = self._rwmd_prep(index, sup, mask, sp, surv.size)
-                if prep is None:
-                    break
-                minm, rel, val = _upload_prep(prep, index.device)
-                if pm is None:
-                    keep = _rwmd_keep_all(minm, rel, val, surv.size, thresh)
-                else:
-                    assign_ids = torch.as_tensor(
-                        cl.assign[sp].astype(np.int64), device=index.device)
-                    keep = _rwmd_keep(minm, rel, val, pm, assign_ids,
-                                      surv.size, thresh)
+                with trace.span("wmd.cascade.rwmd") as s:
+                    prep = self._rwmd_prep(index, sup, mask, sp, surv.size)
+                    if prep is None:
+                        break
+                    minm, rel, val = _upload_prep(prep, index.device)
+                    if pm is None:
+                        keep = _rwmd_keep_all(minm, rel, val, surv.size,
+                                              thresh)
+                    else:
+                        assign = cl.assign[sp].astype(np.int64)
+                        trace.add("h2d_pageable_bytes", assign.nbytes)
+                        keep = _rwmd_keep(
+                            minm, rel, val, pm,
+                            torch.as_tensor(assign, device=index.device),
+                            surv.size, thresh)
+                    out = surv[_read(keep)[:surv.size]]
+                    if s:
+                        _rwmd_attrs(s, live_rows, minm.shape[1], surv.size)
+                        s.set(docs_out=int(out.size))
             else:
-                lbm = self.stage_bounds(
-                    stage, index, sup, r, mask, sp, surv.size,
-                    self.id_qmask(index, pm, sp, surv.size,
-                                  qp=sup.shape[0]), qcent=qcent)
-                keep = _keep_any(lbm, thresh)
-            surv = surv[keep.cpu().numpy()[:surv.size]]
+                with trace.span("wmd.cascade.first") as s:
+                    lbm = self.prune_bounds(
+                        stage, index, sup, r, mask, sp, surv.size,
+                        self.id_qmask(index, pm, sp, surv.size,
+                                      qp=sup.shape[0]), qcent=qcent,
+                        admissible=admissible)
+                    out = surv[_read(_keep_any(lbm, thresh))[:surv.size]]
+                    if s:
+                        s.set(docs_in=int(surv.size), docs_out=int(out.size))
+            surv = out
         return surv
 
     # ----------------------------------------------------- bounded stages
+    def prune_bounds(self, stage: str, index, sup, r, mask,
+                     ids_pad: np.ndarray, n_real: int, qmask: torch.Tensor,
+                     qcent: torch.Tensor | None = None,
+                     live_rows: np.ndarray | None = None,
+                     admissible: bool = True) -> torch.Tensor:
+        """:meth:`stage_bounds` as the prune tests take them: the ``"wcd"``
+        stage by :func:`_wcd_admissible`, which the truncated score cannot
+        undercut, in WCD's place (which ranks); by WCD itself where
+        ``admissible`` is False."""
+        if stage != "wcd" or not admissible:
+            return self.stage_bounds(stage, index, sup, r, mask, ids_pad,
+                                     n_real, qmask, qcent, live_rows)
+        if qcent is None:
+            qcent = _query_centroids(sup, r, mask, index.vecs)
+        ids_np = ids_pad.astype(np.int64)
+        trace.add("h2d_pageable_bytes", ids_np.nbytes)
+        ids = torch.as_tensor(ids_np, device=index.device)
+        lb = _wcd_admissible(qcent, index.vecs[sup], mask,
+                             index.centroids[ids])
+        return torch.where(qmask, lb, torch.full_like(lb, float("inf")))
+
     def stage_bounds(self, stage: str, index, sup, r, mask,
                      ids_pad: np.ndarray, n_real: int, qmask: torch.Tensor,
-                     qcent: torch.Tensor | None = None) -> torch.Tensor:
+                     qcent: torch.Tensor | None = None,
+                     live_rows: np.ndarray | None = None) -> torch.Tensor:
         """Masked lower bounds for one cascade stage on a candidate id
         array: (Qp, Sp) on the device, +inf wherever ``qmask`` is False
         (pad slots and per-query non-candidates). Pass the ``qcent`` the
-        probe computed to skip recomputing the query centroids."""
+        probe computed to skip recomputing the query centroids;
+        ``live_rows`` as :meth:`survivors`."""
         if stage in ("wcd", "pivot"):
             if qcent is None:
                 qcent = _query_centroids(sup, r, mask, index.vecs)
-            ids = torch.as_tensor(ids_pad.astype(np.int64),
-                                  device=index.device)
+            ids_np = ids_pad.astype(np.int64)
+            trace.add("h2d_pageable_bytes", ids_np.nbytes)
+            ids = torch.as_tensor(ids_np, device=index.device)
             if stage == "pivot":
                 return _pivot_stage(_query_pivot_dists(index, qcent),
                                     index.doc_pivot_d, ids, qmask)
             return _wcd_stage(qcent, index.centroids, ids, qmask)
-        return self._rwmd_subset(index, sup, mask, ids_pad, n_real, qmask)
+        return self._rwmd_subset(index, sup, mask, ids_pad, n_real, qmask,
+                                 live_rows)
 
     @staticmethod
     def _rwmd_vocab(index, ids_pad, n_real):
@@ -490,7 +576,10 @@ class CascadePruner:
         the candidate vocabulary to a power of two (>= 128) repeating
         vids[0]; those columns are computed and never gathered, so K2s here
         gets Vc unpadded: the bounds are the same, with up to half the
-        columns fewer."""
+        columns fewer. The distinct words are marked in a (V,) table and
+        each live slot's rank read from its running count: what np.unique
+        and np.searchsorted give, without sorting the thousands of
+        candidates an exact cascade can pass here."""
         idx = index.docs_host.idx[ids_pad]
         val = index.docs_host.val[ids_pad].copy()
         val[n_real:] = 0.0                    # pad rows out of the vocab
@@ -499,16 +588,18 @@ class CascadePruner:
         lg = min(-(-lg // 8) * 8, idx.shape[1])
         idx, val = idx[:, :lg], val[:, :lg]
         live = val > 0
-        vids = np.unique(idx[live])
-        if vids.size == 0:
+        words = idx[live]
+        if words.size == 0:
             return None
-        if vids[0] < 0 or vids[-1] >= index.vocab_size:
+        if words.min() < 0 or words.max() >= index.vocab_size:
             # K2s on the card does not check its ids: do it here, on the host
             raise ValueError(f"candidate word ids outside the vocabulary "
                              f"[0, {index.vocab_size})")
-        rel = np.searchsorted(vids, idx).astype(np.int32)
-        rel[~live] = 0
-        return vids.astype(np.int64), rel, val
+        mark = np.zeros(index.vocab_size, bool)
+        mark[words] = True
+        rel = np.zeros(idx.shape, np.int32)
+        rel[live] = (np.cumsum(mark, dtype=np.int32) - 1)[words]
+        return np.flatnonzero(mark).astype(np.int64), rel, val
 
     def _rwmd_prep(self, index, sup, mask, ids_pad, n_real):
         """The RWMD subset stage's producer: :meth:`_rwmd_vocab`, then K2s
@@ -516,21 +607,31 @@ class CascadePruner:
         block shrinks to (Q*B, Vc), Vc the distinct live words. Returns
         (minm device (Qp, Vc), rel np, val np) or None when the subset has
         no live word."""
-        staged = self._rwmd_vocab(index, ids_pad, n_real)
+        with trace.span("wmd.cascade.vocab") as s:
+            staged = self._rwmd_vocab(index, ids_pad, n_real)
+            if s:
+                s.set(docs=int(n_real),
+                      vc=0 if staged is None else int(staged[0].size))
         if staged is None:
             return None
         vids, rel, val = staged
+        trace.add("h2d_pageable_bytes", vids.nbytes)
         minm = ops.rwmd_min_cdist(
             index.vecs[sup], mask, index.vecs,
             vocab_ids=torch.as_tensor(vids, device=index.device))
         return minm, rel, val
 
-    def _rwmd_subset(self, index, sup, mask, ids_pad, n_real, qmask):
+    def _rwmd_subset(self, index, sup, mask, ids_pad, n_real, qmask,
+                     live_rows=None):
         """Masked RWMD bounds on a candidate subset (see _rwmd_prep)."""
-        prep = self._rwmd_prep(index, sup, mask, ids_pad, n_real)
-        if prep is None:
-            return torch.where(qmask, 0.0, float("inf"))
-        return _rwmd_epilogue(*_upload_prep(prep, index.device), qmask)
+        with trace.span("wmd.cascade.rwmd") as s:
+            prep = self._rwmd_prep(index, sup, mask, ids_pad, n_real)
+            if prep is None:
+                return torch.where(qmask, 0.0, float("inf"))
+            minm, rel, val = _upload_prep(prep, index.device)
+            if s:
+                _rwmd_attrs(s, live_rows, minm.shape[1], n_real)
+            return _rwmd_epilogue(minm, rel, val, qmask)
 
 
 def _query_pivot_dists(index, qcent) -> torch.Tensor:
@@ -544,9 +645,24 @@ def _query_pivot_dists(index, qcent) -> torch.Tensor:
 
 
 def _upload_prep(prep, device):
+    """K2s's (Qp, Vc) output with the candidates' ``rel`` (as int64) and
+    ``val`` uploaded, in a ``wmd.cascade.vocab`` span."""
     minm, rel, val = prep
-    return (minm, torch.as_tensor(rel.astype(np.int64), device=device),
-            torch.as_tensor(val, device=device))
+    with trace.span("wmd.cascade.vocab"):
+        rel = rel.astype(np.int64)
+        trace.add("h2d_pageable_bytes", rel.nbytes + val.nbytes)
+        return (minm, torch.as_tensor(rel, device=device),
+                torch.as_tensor(val, device=device))
+
+
+def _rwmd_attrs(span, live_rows, vc: int, docs_in: int) -> None:
+    """A ``wmd.cascade.rwmd`` span's attributes: the staged queries' live
+    rows and their count (where known), the candidate vocabulary's size
+    and the documents bounded."""
+    if live_rows is not None:
+        span.set(rows=int(live_rows.sum()),
+                 queries=int(np.count_nonzero(live_rows)))
+    span.set(vc=int(vc), docs_in=int(docs_in))
 
 
 PRUNERS = ("wcd", "rwmd", "wcd+rwmd", "ivf", "ivf+wcd", "ivf+rwmd",

@@ -8,11 +8,11 @@
             trace.add("h2d_pageable_bytes", a.nbytes)
 
 ``span(name)`` costs one flag test and returns a shared falsy no-op while
-tracing is off; ``add(name, n)`` the same. ``enable()`` turns tracing on
-and clears what was recorded; ``records()`` reads it. A span records
-``(name, start_ns, end_ns, parent, request)`` plus its own ``id`` and
-attributes: ``parent`` is the id of the span open on the same thread when
-it began (``None`` at a root) and ``request`` the id of that thread's
+tracing is off; ``add(name, n)`` and ``on()`` the same. ``enable()`` turns
+tracing on and clears what was recorded; ``records()`` reads it. A span
+records ``(name, start_ns, end_ns, parent, request)`` plus its own ``id``
+and attributes: ``parent`` is the id of the span open on the same thread
+when it began (``None`` at a root) and ``request`` the id of that thread's
 root span. Open spans live on a per-thread stack, so pool threads never
 mix theirs. Times are ``time.perf_counter_ns()``, the clock of the
 benchmark's call stamps.
@@ -119,6 +119,11 @@ def span(name: str):
     if not _on:
         return _OFF
     return _Open(name)
+
+
+def on() -> bool:
+    """Is tracing on? (For work done only to fill a span's attributes.)"""
+    return _on
 
 
 def add(name: str, n: int) -> None:

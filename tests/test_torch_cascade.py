@@ -113,15 +113,109 @@ def test_dedup_corpus_byte_identical(seed):
 @pytest.mark.parametrize("spec", SPECS)
 def test_cascade_nprobe_all_equals_exhaustive(dedup, own_engine, spec):
     """Every cascade at nprobe=None returns the port's exhaustive top-k,
-    and on this separable corpus solves a strict subset (test_ivf.py's
-    bound: under half the corpus)."""
+    and on this separable corpus every cascade with an RWMD stage solves a
+    strict subset (test_ivf.py's bound: under half the corpus). Centroid
+    bounds alone (``"ivf+wcd"``) prune by what the truncated score cannot
+    undercut, which at w = 32 is nothing here: the query's words spread
+    wider than the documents lie apart (the reference's WCD, which
+    assumes the query's weights, pruned half)."""
     qs = list(dedup.queries)
     ex = own_engine.search(qs, K, prune=None)
     got = own_engine.search(qs, K, prune=spec)
     np.testing.assert_array_equal(got.indices, ex.indices)
     np.testing.assert_allclose(got.distances, ex.distances, rtol=1e-5,
                                atol=0)
-    assert (got.solved < own_engine.index.n_docs // 2).all(), got.solved
+    n = own_engine.index.n_docs
+    if "rwmd" in spec:
+        assert (got.solved < n // 2).all(), got.solved
+    else:
+        assert (got.solved <= n).all(), got.solved
+
+
+@pytest.mark.parametrize("lam", [1.0, 10.0])
+def test_admissible_centroid_bound_never_passes_the_score(lam):
+    """``_wcd_admissible`` is below the engine's truncated score for every
+    (query, document) pair, as a center's less the cluster's radius is for
+    every member; WCD itself is not, at lam = 10 on near-duplicates."""
+    from repro_torch.core.prune import (_query_centroids, _wcd_admissible,
+                                        _wcd_bounds)
+    c = dedup_corpus(96, vocab=512, embed_dim=16, seed=25)
+    eng = WmdEngine(build_index(c.docs, c.vecs, device="cpu"), lam=lam,
+                    n_iter=15, precision="log")
+    index = eng.index
+    qs = list(c.queries)
+    sup, r, mask = _staged(eng, qs)
+    qcent = _query_centroids(sup, r, mask, index.vecs)
+    a = index.vecs[sup]
+    score = eng.query_batch(qs).numpy()[:, index.to_external(
+        np.arange(index.n_docs))]                   # storage order
+    slack = eng.prune_slack * (np.abs(score) + 1.0)
+    lb = _wcd_admissible(qcent, a, mask, index.centroids).numpy()[:len(qs)]
+    assert (lb <= score + slack).all()
+    cl = index.clusters
+    lbc = (_wcd_admissible(qcent, a, mask, cl.centers).numpy()[:len(qs)]
+           - cl.radii[None, :])
+    assert (lbc[:, cl.assign] <= score + slack).all()
+    if lam == 10.0:
+        wcd = _wcd_bounds(qcent, index.centroids).numpy()[:len(qs)]
+        assert (wcd > score + slack).any()
+
+
+def test_cascade_exact_where_wcd_passes_the_score():
+    """At lam = 10 the reference's WCD prunes true top-k documents of
+    near-duplicate queries (their truncated score lies below WCD: here two
+    of the four queries lose one); the port's cascade still returns the
+    exhaustive top-k."""
+    c = dedup_corpus(96, vocab=512, embed_dim=16, seed=25)
+    eng = WmdEngine(build_index(c.docs, c.vecs, device="cpu"), lam=10.0,
+                    n_iter=15, precision="log")
+    qs = list(c.queries)
+    ex = eng.search(qs, 10, prune=None)
+    ref = RefEngine(ref_build_index(c.docs, c.vecs), lam=10.0, n_iter=15,
+                    impl="sparse", precision="log")
+    dropped = ref.search(qs, 10, prune="ivf+wcd+rwmd")
+    lost = (np.sort(dropped.indices, axis=1)
+            != np.sort(ex.indices, axis=1)).any(axis=1)
+    assert lost.sum() == 2
+    for spec in ("ivf+wcd+rwmd", "ivf+wcd"):
+        got = eng.search(qs, 10, prune=spec)
+        np.testing.assert_array_equal(np.sort(got.indices, axis=1),
+                                      np.sort(ex.indices, axis=1))
+        np.testing.assert_allclose(np.sort(got.distances, axis=1),
+                                   np.sort(ex.distances, axis=1), rtol=1e-5)
+
+
+def test_wcd_cascade_bound_drops_what_the_reference_drops():
+    """``cascade_bound="wcd"`` prunes by WCD itself, as the reference's
+    cascade does: on the corpus above it returns the reference's answers,
+    two of them short of the exhaustive top-k, and solves no more
+    documents than the admissible bound does."""
+    c = dedup_corpus(96, vocab=512, embed_dim=16, seed=25)
+    index = build_index(c.docs, c.vecs, device="cpu")
+    qs = list(c.queries)
+    ref = RefEngine(ref_build_index(c.docs, c.vecs), lam=10.0, n_iter=15,
+                    impl="sparse", precision="log")
+    want = ref.search(qs, 10, prune="ivf+wcd+rwmd")
+    wcd = WmdEngine(index, lam=10.0, n_iter=15, precision="log",
+                    cascade_bound="wcd")
+    got = wcd.search(qs, 10, prune="ivf+wcd+rwmd")
+    np.testing.assert_array_equal(np.sort(got.indices, axis=1),
+                                  np.sort(want.indices, axis=1))
+    ex = wcd.search(qs, 10, prune=None)
+    lost = (np.sort(got.indices, axis=1)
+            != np.sort(ex.indices, axis=1)).any(axis=1)
+    assert lost.sum() == 2
+    adm = WmdEngine(index, lam=10.0, n_iter=15, precision="log")
+    assert (got.solved <= adm.search(qs, 10, prune="ivf+wcd+rwmd").solved
+            ).all()
+
+
+@pytest.mark.parametrize("bound", ["admissible", "wcd"])
+def test_cascade_bound_is_checked_and_kept(own_engine, bound):
+    index = own_engine.index
+    assert WmdEngine(index, cascade_bound=bound).cascade_bound == bound
+    with pytest.raises(ValueError, match="cascade_bound"):
+        WmdEngine(index, cascade_bound=bound.upper())
 
 
 @pytest.mark.parametrize("k", [1, 5])
@@ -268,9 +362,17 @@ def test_probe_masks_match_reference(dedup, carried, nprobe):
         assert (ppm.sum(dim=1) == nprobe).all()
 
 
-def _hold(got, want, eng, qs, tol):
+def _hold(got, want, eng, qs, tol, cascade=False):
+    """``got`` as the reference's ``want``: the same ids, distances within
+    ``tol``, each the port's own exhaustive score. A cascade's prune tests
+    take a bound below the reference's WCD (``prune._wcd_admissible``), so
+    it solves every document the reference's does, and may solve more."""
     np.testing.assert_array_equal(got.indices, want.indices)
-    np.testing.assert_array_equal(got.solved, want.solved)
+    if cascade:
+        assert (got.solved >= want.solved).all(), (got.solved, want.solved)
+        assert (got.solved <= eng.index.n_docs).all()
+    else:
+        np.testing.assert_array_equal(got.solved, want.solved)
     np.testing.assert_allclose(got.distances, want.distances, **tol)
     full = eng.query_batch(qs).numpy()
     real = got.indices >= 0
@@ -287,7 +389,19 @@ def test_cascade_matches_reference(parity, spec, nprobe, case):
     qs, index, ref_res = parity[case]
     eng = WmdEngine(index, lam=lam, n_iter=n_iter)
     _hold(eng.search(qs, k, prune=spec, nprobe=nprobe),
-          ref_res[spec, nprobe], eng, qs, tol)
+          ref_res[spec, nprobe], eng, qs, tol, cascade=True)
+
+
+@pytest.mark.parametrize("case", sorted(PARITY))
+@pytest.mark.parametrize("spec", ["ivf+wcd", "ivf+wcd+rwmd"])
+def test_wcd_bound_cascade_solves_what_the_reference_solves(parity, spec,
+                                                            case):
+    """With ``cascade_bound="wcd"`` the port prunes as the reference does:
+    the same ids and the same number of documents solved."""
+    _, lam, n_iter, k, tol = PARITY[case]
+    qs, index, ref_res = parity[case]
+    eng = WmdEngine(index, lam=lam, n_iter=n_iter, cascade_bound="wcd")
+    _hold(eng.search(qs, k, prune=spec), ref_res[spec, None], eng, qs, tol)
 
 
 @pytest.mark.parametrize("case", sorted(PARITY))
@@ -399,7 +513,7 @@ def test_rwmd_stage_vocab_unpadded_matches_reference(parity, carried):
                                    ids.size, ref_qm)
     np.testing.assert_allclose(lb.numpy(), np.asarray(ref_lb), **tol)
     _hold(eng.search(qs, k, prune="ivf+wcd+rwmd"),
-          ref_res["ivf+wcd+rwmd", None], eng, qs, tol)
+          ref_res["ivf+wcd+rwmd", None], eng, qs, tol, cascade=True)
 
 
 def test_resolve_cascade_specs():

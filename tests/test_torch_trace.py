@@ -15,7 +15,7 @@ from repro_torch import trace
 from repro_torch.core import one_to_many
 from repro_torch.core.index import WmdEngine, build_index
 from repro_torch.core.shard_index import ShardedWmdEngine, shard_corpus
-from repro_torch.data.corpus import make_corpus
+from repro_torch.data.corpus import dedup_corpus, make_corpus
 from repro_torch.kernels import ops
 
 
@@ -282,6 +282,108 @@ def test_rwmd_search_records_the_span_tree(engine, corpus):
     assert set(rec.counters) == {"h2d_pageable_bytes"}
 
 
+@pytest.fixture(scope="module")
+def dedup():
+    """Six bases of 16 near-duplicate variants each and four queries that
+    are further variants: the cascade prunes most of it."""
+    return dedup_corpus(96, vocab=512, embed_dim=16, seed=3)
+
+
+def _open_span():
+    stack = getattr(trace._local, "stack", None)
+    return stack[-1].name if stack else None
+
+
+def test_cascade_search_records_the_span_tree(dedup, monkeypatch):
+    """``search(prune="ivf+wcd+rwmd")`` with every cluster probed: the
+    cascade's stages in order, their documents in and out, K2s's span
+    with the staging's live rows, and every read of a device result
+    inside a ``wmd.wait`` span."""
+    index = build_index(dedup.docs, dedup.vecs, device="cpu")
+    eng = WmdEngine(index, lam=1.0, n_iter=10, impl="kernel")
+    qs = list(dedup.queries)
+    reads = []
+    cpu = torch.Tensor.cpu
+
+    def read(self, *a, **kw):
+        reads.append(_open_span())
+        return cpu(self, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", read)
+    res, rec = _traced(lambda: eng.search(qs, 5, prune="ivf+wcd+rwmd"))
+    monkeypatch.undo()
+    assert reads and set(reads) == {"wmd.wait"}
+    _, chunks = eng._plan(qs)
+    wait = ("wmd.wait", ())
+    chunk_stage = (("wmd.stage", ()), ("wmd.kblock", ())) * len(chunks)
+    solve = (("wmd.subset", ()),) + (("wmd.solve", ()),) * len(chunks) \
+        + (wait,)
+    rwmd = ("wmd.cascade.rwmd", (("wmd.cascade.vocab", ()),
+                                 ("wmd.cascade.vocab", ()), wait))
+    first = ("wmd.cascade.first", (wait,))
+    head = (("wmd.plan", ()), ("wmd.stage", ()), ("wmd.cascade.probe", ()),
+            ("wmd.cascade.seed", (wait,)), first) + chunk_stage + solve
+    (root,) = _tree(rec)
+    assert root[0] == "wmd.search"
+    # the kept clusters' members take the gathered first stage, or the
+    # dense pass replaced it; the RWMD stage meets what is left
+    keeps = [("wmd.cascade.keep", (wait,) + inner + (rwmd,))
+             for inner in ((), (first,))]
+    assert root[1] in [head + (keep,) + solve + (("wmd.rank", ()),)
+                       for keep in keeps]
+    by = {s.name: s for s in rec.spans}
+    firsts = [s for s in rec.spans if s.name == "wmd.cascade.first"]
+    n, c = index.n_docs, index.clusters.n_clusters
+    assert by["wmd.cascade.probe"].attrs == {"docs_in": n, "clusters": c,
+                                            "nprobe": c}
+    seed = by["wmd.cascade.seed"].attrs
+    assert seed["docs_in"] == n and 5 <= seed["docs_out"] <= n
+    assert firsts[0].attrs["docs_in"] == seed["docs_out"]
+    keep, r = by["wmd.cascade.keep"].attrs, by["wmd.cascade.rwmd"].attrs
+    assert keep["docs_in"] == n
+    # solved: the seed picks, then the survivors of the keep
+    assert (res.solved == firsts[0].attrs["docs_out"]
+            + keep["docs_out"]).all()
+    assert r["docs_out"] == keep["docs_out"] < r["docs_in"] < n
+    vr = [int((q > 0).sum()) for q in qs]
+    assert (r["rows"], r["queries"]) == (sum(vr), len(qs))
+    vocab = [s.attrs for s in rec.spans
+             if s.name == "wmd.cascade.vocab" and s.attrs]
+    assert vocab == [{"docs": r["docs_in"], "vc": r["vc"]}]
+    assert 0 < r["vc"] < 512
+
+
+@pytest.mark.parametrize("nprobe", [None, 3])
+@pytest.mark.parametrize("kw", [
+    {}, {"tol": 1e-3}, {"impl": "sparse", "tol": 1e-3, "warm_start": True}],
+    ids=["fixed", "scoped", "scoped_warm"])
+def test_cascade_counts_the_bytes_it_uploads(dedup, kw, nprobe,
+                                             monkeypatch):
+    """The cascade's ``h2d_pageable_bytes`` equals the bytes of every host
+    array it hands to the device (each ``torch.as_tensor`` of a numpy
+    array onto a device): staging, the first stage's ids and candidacy,
+    the radii, the seed distances, K2s's vocabulary and its candidates'
+    rows, the subsets and the solves' masks."""
+    eng = WmdEngine(build_index(dedup.docs, dedup.vecs, device="cpu"),
+                    **{"lam": 1.0, "n_iter": 10, "impl": "kernel", **kw})
+    qs = list(dedup.queries)
+    sent = []
+    as_tensor = torch.as_tensor
+
+    def upload(data, *a, **kw_):
+        if isinstance(data, np.ndarray) and kw_.get("device") is not None:
+            sent.append(data.nbytes)
+        return as_tensor(data, *a, **kw_)
+
+    monkeypatch.setattr(torch, "as_tensor", upload)
+    _, rec = _traced(lambda: eng.search(qs, 5, prune="ivf+wcd+rwmd",
+                                        nprobe=nprobe))
+    monkeypatch.undo()
+    assert any(s.name == "wmd.cascade.rwmd" for s in rec.spans)
+    assert sum(sent) > 0
+    assert rec.counters == {"h2d_pageable_bytes": sum(sent)}
+
+
 def test_one_to_many_records_the_span_tree(corpus):
     q = corpus.queries[0]
     out, rec = _traced(lambda: one_to_many(q, corpus.docs, corpus.vecs,
@@ -343,7 +445,8 @@ def test_sharded_search_records_its_merge(corpus):
 
 @pytest.mark.parametrize("device", [
     "cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
-@pytest.mark.parametrize("path", ["exhaustive", "rwmd", "one_to_many"])
+@pytest.mark.parametrize("path", ["exhaustive", "rwmd", "cascade",
+                                  "one_to_many"])
 def test_results_and_launches_are_the_same_traced_or_not(corpus, path,
                                                           device):
     """Bit for bit, and the hand-written kernels' launch counts (which
@@ -356,6 +459,7 @@ def test_results_and_launches_are_the_same_traced_or_not(corpus, path,
     call = {
         "exhaustive": lambda: eng.search(qs, 5, prune=None),
         "rwmd": lambda: eng.search(qs, 5, prune="rwmd"),
+        "cascade": lambda: eng.search(qs, 5, prune="ivf+wcd+rwmd"),
         "one_to_many": lambda: (one_to_many(
             qs[1], corpus.docs, corpus.vecs, lam=1.0, n_iter=10,
             impl="kernel", device=device).cpu(),),
